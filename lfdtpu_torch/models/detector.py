@@ -1,0 +1,292 @@
+# LFD detector, inference surface (`lfdtpu/models/detector.py`, reference
+# `lfd/model/lfd.py`). Training (target assignment, losses) comes with the
+# training port; the loss types are taken by class name only, because they
+# decide the head's channels and the decode.
+#
+# Public tensors keep lfdtpu's NHWC layout; inside, the net runs on NCHW
+# tensors, in torch.channels_last memory format on the engine path, so the
+# NHWC <-> NCHW permutes at the boundary are views, not copies.
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..ops import points as point_ops
+from ..ops.decode import DecodeSpec, decode_predictions, detections_to_lists
+from .layers import Scale, kaiming_out_
+
+INDEPENDENT_REGRESSION_LOSSES = ("SmoothL1Loss", "MSELoss", "L1Loss")
+UNION_REGRESSION_LOSSES = ("IoULoss", "GIoULoss", "DIoULoss", "CIoULoss")
+CLASSIFICATION_LOSSES = ("BCEWithLogitsLoss", "FocalLoss", "CrossEntropyLoss",
+                         "QualityFocalLoss")
+
+
+class DetectionNet(nn.Module):
+    """backbone -> neck -> head -> dense (B, P, C) / (B, P, 4) outputs.
+    Takes NHWC input; row p of the output is level-major, then (y, x)
+    row-major within a level (the order of ops/points.py)."""
+
+    def __init__(self, backbone, neck, head):
+        super().__init__()
+        self._backbone = backbone
+        self._neck = neck
+        self._head = head
+
+    def forward(self, x):
+        feats = self._backbone(x.permute(0, 3, 1, 2))
+        if self._neck is not None:
+            feats = self._neck(feats)
+        flat = []
+        for outs in self._head(feats):
+            flat.append(torch.cat(
+                [o.permute(0, 2, 3, 1).reshape(o.shape[0], -1, o.shape[1])
+                 for o in outs], dim=1))
+        return tuple(flat)
+
+
+def pad_to_multiple(image: np.ndarray, multiple: int):
+    """Right/bottom zero-pad an HWC image to a multiple (the reference's batch
+    assembly, `data_loader.py:70-85`)."""
+    h, w = image.shape[:2]
+    ph = (h + multiple - 1) // multiple * multiple
+    pw = (w + multiple - 1) // multiple * multiple
+    if ph == h and pw == w:
+        return image
+    out = np.zeros((ph, pw) + image.shape[2:], dtype=image.dtype)
+    out[:h, :w] = image
+    return out
+
+
+def _read_image(image):
+    if isinstance(image, str):
+        import cv2  # only for paths: the GPU machines carry no OpenCV
+
+        path = image
+        image = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+        if image is None:
+            raise FileNotFoundError(f"cannot read image {path}")
+    image = np.asarray(image)
+    if image.ndim == 2:
+        image = np.tile(image[..., None], (1, 1, 3))
+    return image
+
+
+class LFD:
+    """Anchor-free multi-scale detector (inference): owns the net (an
+    nn.Module holding the weights), the point grids and the decode."""
+
+    ASSIGN_MODES = ("longer", "shorter", "sqrt", "dist")
+    detector_name = "LFD"
+
+    def __init__(
+        self,
+        backbone=None,
+        neck=None,
+        head=None,
+        num_classes=80,
+        regression_ranges=((0, 64), (64, 128), (128, 256), (256, 512), (512, 1024)),
+        gray_range_factors=(0.9, 1.1),
+        range_assign_mode="dist",
+        point_strides=(8, 16, 32, 64, 128),
+        classification_loss_type="FocalLoss",
+        regression_loss_type="IoULoss",
+        distance_to_bbox_mode="exp",
+        classification_threshold=0.05,
+        nms_threshold=0.4,
+        pre_nms_bbox_limit=1000,
+        post_nms_bbox_limit=100,
+    ):
+        assert len(regression_ranges) == len(point_strides)
+        assert range_assign_mode in self.ASSIGN_MODES
+        assert distance_to_bbox_mode in ("exp", "sigmoid")
+        assert classification_loss_type in CLASSIFICATION_LOSSES
+        assert regression_loss_type in (INDEPENDENT_REGRESSION_LOSSES
+                                        + UNION_REGRESSION_LOSSES)
+        self.net = DetectionNet(backbone, neck, head)
+        self.num_classes = num_classes
+        self.regression_ranges = tuple(tuple(r) for r in regression_ranges)
+        self.gray_range_factors = (min(gray_range_factors), max(gray_range_factors))
+        self.gray_ranges = point_ops.compute_gray_ranges(
+            self.regression_ranges, self.gray_range_factors)
+        self.range_assign_mode = range_assign_mode
+        self.point_strides = tuple(int(s) for s in point_strides)
+        self.classification_loss_type = classification_loss_type
+        self.regression_loss_type = (
+            "independent" if regression_loss_type in INDEPENDENT_REGRESSION_LOSSES
+            else "union")
+        self.distance_to_bbox_mode = distance_to_bbox_mode
+        self.classification_threshold = classification_threshold
+        self.nms_threshold = nms_threshold
+        self.pre_nms_bbox_limit = pre_nms_bbox_limit
+        self.post_nms_bbox_limit = post_nms_bbox_limit
+        self._level_info_cache = {}
+        self._level_array_cache = {}
+
+    # ----------------------------------------------------------------- net
+    @property
+    def cls_channels(self):
+        return (self.num_classes + 1
+                if self.classification_loss_type == "CrossEntropyLoss"
+                else self.num_classes)
+
+    def init(self, generator, device=None):
+        """(Re)initialize every weight from `generator` with lfdtpu's
+        initializers (kaiming fan-out normal convs, N(0, 0.01) head convs,
+        zero biases, identity norms, unit Scales). Returns the net, in eval
+        mode, on `device` if given."""
+        with torch.no_grad():
+            for name, m in self.net.named_modules():
+                if isinstance(m, nn.Conv2d):
+                    if name.startswith("_head."):
+                        m.weight.normal_(0.0, 0.01, generator=generator)
+                    else:
+                        kaiming_out_(m.weight, generator)
+                    if m.bias is not None:
+                        m.bias.zero_()
+                elif isinstance(m, (nn.BatchNorm2d, nn.GroupNorm)):
+                    m.weight.fill_(1.0)
+                    m.bias.zero_()
+                    if isinstance(m, nn.BatchNorm2d):
+                        m.reset_running_stats()
+                elif isinstance(m, Scale):
+                    m._scale.fill_(1.0)
+        if device is not None:
+            self.net.to(device)
+        return self.net.eval()
+
+    # --------------------------------------------------------- level info
+    def level_info(self, input_hw):
+        key = (int(input_hw[0]), int(input_hw[1]))
+        if key not in self._level_info_cache:
+            sizes = point_ops.feature_map_sizes_for_input(key, self.point_strides)
+            self._level_info_cache[key] = point_ops.concat_level_info(
+                sizes, self.point_strides, self.regression_ranges, self.gray_ranges)
+        return self._level_info_cache[key]
+
+    def level_sizes(self, input_hw):
+        """Per-level point counts (h*w per level) for an input size."""
+        sizes = point_ops.feature_map_sizes_for_input(
+            (int(input_hw[0]), int(input_hw[1])), self.point_strides)
+        return tuple(h * w for h, w in sizes)
+
+    def level_arrays(self, input_hw, device="cpu"):
+        """Per-point constants as tensors on `device`, made once per
+        (resolution, device) and reused by every call."""
+        key = (int(input_hw[0]), int(input_hw[1]), str(torch.device(device)))
+        if key not in self._level_array_cache:
+            self._level_array_cache[key] = {
+                k: torch.as_tensor(v, device=device)
+                for k, v in self.level_info(key[:2]).items()
+            }
+        return self._level_array_cache[key]
+
+    def num_points(self, input_hw):
+        return self.level_info(input_hw)["points"].shape[0]
+
+    # ------------------------------------------------------------ decode
+    def decode_spec(self, classification_threshold=None, nms_threshold=None,
+                    class_agnostic=False, max_det=None):
+        if self.regression_loss_type == "independent":
+            reg_mode = "independent"
+        else:
+            reg_mode = self.distance_to_bbox_mode
+        return DecodeSpec(
+            num_classes=self.num_classes,
+            use_softmax=self.classification_loss_type == "CrossEntropyLoss",
+            reg_mode=reg_mode,
+            score_thr=float(self.classification_threshold
+                            if classification_threshold is None
+                            else classification_threshold),
+            nms_iou=float(self.nms_threshold if nms_threshold is None
+                          else nms_threshold),
+            pre_nms_points=self.pre_nms_bbox_limit,
+            nms_budget=self.pre_nms_bbox_limit,
+            max_det=self.post_nms_bbox_limit if max_det is None else max_det,
+            class_agnostic=class_agnostic,
+        )
+
+    def decode_batch(self, outputs, input_hw, valid_hw, spec, level_arrays=None):
+        """Decode a batch of (B, P, Cc) / (B, P, 4) outputs; valid_hw (B, 2)
+        holds each image's unpadded (h, w) extent inside the input."""
+        cls_o, reg_o = outputs
+        info = (level_arrays if level_arrays is not None
+                else self.level_arrays(input_hw, cls_o.device))
+        points, ranges = info["points"], info["ranges"]
+        valid_hw = valid_hw.float()
+        point_valid = ((points[None, :, 0] < valid_hw[:, 1:2])
+                       & (points[None, :, 1] < valid_hw[:, 0:1]))
+        return decode_predictions(cls_o, reg_o, points, ranges, spec, valid_hw,
+                                  point_valid=point_valid)
+
+    def decode_single(self, outputs_single, input_hw, valid_hw, spec,
+                      level_arrays=None):
+        """Decode one image's (P, Cc) / (P, 4) outputs (`lfdtpu`'s
+        decode_single); valid_hw is its unpadded (h, w)."""
+        cls_o, reg_o = outputs_single
+        vhw = torch.as_tensor(valid_hw, dtype=torch.float32,
+                              device=cls_o.device).reshape(1, 2)
+        out = self.decode_batch((cls_o[None], reg_o[None]), input_hw, vhw, spec,
+                                level_arrays)
+        return {k: v[0] for k, v in out.items()}
+
+    # ------------------------------------------------- reference-API paths
+    def predict_for_single_image(self, image, aug_pipeline=None,
+                                 classification_threshold=None,
+                                 nms_threshold=None, class_agnostic=False,
+                                 size_divisor=None):
+        """Single-image prediction (`lfd/model/lfd.py:544-655`) through the
+        net on its own device and dtype.
+
+        image: path or HWC numpy array (BGR, like the reference's cv2 flow);
+        aug_pipeline: optional callable on a {"image": ...} sample.
+        Returns [[class_label, score, x1, y1, w, h], ...].
+        """
+        image = _read_image(image)
+        if aug_pipeline is not None:
+            image = _read_image(aug_pipeline({"image": image})["image"])
+        image = image.astype(np.float32)
+        h, w = image.shape[:2]
+        padded = pad_to_multiple(image, size_divisor or max(self.point_strides))
+        input_hw = tuple(int(v) for v in padded.shape[:2])
+        spec = self.decode_spec(classification_threshold, nms_threshold,
+                                class_agnostic=class_agnostic)
+        p = next(self.net.parameters())
+        with torch.inference_mode():
+            x = torch.as_tensor(padded, device=p.device)[None].to(p.dtype)
+            cls_o, reg_o = self.net(x)
+            decoded = self.decode_single((cls_o[0], reg_o[0]), input_hw, (h, w), spec)
+        return detections_to_lists(decoded)
+
+    def predict_for_single_image_with_engine(self, engine, image, aug_pipeline=None):
+        """Predict through a compiled deployment engine (the analogue of the
+        reference's `predict_for_single_image_with_tensorrt`): the image is
+        zero-padded into the engine's input resolution."""
+        return self.predict_for_batch_with_engine(engine, [image], aug_pipeline)[0]
+
+    def predict_for_batch_with_engine(self, engine, images, aug_pipeline=None):
+        """Batched engine predict: each image is zero-padded into the
+        engine's bucket and its own valid extent rides the (B, 2) valid_hw.
+        The batch must match the engine's batch_size.
+        Returns one [[class_label, score, x1, y1, w, h], ...] per image."""
+        eh, ew = engine.input_resolution
+        processed = []
+        for image in images:
+            image = _read_image(image)
+            if aug_pipeline is not None:
+                image = _read_image(aug_pipeline({"image": image})["image"])
+            h, w = image.shape[:2]
+            if h > eh or w > ew:
+                raise ValueError(f"image {h}x{w} exceeds engine resolution {eh}x{ew}")
+            processed.append(image)
+        batch = np.zeros((len(processed), eh, ew, 3), processed[0].dtype)
+        hws = np.zeros((len(processed), 2), np.float32)
+        for i, image in enumerate(processed):
+            h, w = image.shape[:2]
+            batch[i, :h, :w] = image
+            hws[i] = (h, w)
+        decoded = engine(batch, hws)
+        decoded = {k: v.cpu().numpy() for k, v in decoded.items()}
+        return [detections_to_lists({k: v[i] for k, v in decoded.items()})
+                for i in range(len(processed))]
