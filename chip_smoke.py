@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (lfdtpu_torch) on one NVIDIA GPU.
 
-Drives the port's main path, the WIDERFACE-L inference engine at full width
+Drives the port's two paths at full width, the WIDERFACE-L inference engine
 (random seeded weights with randomized BatchNorm statistics and affines and
-head Scales, so the BN folding is exercised), and checks it:
+head Scales, so the BN folding is exercised) and the WIDERFACE-L training
+step, and checks them:
 
   1. card     the GPU's name and power limit (nvidia-smi);
   2. build    the hand-written kernels from lfdtpu_torch/csrc/*.cu (nvcc);
@@ -22,7 +23,21 @@ head Scales, so the BN folding is exercised), and checks it:
               against the plain bf16 engine and both against fp32; decode + NMS on the same dense
               outputs, K1 against plain, rows identical; the fp32 engine on the
               GPU against the fp32 port on the CPU at 256x256, TF32 off;
-  6. timings  CUDA events, warmup excluded: ms/frame of the three engines and
+  6. train    the training path (forward, on-device target assignment,
+              loss, backward, clip, SGD) of WIDERFACE-L, which runs no
+              hand-written kernel: two fp32 steps at 128x128, batch 2, on the
+              GPU against the same steps on the CPU (loss, grad_norm, every
+              param and BN running stat, max|err|/max|ref| < 1e-3, TF32 off);
+              then full width at the workload's batch 64, crop 480x480, GT
+              padded to 200 rows, SGD momentum 0.9 / wd 1e-4, clip 10 and its
+              warmup schedule, 20 steps in fp32 and 20 in bf16 autocast on one
+              fixed batch (finite, loss falls, fp32 master weights, BN stats
+              move; ms/step, images/s, peak memory); then the trained net is
+              compiled into the bf16 engine with all three kernels and serves
+              a frame (every kernel launches, rows checked), and
+              predict_for_single_image on the net left in train() leaves its
+              running stats alone;
+  7. timings  CUDA events, warmup excluded: ms/frame of the three engines and
               each kernel against its plain version, beside the card's name
               and power limit.
 
@@ -55,6 +70,13 @@ DENSE_BF16_TOL = 0.1
 DENSE_BF16_VS_PLAIN = 1.5
 DENSE_FP32_TOL = 1e-3       # GPU vs CPU fp32 engine, max|err| / max|ref|
 TIMED_ITERS, WARMUP = 20, 3
+# training: the WIDERFACE workload's batch, crop, GT padding and optimizer
+# (`workloads/WIDERFACE_train/_common.py:82-158`)
+TRAIN_HW, TRAIN_BATCH, TRAIN_NMAX = (480, 480), 64, 200
+TRAIN_STEPS, TRAIN_WARMUP = 20, 3
+TRAIN_SMALL_HW = (128, 128)  # GPU vs CPU, batch 2
+TRAIN_TOL = 1e-3            # GPU vs CPU fp32 steps, max|err| / max|ref|
+SERVE_HW = (480, 480)       # the trained net's engine
 
 
 class SmokeFailure(RuntimeError):
@@ -250,18 +272,23 @@ def serve(det, engines, hw, rng):
                                              (h, w * 3 // 4), (h // 2, w // 3))]
     rows_batch = det.predict_for_batch_with_engine(engines["bf16_kernels_b4"], batch)
     for rows, img in zip(rows_single + rows_batch, singles + batch):
-        arr = np.asarray(rows, np.float64).reshape(-1, 6)
-        check(np.isfinite(arr).all(), "non-finite detection rows")
-        check(len(arr) <= det.post_nms_bbox_limit, "more rows than max_det")
-        if len(arr):
-            check((arr[:, 0] == 0).all(), "label outside the single WIDERFACE class")
-            check(((arr[:, 1] > 0) & (arr[:, 1] <= 1)).all(), "score outside (0, 1]")
-            x2 = arr[:, 2] + arr[:, 4] - 1
-            y2 = arr[:, 3] + arr[:, 5] - 1
-            check((arr[:, 2] >= 0).all() and (x2 <= img.shape[1] + 1e-3).all()
-                  and (arr[:, 3] >= 0).all() and (y2 <= img.shape[0] + 1e-3).all(),
-                  "box outside the image's valid extent")
+        check_rows(det, rows, img)
     return rows_single, rows_batch
+
+
+def check_rows(det, rows, img):
+    """Reference result rows [label, score, x, y, w, h] of one image."""
+    arr = np.asarray(rows, np.float64).reshape(-1, 6)
+    check(np.isfinite(arr).all(), "non-finite detection rows")
+    check(len(arr) <= det.post_nms_bbox_limit, "more rows than max_det")
+    if len(arr):
+        check((arr[:, 0] == 0).all(), "label outside the single WIDERFACE class")
+        check(((arr[:, 1] > 0) & (arr[:, 1] <= 1)).all(), "score outside (0, 1]")
+        x2 = arr[:, 2] + arr[:, 4] - 1
+        y2 = arr[:, 3] + arr[:, 5] - 1
+        check((arr[:, 2] >= 0).all() and (x2 <= img.shape[1] + 1e-3).all()
+              and (arr[:, 3] >= 0).all() and (y2 <= img.shape[0] + 1e-3).all(),
+              "box outside the image's valid extent")
 
 
 def check_engine_parity(det, engines, hw, rng):
@@ -322,6 +349,179 @@ def check_fp32_reference(det, device, rng):
           "fp32 GPU detections disagree with the CPU reference")
 
 
+# ----------------------------------------------------------------- train
+
+def train_schedule():
+    """The workload's lr: base 0.1, milestones (500, 700, 900), linear
+    warmup over 200 iterations from ratio 0.1."""
+    from lfdtpu_torch.execution import MultiStepLRSchedule, WarmupSetting
+
+    return MultiStepLRSchedule(0.1, (500, 700, 900), 0.1,
+                               WarmupSetting(False, "linear", 200, 0.1))
+
+
+def train_batch(rng, n, hw, nmax):
+    """Seeded uint8 frames and GT padded to `nmax` rows: 0 to 30 face boxes
+    per image (about 20% of images none, the sampler's neg_ratio 0.2), sides
+    log-uniform over the WIDERFACE scales 4..320 px (capped at 0.8 of the
+    crop), aspect 0.7..1.3, inside the crop."""
+    images = frames(rng, n, hw)
+    gt = np.zeros((n, nmax, 4), np.float32)
+    labels = np.zeros((n, nmax), np.int32)
+    mask = np.zeros((n, nmax), bool)
+    top = min(320.0, 0.8 * min(hw))
+    for i in range(n):
+        k = 0 if rng.rand() < 0.2 else rng.randint(1, 31)
+        side = np.exp(rng.uniform(np.log(4.0), np.log(top), k))
+        aspect = rng.uniform(0.7, 1.3, k)
+        w = np.minimum(side * aspect, hw[1])
+        h = np.minimum(side / aspect, hw[0])
+        x = rng.uniform(0, 1, k) * (hw[1] - w)
+        y = rng.uniform(0, 1, k) * (hw[0] - h)
+        gt[i, :k] = np.stack([x, y, w, h], -1)
+        mask[i, :k] = True
+    return images, gt, labels, mask
+
+
+def init_weights(seed):
+    """WIDERFACE-L's state_dict from lfdtpu's initializers, seeded."""
+    import torch
+
+    from lfdtpu_torch import zoo
+
+    det = zoo.widerface_lfd("L")
+    det.init(torch.Generator().manual_seed(seed))
+    return det.net.state_dict()
+
+
+def make_trainer(device, hw, weights, mixed_precision=False):
+    """A fresh WIDERFACE-L with `weights`, its TrainState on `device` and the
+    train step: SGD momentum 0.9, wd 1e-4, clip 10, uint8 frames through the
+    workload's device preprocess."""
+    from lfdtpu_torch import zoo
+    from lfdtpu_torch.deploy import make_device_preprocess
+    from lfdtpu_torch.execution import SGD
+    from lfdtpu_torch.parallel import create_train_state, make_train_step
+
+    det = zoo.widerface_lfd("L")
+    det.net.load_state_dict(weights)
+    state = create_train_state(det, SGD(momentum=0.9, weight_decay=1e-4), device=device)
+    step = make_train_step(det, state.optimizer, hw, clip_max_norm=10.0,
+                           preprocess=make_device_preprocess(MEAN, STD),
+                           mixed_precision=mixed_precision)
+    return det, step
+
+
+def check_train_gpu_vs_cpu(device):
+    """Two fp32 steps at 128x128, batch 2, on the GPU and on the CPU from
+    the same weights and batch. The weights have randomized norm affines and Scales (build_detector): a
+    parameter that starts at zero would be held to the relative error of
+    its update alone."""
+    weights = build_detector("cpu", seed=7).net.state_dict()
+    batch = train_batch(np.random.RandomState(7), 2, TRAIN_SMALL_HW, TRAIN_NMAX)
+    sched = train_schedule()
+    runs = {}
+    for dev in (device, "cpu"):
+        det, step = make_trainer(dev, TRAIN_SMALL_HW, weights)
+        metrics = [step(*batch, sched(0, it), True) for it in range(2)]
+        runs[dev] = (det.net, metrics)
+    (gnet, gm), (cnet, cm) = runs[device], runs["cpu"]
+    worst = {}
+    for i, (g, c) in enumerate(zip(gm, cm)):
+        for k in ("loss", "grad_norm"):
+            worst[f"step{i + 1} {k}"] = rel_err(g[k].cpu(), c[k])
+    csd = cnet.state_dict()
+    for kind in ("param", "running"):
+        errs = [rel_err(v.cpu(), csd[k]) for k, v in gnet.state_dict().items()
+                if v.is_floating_point() and ("running" in k) == (kind == "running")]
+        worst[f"{kind} (worst of {len(errs)})"] = max(errs)
+    print(f"train fp32 GPU vs CPU, WIDERFACE-L {TRAIN_SMALL_HW[0]}x{TRAIN_SMALL_HW[1]} "
+          "batch 2, 2 steps, "
+          "max|err|/max|ref|: " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+          + f" (tol {TRAIN_TOL}, TF32 off)")
+    check(gm[0]["num_pos"].item() > 0, "the small training batch has no positives")
+    check(max(worst.values()) < TRAIN_TOL, "GPU train steps disagree with the CPU")
+
+
+def train_full_width(device, card):
+    """WIDERFACE-L at full width on the workload's batch: TRAIN_STEPS steps
+    in fp32 and in bf16 on one fixed batch. Returns the bf16-trained
+    detector."""
+    import torch
+
+    weights = init_weights(11)
+    batch = [torch.as_tensor(a, device=device) for a in train_batch(
+        np.random.RandomState(11), TRAIN_BATCH, TRAIN_HW, TRAIN_NMAX)]
+    n_boxes = int(batch[3].sum())
+    sched = train_schedule()
+    for name, mp in (("fp32", False), ("bf16", True)):
+        det, step = make_trainer(device, TRAIN_HW, weights, mixed_precision=mp)
+        stats0 = {k: v.clone() for k, v in det.net.state_dict().items() if "running" in k}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        metrics = [step(*batch, sched(0, it), True) for it in range(TRAIN_WARMUP)]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for it in range(TRAIN_WARMUP, TRAIN_STEPS):
+            metrics.append(step(*batch, sched(0, it), True))
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / (TRAIN_STEPS - TRAIN_WARMUP)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        vals = {k: torch.stack([m[k] for m in metrics]).cpu().numpy() for k in metrics[0]}
+        print(f"train {name} WIDERFACE-L batch {TRAIN_BATCH} {TRAIN_HW[0]}x{TRAIN_HW[1]} "
+              f"({n_boxes} GT boxes, Nmax {TRAIN_NMAX}): {ms:.2f} ms/step, "
+              f"{TRAIN_BATCH * 1000.0 / ms:.1f} images/s, peak {peak:.2f} GiB allocated "
+              f"[{card}]")
+        print(f"  loss {vals['loss'][0]:.4f} -> {vals['loss'][-1]:.4f} over {TRAIN_STEPS} "
+              f"steps, grad_norm {vals['grad_norm'][0]:.3f} -> {vals['grad_norm'][-1]:.3f}, "
+              f"num_pos {vals['num_pos'][0]:.0f}, lr {sched(0, 0):.5f} -> "
+              f"{sched(0, TRAIN_STEPS - 1):.5f}")
+        check(all(np.isfinite(v).all() for v in vals.values()),
+              f"non-finite train metrics ({name})")
+        check(vals["loss"][-1] < vals["loss"][0], f"the {name} loss did not fall")
+        check(all(p.dtype == torch.float32 for p in det.net.parameters()),
+              f"master weights left fp32 ({name})")
+        moved = sum(not torch.equal(v, stats0[k]) for k, v in det.net.state_dict().items()
+                    if k in stats0)
+        check(moved == len(stats0), f"{len(stats0) - moved} BN running stats did not "
+              f"move ({name})")
+    return det
+
+
+def train_to_serve(det, device, counters):
+    """The trained net (left in train mode) into the bf16 engine with all
+    three kernels, one frame served; then predict_for_single_image on the
+    net itself must leave its running stats and its mode alone."""
+    import torch
+
+    from lfdtpu_torch.deploy import compile_inference, make_device_preprocess
+
+    engine = compile_inference(det, SERVE_HW, "bf16", preprocess=make_device_preprocess(
+        MEAN, STD), device=device, nms_use_kernel=True, kernel_convs=True,
+        kernel_stem=True)
+    frame = frames(np.random.RandomState(13), 1, (SERVE_HW[0] - 24, SERVE_HW[1] - 8))[0]
+    for c in counters:
+        c.launches = 0
+    rows = det.predict_for_single_image_with_engine(engine, frame)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    print(f"trained net served through the bf16 kernel engine {SERVE_HW}: "
+          f"{len(rows)} rows; launches {launches}")
+    for name, n in launches.items():
+        check(n > 0, f"the trained net's engine never launched {name}")
+    check_rows(det, rows, frame)
+    check(det.net.training, "the trained net left train mode")
+    before = {k: v.clone() for k, v in det.net.state_dict().items()}
+    image = (frame.astype(np.float32) / 255.0 - 0.5) / 0.5
+    rows_direct = det.predict_for_single_image(image)
+    same = all(torch.equal(v, before[k]) for k, v in det.net.state_dict().items())
+    print(f"predict_for_single_image on the net in train mode: {len(rows_direct)} rows, "
+          f"state unchanged={same}, still training={det.net.training}")
+    check(same and det.net.training, "predict_for_single_image changed the training net")
+
+
 # ------------------------------------------------------------------ main
 
 def main():
@@ -374,7 +574,21 @@ def main():
     imgs = check_engine_parity(det, engines, HW, rng)
     check_fp32_reference(det, device, rng)
 
-    print(f"[6 timings] {card}")
+    print("[6 train]")
+    t0 = time.time()
+    check_train_gpu_vs_cpu(device)
+    for c in counters:
+        c.launches = 0
+    trained = train_full_width(device, card)
+    torch.cuda.synchronize()
+    print("hand-written kernel launches during training (its path runs none): "
+          f"{ {c.__name__: c.launches for c in counters} }")
+    train_to_serve(trained, device, counters)
+    del trained
+    torch.cuda.empty_cache()
+    print(f"train phase {time.time() - t0:.1f} s")
+
+    print(f"[7 timings] {card}")
     x = torch.as_tensor(imgs, device=device)
     vhw = torch.tensor([HW[0] - 8, HW[1]], dtype=torch.float32, device=device)
     # the eager engines are partly host bound, so their times move between

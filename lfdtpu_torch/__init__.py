@@ -4,6 +4,8 @@
 #
 # Ported so far: the WIDERFACE inference engine (models, decode, NMS, the
 # compiled engine) with its three hand-written Hopper kernels in `csrc/`:
-# NMS keep mask (K1), fused uint8 stem (K2) and the FasterBlock 3x3 conv (K3).
+# NMS keep mask (K1), fused uint8 stem (K2) and the FasterBlock 3x3 conv (K3);
+# and the training step (target assignment, losses, optimizers, schedules,
+# `parallel.make_train_step`), which runs no hand-written kernel.
 
 __version__ = "0.1.0"

@@ -1,5 +1,6 @@
 # Weight bridge lfdtpu -> lfdtpu_torch: a JAX variables tree
-# ({"params", "batch_stats"} with numpy leaves) into the port's state_dict.
+# ({"params", "batch_stats"} with numpy leaves) into the port's state_dict,
+# and a JAX TrainState (with its SGD momentum) into the port's TrainState.
 # The inverse of `lfdtpu/execution/torch_convert.py::
 # convert_reference_state_dict`, which reads a port state_dict because the
 # port uses the upstream reference's module names.
@@ -162,3 +163,30 @@ def jax_variables_to_state_dict(variables, net):
             raise ValueError(f"{k}: shape {a.shape} != port {tuple(v.shape)}")
         sd[k] = torch.from_numpy(np.array(a, np.float32))
     return sd
+
+
+def jax_train_state_to_port(state, train_state):
+    """Continue a JAX run in the port: load an lfdtpu TrainState
+    (params, batch_stats, opt_state) into the port's TrainState `state`
+    (parallel/data_parallel.py) in place.
+
+    params and batch_stats go into state.net as jax_variables_to_state_dict
+    maps them; every parameter's SGD momentum buffer is set from
+    opt_state.momentum_buf (lfdtpu's SGD / GroupedSGD state), mapped the
+    same way. Strict: an unmapped leaf, a missing momentum buffer or an
+    opt_state without one raises."""
+    net = state.net
+    batch_stats = train_state.batch_stats
+    net.load_state_dict(jax_variables_to_state_dict(
+        {"params": train_state.params, "batch_stats": batch_stats}, net), strict=True)
+    bufs = getattr(train_state.opt_state, "momentum_buf", None)
+    if bufs is None:
+        raise ValueError(f"opt_state {type(train_state.opt_state).__name__} has no "
+                         "momentum_buf (only lfdtpu's SGD / GroupedSGD state converts)")
+    buf_sd = jax_variables_to_state_dict({"params": bufs, "batch_stats": batch_stats}, net)
+    owner = {id(p): name for name, p in net.named_parameters()}
+    for group in state.optimizer.param_groups:
+        for p in group["params"]:
+            # empty_like keeps the parameter's memory format (channels_last)
+            state.optimizer.state[p]["momentum_buffer"] = torch.empty_like(p).copy_(
+                buf_sd[owner[id(p)]])

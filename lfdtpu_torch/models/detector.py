@@ -1,7 +1,7 @@
-# LFD detector, inference surface (`lfdtpu/models/detector.py`, reference
-# `lfd/model/lfd.py`). Training (target assignment, losses) comes with the
-# training port; the loss types are taken by class name only, because they
-# decide the head's channels and the decode.
+# LFD detector (`lfdtpu/models/detector.py`, reference `lfd/model/lfd.py`):
+# the net, the point grids, the loss with on-device target assignment, and
+# the decode. The loss objects (ops/loss_wrappers.py) decide by class name
+# the head's channels, the loss branches and the decode.
 #
 # Public tensors keep lfdtpu's NHWC layout; inside, the net runs on NCHW
 # tensors, in torch.channels_last memory format on the engine path, so the
@@ -13,14 +13,13 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops import assign as assign_ops
+from ..ops import boxes as box_ops
 from ..ops import points as point_ops
 from ..ops.decode import DecodeSpec, decode_predictions, detections_to_lists
+from ..ops.loss_wrappers import (CLASSIFICATION_LOSSES, INDEPENDENT_REGRESSION_LOSSES,
+                                 UNION_REGRESSION_LOSSES)
 from .layers import Scale, kaiming_out_
-
-INDEPENDENT_REGRESSION_LOSSES = ("SmoothL1Loss", "MSELoss", "L1Loss")
-UNION_REGRESSION_LOSSES = ("IoULoss", "GIoULoss", "DIoULoss", "CIoULoss")
-CLASSIFICATION_LOSSES = ("BCEWithLogitsLoss", "FocalLoss", "CrossEntropyLoss",
-                         "QualityFocalLoss")
 
 
 class DetectionNet(nn.Module):
@@ -74,8 +73,9 @@ def _read_image(image):
 
 
 class LFD:
-    """Anchor-free multi-scale detector (inference): owns the net (an
-    nn.Module holding the weights), the point grids and the decode."""
+    """Anchor-free multi-scale detector with soft center-score targets: owns
+    the net (an nn.Module holding the weights), the point grids, the loss
+    and the decode."""
 
     ASSIGN_MODES = ("longer", "shorter", "sqrt", "dist")
     detector_name = "LFD"
@@ -90,9 +90,11 @@ class LFD:
         gray_range_factors=(0.9, 1.1),
         range_assign_mode="dist",
         point_strides=(8, 16, 32, 64, 128),
-        classification_loss_type="FocalLoss",
-        regression_loss_type="IoULoss",
+        classification_loss_func=None,
+        regression_loss_func=None,
         distance_to_bbox_mode="exp",
+        enable_classification_weight=False,
+        enable_regression_weight=False,
         classification_threshold=0.05,
         nms_threshold=0.4,
         pre_nms_bbox_limit=1000,
@@ -101,9 +103,10 @@ class LFD:
         assert len(regression_ranges) == len(point_strides)
         assert range_assign_mode in self.ASSIGN_MODES
         assert distance_to_bbox_mode in ("exp", "sigmoid")
-        assert classification_loss_type in CLASSIFICATION_LOSSES
-        assert regression_loss_type in (INDEPENDENT_REGRESSION_LOSSES
-                                        + UNION_REGRESSION_LOSSES)
+        cls_name = type(classification_loss_func).__name__
+        reg_name = type(regression_loss_func).__name__
+        assert cls_name in CLASSIFICATION_LOSSES, cls_name
+        assert reg_name in INDEPENDENT_REGRESSION_LOSSES + UNION_REGRESSION_LOSSES, reg_name
         self.net = DetectionNet(backbone, neck, head)
         self.num_classes = num_classes
         self.regression_ranges = tuple(tuple(r) for r in regression_ranges)
@@ -112,11 +115,14 @@ class LFD:
             self.regression_ranges, self.gray_range_factors)
         self.range_assign_mode = range_assign_mode
         self.point_strides = tuple(int(s) for s in point_strides)
-        self.classification_loss_type = classification_loss_type
+        self.classification_loss_func = classification_loss_func
+        self.regression_loss_func = regression_loss_func
+        self.classification_loss_type = cls_name
         self.regression_loss_type = (
-            "independent" if regression_loss_type in INDEPENDENT_REGRESSION_LOSSES
-            else "union")
+            "independent" if reg_name in INDEPENDENT_REGRESSION_LOSSES else "union")
         self.distance_to_bbox_mode = distance_to_bbox_mode
+        self.enable_classification_weight = enable_classification_weight
+        self.enable_regression_weight = enable_regression_weight
         self.classification_threshold = classification_threshold
         self.nms_threshold = nms_threshold
         self.pre_nms_bbox_limit = pre_nms_bbox_limit
@@ -184,6 +190,88 @@ class LFD:
 
     def num_points(self, input_hw):
         return self.level_info(input_hw)["points"].shape[0]
+
+    # -------------------------------------------------------------- loss
+    def get_loss(self, outputs, gt_bboxes, gt_labels, gt_mask, input_hw,
+                 level_arrays=None):
+        """Loss with on-device target assignment (`lfdtpu` get_loss,
+        `lfd/model/lfd.py:284-395` semantics), in the outputs' dtype (float32
+        from the train step; float64 works too), with no host sync.
+
+        Args:
+          outputs: (cls (B, P, Cc), reg (B, P, 4)).
+          gt_bboxes: (B, Nmax, 4) float xywh, zero-padded.
+          gt_labels: (B, Nmax) int.
+          gt_mask: (B, Nmax) bool.
+          input_hw: (h, w) of the network input.
+          level_arrays: the per-point constants on the outputs' device
+            (default: level_arrays(input_hw, device), cached).
+        Returns {"loss": 0-d tensor, "loss_values": {loss,
+          classification_loss, regression_loss, num_pos}}.
+        """
+        cls_pred, reg_pred = outputs
+        B, P = cls_pred.shape[:2]
+        info = (level_arrays if level_arrays is not None
+                else self.level_arrays(input_hw, cls_pred.device))
+        assert info["points"].shape[0] == P, (info["points"].shape, P)
+
+        cls_t, reg_t = assign_ops.lfd_assign(
+            info["points"], info["strides"], info["ranges"], info["gray_ranges"],
+            gt_bboxes.to(info["points"].dtype), gt_labels, gt_mask.bool(), self.num_classes,
+            range_assign_mode=self.range_assign_mode,
+            normalize_by_range=self.regression_loss_type == "independent")
+
+        cls_pred_f = cls_pred.reshape(-1, self.cls_channels)
+        reg_pred_f = reg_pred.reshape(-1, 4)
+        cls_t_f = cls_t.reshape(-1, self.num_classes)
+        reg_t_f = reg_t.reshape(-1, 4)
+
+        # gray rows dropped; positives = max score >= 0.001 (`lfd.py:314-323`)
+        valid_row = (cls_t_f.amin(dim=-1) >= 0).to(cls_pred.dtype)
+        max_scores, max_idx = cls_t_f.max(dim=-1)
+        pos_row = valid_row * (max_scores >= 0.001).to(cls_pred.dtype)
+        num_pos = pos_row.sum()
+        weight = max_scores * pos_row
+        cls_avg = weight.sum() if self.enable_classification_weight else num_pos + 1.0
+
+        cname = self.classification_loss_type
+        if cname == "BCEWithLogitsLoss":  # soft score targets
+            cls_loss = self.classification_loss_func(
+                cls_pred_f, cls_t_f.clamp(min=0.0), weight=valid_row[:, None],
+                avg_factor=cls_avg)
+        else:
+            labels = torch.where(pos_row > 0, max_idx,
+                                 torch.full_like(max_idx, self.num_classes))
+            # QFL takes (label, score); Focal and CE (over C+1) the labels
+            target = (labels, max_scores) if cname == "QualityFocalLoss" else labels
+            cls_loss = self.classification_loss_func(
+                cls_pred_f, target, weight=valid_row, avg_factor=cls_avg)
+
+        reg_weight_rows = weight if self.enable_regression_weight else pos_row
+        reg_avg = (weight.sum() if self.enable_regression_weight else num_pos).clamp(min=1e-6)
+
+        if self.regression_loss_type == "independent":
+            reg_loss = self.regression_loss_func(
+                reg_pred_f, reg_t_f, weight=reg_weight_rows[:, None], avg_factor=reg_avg)
+        else:
+            pts_f = info["points"].repeat(B, 1)
+            target_xyxy = box_ops.distance2bbox(pts_f, reg_t_f)
+            if self.distance_to_bbox_mode == "exp":
+                # clamped: unsupervised (zero-weight) rows can drift to exp
+                # overflow, and inf areas make the IoU losses' union
+                # inf-inf=NaN, which weight*loss (NaN*0) cannot mask
+                dist = torch.exp(reg_pred_f.clamp(max=30.0))
+            else:
+                rmax = info["ranges"].amax(dim=-1, keepdim=True).repeat(B, 1)
+                dist = torch.sigmoid(reg_pred_f) * rmax
+            pred_xyxy = box_ops.distance2bbox(pts_f, dist)
+            reg_loss = self.regression_loss_func(
+                pred_xyxy, target_xyxy, weight=reg_weight_rows, avg_factor=reg_avg)
+
+        loss = cls_loss + reg_loss
+        return dict(loss=loss, loss_values=dict(
+            loss=loss, classification_loss=cls_loss, regression_loss=reg_loss,
+            num_pos=num_pos))
 
     # ------------------------------------------------------------ decode
     def decode_spec(self, classification_threshold=None, nms_threshold=None,
@@ -253,10 +341,18 @@ class LFD:
         spec = self.decode_spec(classification_threshold, nms_threshold,
                                 class_agnostic=class_agnostic)
         p = next(self.net.parameters())
-        with torch.inference_mode():
-            x = torch.as_tensor(padded, device=p.device)[None].to(p.dtype)
-            cls_o, reg_o = self.net(x)
-            decoded = self.decode_single((cls_o[0], reg_o[0]), input_hw, (h, w), spec)
+        # eval mode, as lfdtpu's train=False: a net left in train() would
+        # predict with batch statistics and write into its running stats
+        was_training = self.net.training
+        self.net.eval()
+        try:
+            with torch.inference_mode():
+                x = torch.as_tensor(padded, device=p.device)[None].to(p.dtype)
+                cls_o, reg_o = self.net(x)
+                decoded = self.decode_single((cls_o[0], reg_o[0]), input_hw, (h, w),
+                                             spec)
+        finally:
+            self.net.train(was_training)
         return detections_to_lists(decoded)
 
     def predict_for_single_image_with_engine(self, engine, image, aug_pipeline=None):

@@ -11,6 +11,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 # torch BatchNorm2d defaults, as in the reference: momentum 0.1, eps 1e-5
@@ -38,12 +39,40 @@ def activation_from_cfg(cfg):
     return table[t]()
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """nn.BatchNorm2d whose training step folds the *biased* batch variance
+    into running_var, as flax's nn.BatchNorm (lfdtpu) does; torch's own
+    uses the unbiased one, n/(n-1) larger (n = B*H*W per channel: 2 at a
+    1x1 level with batch 2). Normalization, eps, momentum and state_dict
+    names are nn.BatchNorm2d's.
+
+    The fix is O(C) after torch's update, not a second pass over the
+    activation: with torch's rv' = (1-m) rv + m u and u = v n/(n-1),
+    the wanted (1-m) rv + m v equals rv' (1 - 1/n) + (1-m) rv / n. torch
+    writes rv' into a copy: the op saves its running_var for backward, so
+    the buffer itself must not change in place after it."""
+
+    def forward(self, x):
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        self._check_input_dim(x)
+        self.num_batches_tracked.add_(1)
+        n = x.numel() // x.shape[1]
+        updated = self.running_var.clone()
+        out = F.batch_norm(x, self.running_mean, updated, self.weight, self.bias,
+                           True, self.momentum, self.eps)
+        with torch.no_grad():
+            self.running_var.mul_((1.0 - self.momentum) / n).add_(updated,
+                                                                   alpha=1.0 - 1.0 / n)
+        return out
+
+
 def norm_from_cfg(cfg, channels):
     """Norm layer: {'type': 'BatchNorm2d'} or {'type': 'GroupNorm',
     'num_groups': G}."""
     t = cfg["type"]
     if t == "BatchNorm2d":
-        return nn.BatchNorm2d(channels, eps=BN_EPS, momentum=0.1)
+        return BatchNorm2d(channels, eps=BN_EPS, momentum=0.1)
     if t == "GroupNorm":
         return nn.GroupNorm(cfg["num_groups"], channels, eps=GN_EPS)
     raise ValueError(f"unsupported norm type: {t}")

@@ -1,10 +1,16 @@
 # LFD-ResNet backbone (`lfdtpu/models/lfd_resnet.py`, reference
-# `lfd/model/backbone/lfd_resnet.py:218-509`), inference surface.
+# `lfd/model/backbone/lfd_resnet.py:218-509`).
 #
 # Structure: stem ('fast' /2, 'faster' /4, 'fastest' /4) then stages of
 # residual blocks; the first block of every stage is stride-2 with a 1x1
 # projection shortcut. Outputs are tapped at (stage, block) `out_indices`.
-# Training-only knobs (frozen_stages, norm_eval) come with the training port.
+#
+# frozen_stages / norm_eval (`lfdtpu/models/lfd_resnet.py:142-164`): frozen
+# parts (the stem when frozen_stages > 0, stage i when i < frozen_stages) run
+# their norms in eval mode and their outputs are detach()ed where lfdtpu
+# applies stop_gradient; norm_eval puts every backbone norm in eval mode.
+# As in lfdtpu, frozen parameters still exist for the optimizer: they get
+# zero gradients (see parallel/data_parallel.py), not requires_grad=False.
 
 from __future__ import annotations
 
@@ -66,8 +72,10 @@ class LFDResNet(nn.Module):
                  input_channels=3, stem_channels=64, body_architecture=None,
                  body_channels=None,
                  out_indices=((0, 3), (1, 1), (2, 1), (3, 0), (4, 0)),
-                 act_cfg=None, norm_cfg=None):
+                 frozen_stages=-1, act_cfg=None, norm_cfg=None, norm_eval=False):
         super().__init__()
+        self.frozen_stages = frozen_stages
+        self.norm_eval = norm_eval
         act_cfg = act_cfg or dict(type="ReLU")
         norm_cfg = norm_cfg if norm_cfg is not None else dict(type="BatchNorm2d")
         arch, chans, out_indices = resolve_body(
@@ -103,16 +111,34 @@ class LFDResNet(nn.Module):
     def stages(self):
         return [getattr(self, f"stage{i}") for i in range(self.num_stages)]
 
+    def train(self, mode=True):
+        """torch's train(), then eval mode for the frozen parts' norms
+        (lfdtpu: stem_train = bn_train and frozen_stages <= 0, stage_train =
+        bn_train and i >= frozen_stages)."""
+        super().train(mode)
+        if mode:
+            frozen = [self._stem] if self.norm_eval or self.frozen_stages > 0 else []
+            frozen += [s for i, s in enumerate(self.stages())
+                       if self.norm_eval or i < self.frozen_stages]
+            for part in frozen:
+                part.eval()
+        return self
+
     def stem_forward(self, x):
         if self.fused_stem is not None:
-            return self._stem[self._stem0_len:](self.fused_stem(x))
-        return self._stem(x)
+            x = self._stem[self._stem0_len:](self.fused_stem(x))
+        else:
+            x = self._stem(x)
+        return x.detach() if self.frozen_stages > 0 else x
 
     def body_forward(self, x):
         outs = []
         for i, stage in enumerate(self.stages()):
             for j, block in enumerate(stage):
                 x = block(x)
+                if i < self.frozen_stages:
+                    # no gradient reaches a frozen stage, even through taps
+                    x = x.detach()
                 if (i, j) in self.out_indices:
                     outs.append(x)
         return tuple(outs)

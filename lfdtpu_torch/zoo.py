@@ -1,5 +1,5 @@
-# Model zoo: the same eight reference workload configs as `lfdtpu/zoo.py`
-# (configuration only), built as PyTorch modules.
+# Model zoo: the same eight reference workload configs as `lfdtpu/zoo.py`,
+# built as PyTorch modules with the same configured loss objects.
 #   - WIDERFACE_LFD_{XS,S,M,L}  (`WIDERFACE_train/WIDERFACE_LFD_*.py`)
 #   - TT100K_LFD_{S,L}          (`TT100K_train/TT100K_LFD_*.py`)
 #   - TL_LFD_{S,L}              (`TrafficLight_train/TL_LFD_*.py`)
@@ -7,6 +7,7 @@
 from __future__ import annotations
 
 from .models import LFD, LFDHead, LFDResNet, SimpleNeck
+from .ops.loss_wrappers import CrossEntropyLoss, FocalLoss, IoULoss, QualityFocalLoss
 
 _GN16 = dict(type="GroupNorm", num_groups=16)
 _BN = dict(type="BatchNorm2d")
@@ -56,13 +57,14 @@ def _build(plan, num_classes, cls_loss, reg_loss, ranges, range_mode,
         num_classes=num_classes, num_heads=len(strides), in_channels=128,
         num_head_channels=128, num_conv_layers=2, norm_cfg=head_norm,
         share_head_flag=True, merge_path_flag=merge_path,
-        classification_loss_type=cls_loss, regression_loss_type=reg_loss,
+        classification_loss_type=type(cls_loss).__name__,
+        regression_loss_type=type(reg_loss).__name__,
     )
     return LFD(
         backbone=backbone, neck=neck, head=head, num_classes=num_classes,
         regression_ranges=ranges, gray_range_factors=(0.9, 1.1),
         range_assign_mode=range_mode, point_strides=strides,
-        classification_loss_type=cls_loss, regression_loss_type=reg_loss,
+        classification_loss_func=cls_loss, regression_loss_func=reg_loss,
         distance_to_bbox_mode="sigmoid", **lfd_kwargs,
     )
 
@@ -77,7 +79,8 @@ def widerface_lfd(size="L", **kw):
     range assignment, 5 scales (4,20)..(160,320)
     (`WIDERFACE_LFD_S.py:80-158`)."""
     assert size in _WIDERFACE_BACKBONES
-    return _build(_WIDERFACE_BACKBONES[size], 1, "FocalLoss", "IoULoss",
+    return _build(_WIDERFACE_BACKBONES[size], 1,
+                  FocalLoss(gamma=2.0, alpha=0.25), IoULoss(eps=1e-6),
                   WIDERFACE_SCALES, "dist", True, _GN16, **kw)
 
 
@@ -85,15 +88,16 @@ def tt100k_lfd(size="L", **kw):
     """TT100K 45-class: CrossEntropyLoss(+bg) + IoULoss, 'longer' mode,
     4 ranges, no merge path (`TT100K_LFD_L.py:80-141`)."""
     assert size in _TT100K_BACKBONES
-    return _build(_TT100K_BACKBONES[size], 45, "CrossEntropyLoss", "IoULoss",
+    return _build(_TT100K_BACKBONES[size], 45, CrossEntropyLoss(), IoULoss(eps=1e-6),
                   TT100K_RANGES, "longer", False, _GN16, **kw)
 
 
 def trafficlight_lfd(size="L", **kw):
-    """TrafficLight 1-class: QualityFocalLoss + IoULoss, 'dist' mode,
+    """TrafficLight 1-class: QualityFocalLoss(w=2) + IoULoss, 'dist' mode,
     5 scales (0,16)..(128,256), head without norm (`TL_LFD_L.py:84-146`)."""
     assert size in _TL_BACKBONES
-    return _build(_TL_BACKBONES[size], 1, "QualityFocalLoss", "IoULoss",
+    return _build(_TL_BACKBONES[size], 1,
+                  QualityFocalLoss(beta=2.0, loss_weight=2.0), IoULoss(eps=1e-6),
                   TL_SCALES, "dist", True, None, **kw)
 
 

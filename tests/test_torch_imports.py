@@ -20,8 +20,10 @@ torch.set_num_threads(1)
 import lfdtpu_torch
 from lfdtpu_torch import zoo
 from lfdtpu_torch.deploy import compile, kernel_net
-from lfdtpu_torch.execution import jax_convert
-from lfdtpu_torch.ops import conv_kernels, decode, kernel_lib, nms, nms_kernel, points
+from lfdtpu_torch.execution import jax_convert, optim, schedules
+from lfdtpu_torch.ops import (assign, boxes, conv_kernels, decode, kernel_lib, loss_wrappers,
+                              losses, nms, nms_kernel, points)
+from lfdtpu_torch.parallel import data_parallel
 
 det = zoo.widerface_lfd("L")
 det.init(torch.Generator().manual_seed(0))
