@@ -39,7 +39,27 @@ step, and checks them:
               running stats alone;
   7. timings  CUDA events, warmup excluded: ms/frame of the three engines and
               each kernel against its plain version, beside the card's name
-              and power limit.
+              and power limit;
+  8. workload the WIDERFACE training entry point end to end: a seeded
+              synthetic pack (170 uint8 images 1024 wide, 680-1024 high, 0-30
+              faces of 4-320 px, every fifth a negative: 3 iterations per
+              epoch at batch 64) built with the port's Dataset in a temporary
+              directory; the port's WIDERFACE_LFD_L config (its _common, with
+              LFD_DEVICE_AUG=1: batch 64, crop 480, Nmax 200, fp32) trains 2
+              epochs through the Executor (finite losses that do not blow up,
+              the warmup lr, epoch_1.pth), resumes from epoch_1.pth (counters,
+              params exact) for the last epoch under torch.profiler, then the
+              host-augmentation config (LFD_DEVICE_AUG=0) trains the same
+              iterations; the device half of the augmentation on the GPU
+              against the CPU on one loader batch (1e-3 pixel units); the
+              final checkpoint served through the bf16 kernel engine (every
+              kernel launches). Printed beside the card: loader-alone
+              images/s of both paths (4 batches per worker thread, every
+              image over the time from the workers' start to the last
+              batch), Executor images/s after one warmup
+              iteration (wall time ending in a synchronize), device-aug and
+              H2D ms per batch (CUDA events) and the device-busy share of the
+              two profiled iterations, whose batches were already prefetched.
 
 The second-to-last line is a JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}. Any failed check exits non-zero. Needs a
@@ -50,9 +70,14 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 from __future__ import annotations
 
+import copy
+import importlib.util
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -77,6 +102,12 @@ TRAIN_STEPS, TRAIN_WARMUP = 20, 3
 TRAIN_SMALL_HW = (128, 128)  # GPU vs CPU, batch 2
 TRAIN_TOL = 1e-3            # GPU vs CPU fp32 steps, max|err| / max|ref|
 SERVE_HW = (480, 480)       # the trained net's engine
+# the workload phase: pack size and the checks' tolerances
+PACK_IMAGES, PACK_NEG_EVERY = 170, 5  # 136 positives: 3 iterations of 52 + 12 negs
+AUG_TOL = 1e-3              # device-aug GPU vs CPU, pixel units (0-255)
+LOSS_BLOWUP = 1.5           # the last loss may not exceed the first by more
+LOADER_BATCHES_PER_WORKER = 4  # loader-alone run length, per worker thread
+SERVE_THRESHOLD = 1e-4      # the workload checkpoint's engine, see workload_phase
 
 
 class SmokeFailure(RuntimeError):
@@ -490,17 +521,18 @@ def train_full_width(device, card):
     return det
 
 
-def train_to_serve(det, device, counters):
+def train_to_serve(det, device, counters, classification_threshold=None):
     """The trained net (left in train mode) into the bf16 engine with all
     three kernels, one frame served; then predict_for_single_image on the
-    net itself must leave its running stats and its mode alone."""
+    net itself must leave its running stats and its mode alone. Returns the
+    engine's rows."""
     import torch
 
     from lfdtpu_torch.deploy import compile_inference, make_device_preprocess
 
     engine = compile_inference(det, SERVE_HW, "bf16", preprocess=make_device_preprocess(
         MEAN, STD), device=device, nms_use_kernel=True, kernel_convs=True,
-        kernel_stem=True)
+        kernel_stem=True, classification_threshold=classification_threshold)
     frame = frames(np.random.RandomState(13), 1, (SERVE_HW[0] - 24, SERVE_HW[1] - 8))[0]
     for c in counters:
         c.launches = 0
@@ -520,6 +552,316 @@ def train_to_serve(det, device, counters):
     print(f"predict_for_single_image on the net in train mode: {len(rows_direct)} rows, "
           f"state unchanged={same}, still training={det.net.training}")
     check(same and det.net.training, "predict_for_single_image changed the training net")
+    return rows
+
+
+# --------------------------------------------------------------- workload
+
+def build_pack(path, seed=17):
+    """A WIDERFACE-like pack: uint8 BGR arrays 1024 wide, 680-1024 high,
+    0-30 face boxes of 4-320 px per image (phase 6's draw), every
+    PACK_NEG_EVERY-th image a negative (no boxes)."""
+    from lfdtpu_torch.data import Dataset, Parser, Sample
+
+    class SyntheticFaces(Parser):
+        def get_meta_info(self):
+            return None
+
+        def generate_sample(self):
+            rng = np.random.RandomState(seed)
+            for i in range(PACK_IMAGES):
+                h = int(rng.randint(680, 1025))
+                s = Sample()
+                s["image"] = rng.randint(0, 256, (h, 1024, 3), dtype=np.uint8)
+                if i % PACK_NEG_EVERY != PACK_NEG_EVERY - 1:
+                    _, gt, _, mask = train_batch(rng, 1, (h, 1024), 30)
+                    boxes = gt[0][mask[0]]
+                    if len(boxes) == 0:  # train_batch draws 20% empty: keep a face
+                        boxes = np.asarray([[100.0, 100.0, 40.0, 48.0]], np.float32)
+                    s["bboxes"] = [[int(v) for v in b] for b in np.maximum(boxes, 1)]
+                    s["bbox_labels"] = [0] * len(boxes)
+                yield s
+
+    Dataset(parser=SyntheticFaces(), save_path=path, verbose=False)
+
+
+def load_workload_common():
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "lfdtpu_torch",
+                        "workloads", "WIDERFACE_train", "_common.py")
+    spec = importlib.util.spec_from_file_location("widerface_common", path)
+    common = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(common)
+    return common, os.path.join(os.path.dirname(path), "WIDERFACE_LFD_L.py")
+
+
+def workload_config(common, script, pack, device_aug, epochs):
+    """config_dict of the port's WIDERFACE_LFD_L script, as the script
+    builds it, with the environment overrides of a smoke run."""
+    os.environ.update(LFD_DEVICE_AUG=str(int(device_aug)), LFD_EPOCHS=str(epochs),
+                      LFD_DATASET_PATH=pack, LFD_DEVICE="cuda")
+    cfg = {}
+    common.prepare_common_settings(cfg, script)
+    common.prepare_model(cfg, "L")
+    common.prepare_data_pipeline(cfg)
+    common.prepare_optimizer(cfg)
+    return cfg
+
+
+def _record_hook():
+    import torch
+
+    from lfdtpu_torch.execution import Hook, Priority
+
+    class Record(Hook):
+        """Per iteration: the lr and the step's metrics (device tensors, no
+        sync); wall time from the end of the first iteration (after a
+        synchronize) to the end of the run (after another)."""
+
+        def __init__(self):
+            super().__init__()
+            self.priority = Priority.HIGH
+            self.lrs, self.metrics, self.t0 = [], [], None
+
+        def after_train_iter(self, executor):
+            self.lrs.append(executor.config_dict["current_lr"])
+            self.metrics.append(executor.last_metrics)
+            if self.t0 is None:
+                torch.cuda.synchronize()
+                self.t0 = time.perf_counter()
+
+        def after_run(self, executor):
+            torch.cuda.synchronize()
+            self.t1 = time.perf_counter()
+
+        def images_per_s(self, batch):
+            return (len(self.lrs) - 1) * batch / (self.t1 - self.t0)
+
+        def values(self, key):
+            return torch.stack([m[key] for m in self.metrics]).cpu().numpy()
+
+    return Record()
+
+
+def run_workload(cfg, card, label):
+    from lfdtpu_torch.execution import Executor
+
+    rec = _record_hook()
+    cfg["extra_hooks"] = cfg.get("extra_hooks", []) + [rec]
+    ex = Executor(cfg)
+    ex.run()
+    loss = rec.values("loss")
+    sched = cfg["lr_schedule"]
+    want = [0.1 * (1 - (1 - (i + 1) / 200) * 0.9) for i in range(len(rec.lrs))]
+    print(f"workload {label}: {len(rec.lrs)} iterations, loss "
+          + " ".join(f"{v:.4f}" for v in loss)
+          + f", lr {rec.lrs[0]:.6f} -> {rec.lrs[-1]:.6f}; Executor "
+          f"{rec.images_per_s(cfg['batch_size']):.1f} images/s after one warmup "
+          f"iteration (wall, synchronized) [{card}]")
+    check(np.isfinite(loss).all() and np.isfinite(rec.values("grad_norm")).all(),
+          f"non-finite losses ({label})")
+    check(loss[-1] <= LOSS_BLOWUP * loss[0], f"the loss blew up ({label})")
+    check(np.allclose(rec.lrs, want, rtol=1e-12, atol=0)
+          and rec.lrs == [sched(0, i) for i in range(len(rec.lrs))],
+          f"the lr does not follow the warmup ({label})")
+    return ex, rec
+
+
+def busy_share(prof):
+    """Union of the device's kernel and copy intervals over the profiled
+    window (first to last traced event): each device interval counted once,
+    whatever the ops above it."""
+    from torch.autograd import DeviceType
+
+    events = list(prof.events())
+    dev = sorted((e.time_range.start, e.time_range.end) for e in events
+                 if e.device_type == DeviceType.CUDA)
+    if not dev:
+        return None
+    busy, cur_s, cur_e = 0.0, dev[0][0], dev[0][1]
+    for st, en in dev[1:]:
+        if st > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = st, en
+        else:
+            cur_e = max(cur_e, en)
+    busy += cur_e - cur_s
+    lo = min(e.time_range.start for e in events)
+    hi = max(e.time_range.end for e in events)
+    return busy / (hi - lo)
+
+
+class _Repeat:
+    """The pack `k` times over (indexes i -> i mod n), for a loader run of
+    many batches per worker."""
+
+    def __init__(self, dataset, k):
+        self._ds, self._n = dataset, len(dataset)
+        self._k = k
+
+    def __getitem__(self, i):
+        return self._ds[i % self._n]
+
+    def __len__(self):
+        return self._n * self._k
+
+    def get_indexes(self):
+        return list(range(len(self)))
+
+
+def loader_alone(cfg, card, label):
+    """The config's loader setup over the pack repeated until it gives
+    LOADER_BATCHES_PER_WORKER batches per worker thread: every image over
+    the wall time from the start of the iteration (the workers start there)
+    to the last batch."""
+    from lfdtpu_torch.data import DataLoader, RandomWithNegDatasetSampler
+
+    src = cfg["train_data_loader"]
+    workers = src._num_workers
+    k = 0
+    sampler = []
+    while len(sampler) < LOADER_BATCHES_PER_WORKER * workers:
+        k += 1
+        ds = _Repeat(src._dataset, k)
+        sampler = RandomWithNegDatasetSampler(ds, batch_size=cfg["batch_size"],
+                                              neg_ratio=0.2, seed=3)
+    loader = DataLoader(ds, sampler, src._region_sampler, src._augmentation_pipeline,
+                        num_workers=workers, max_boxes_per_image=src._max_boxes,
+                        image_dtype=src._image_dtype)
+    n = 0
+    t0 = time.perf_counter()
+    for batch in loader:
+        n += len(batch["images"])
+    seconds = time.perf_counter() - t0
+    print(f"loader alone, {label}: {n / seconds:.1f} images/s ({n} images in "
+          f"{len(loader)} batches of {cfg['batch_size']}, {seconds:.2f} s from the start "
+          f"of the iteration to the last batch), {workers} worker threads, "
+          f"os.cpu_count() {os.cpu_count()} [{card}]")
+    return batch
+
+
+def check_aug_gpu_vs_cpu(aug, batch, device, card):
+    """The config's DeviceAugment on one loader batch: GPU against CPU
+    (pixel units: the normalize divides by 127.5), and its ms per batch."""
+    import torch
+
+    host = {"buffer": batch["images"], "scale": batch["aug_scale"],
+            "translation": batch["aug_translation"], "flip": batch["aug_flip"]}
+    cpu = {k: torch.as_tensor(np.ascontiguousarray(v)) for k, v in host.items()}
+    gpu = {k: v.to(device) for k, v in cpu.items()}
+    aug_gpu = copy.deepcopy(aug).to(device)
+    got = aug_gpu(gpu)
+    ref = aug(cpu)
+    err = float((got.cpu() - ref).abs().max()) * 127.5
+    ms = time_ms(lambda: aug_gpu(gpu), iters=10, warmup=2)
+    print(f"device aug {tuple(batch['images'].shape)} -> {tuple(got.shape)}: GPU vs CPU "
+          f"max|err| {err:.3e} pixel units (tol {AUG_TOL}); {ms:.3f} ms per batch [{card}]")
+    check(err <= AUG_TOL, "device aug on the GPU disagrees with the CPU")
+
+
+def h2d_ms(batch, keys, device):
+    """ms to copy one batch's arrays from pinned host memory to the device
+    (CUDA events), and the host ms of prefetch_to_device's copy into pinned
+    memory (host clock, mean of 5 after 1)."""
+    import torch
+
+    host = [torch.from_numpy(np.ascontiguousarray(batch[k])) for k in keys]
+    pinned = [t.pin_memory() for t in host]
+    t0 = time.perf_counter()
+    for _ in range(5):
+        [t.pin_memory() for t in host]
+    pin_ms = (time.perf_counter() - t0) * 1e3 / 5
+    nbytes = sum(t.numel() * t.element_size() for t in pinned)
+    ms = time_ms(lambda: [t.to(device, non_blocking=True) for t in pinned],
+                 iters=10, warmup=2)
+    return ms, nbytes, pin_ms
+
+
+def workload_phase(device, card, counters):
+    """Phase 8: the WIDERFACE training entry point, end to end."""
+    import torch
+
+    from lfdtpu_torch import zoo
+    from lfdtpu_torch.data import AUG_KEYS
+    from lfdtpu_torch.execution import ProfilerHook
+    from lfdtpu_torch.parallel import BATCH_KEYS
+
+    common, script = load_workload_common()
+    for c in counters:
+        c.launches = 0
+    tmp = tempfile.mkdtemp(prefix="lfd_workload_")
+    cwd, hook, env = os.getcwd(), sys.excepthook, dict(os.environ)
+    try:
+        os.chdir(tmp)  # the scripts' work dirs go under the temp dir
+        pack = os.path.join(tmp, "widerface_synthetic.pkl")
+        t0 = time.time()
+        build_pack(pack)
+        print(f"pack: {PACK_IMAGES} images in {time.time() - t0:.1f} s "
+              f"({os.path.getsize(pack) / 2 ** 20:.0f} MiB)")
+
+        cfg = workload_config(common, script, pack, device_aug=True, epochs=2)
+        ex, rec = run_workload(cfg, card, "device aug, 2 epochs")
+        work = cfg["work_dir"]
+        ckpts = sorted(f for f in os.listdir(work) if f.endswith(".pth"))
+        print(f"checkpoints: {ckpts}")
+        check(ckpts == ["epoch_1.pth"], "the workload wrote no epoch_1.pth")
+        ckpt_path = os.path.join(work, "epoch_1.pth")
+        saved = torch.load(ckpt_path, map_location="cpu", weights_only=True)
+        aug_batch = loader_alone(cfg, card, "device aug")
+        del ex
+
+        cfg2 = workload_config(common, script, pack, device_aug=True, epochs=2)
+        cfg2["resume_path"] = ckpt_path
+        prof = ProfilerHook(os.path.join(tmp, "trace"), start_iter=4, num_iters=2)
+        cfg2["extra_hooks"] = [prof]
+        from lfdtpu_torch.execution import Executor
+
+        resumed = Executor(cfg2)
+        same = all(torch.equal(v.cpu(), saved["state_dict"][k])
+                   for k, v in resumed.state.net.state_dict().items())
+        counters_ok = (cfg2["epoch"], cfg2["train_iter"]) == (1, 3)
+        print(f"resumed from epoch_1.pth: epoch {cfg2['epoch']}, train_iter "
+              f"{cfg2['train_iter']}, params and BN stats equal the saved ones: {same}")
+        check(same and counters_ok, "resume did not restore the checkpoint exactly")
+        resumed.run()
+        check(cfg2["train_iter"] == 6, "the resumed run did not train one more epoch")
+        share = busy_share(prof.profile)
+        print("device-busy share over train iterations 5-6, whose batches were "
+              "already prefetched (torch.profiler, union of device intervals): "
+              + ("not measured (no device events)" if share is None else f"{share:.3f}")
+              + f" [{card}]")
+        final = os.path.join(work, "final.pth")
+        resumed.save(final)
+        del resumed
+
+        host_cfg = workload_config(common, script, pack, device_aug=False, epochs=2)
+        host_ex, _ = run_workload(host_cfg, card, "host aug, 2 epochs")
+        del host_ex
+        host_batch = loader_alone(host_cfg, card, "host aug")
+
+        check_aug_gpu_vs_cpu(cfg["device_augment"], aug_batch, device, card)
+        for label, batch, keys in (("device aug", aug_batch, BATCH_KEYS + AUG_KEYS),
+                                   ("host aug", host_batch, BATCH_KEYS)):
+            ms, nbytes, pin_ms = h2d_ms(batch, keys, device)
+            print(f"H2D {label}: {ms:.3f} ms per batch ({nbytes / 2 ** 20:.1f} MiB, "
+                  f"pinned, {nbytes / ms / 1e6:.1f} GB/s); the host copy into pinned "
+                  f"memory before it {pin_ms:.3f} ms [{card}]")
+
+        print("hand-written kernel launches during training (its path runs none): "
+              f"{ {c.__name__: c.launches for c in counters} }")
+        det = zoo.widerface_lfd("L")
+        det.net.load_state_dict(torch.load(final, map_location="cpu",
+                                           weights_only=True)["state_dict"])
+        det.net.to(device)
+        # nine steps on noise leave every score under the detector's 0.05:
+        # a lower threshold makes the engine emit rows to check
+        rows = train_to_serve(det, device, counters, classification_threshold=SERVE_THRESHOLD)
+        check(len(rows) > 0, "the trained checkpoint's engine returned no rows")
+    finally:
+        os.chdir(cwd)
+        sys.excepthook = hook
+        os.environ.clear()
+        os.environ.update(env)
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 # ------------------------------------------------------------------ main
@@ -637,6 +979,11 @@ def main():
              launches=launches["pair_conv3x3"], max_abs_err=errs["pair_conv3x3"],
              ms=k3[0], plain_ms=k3[1]),
     ]
+    print(f"[8 workload] {card}")
+    t0 = time.time()
+    workload_phase(device, card, counters)
+    print(f"workload phase {time.time() - t0:.1f} s")
+
     print(f"total {time.time() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

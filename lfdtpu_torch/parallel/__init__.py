@@ -1,3 +1,5 @@
 from .data_parallel import TrainState, create_train_state, make_train_step
+from .prefetch import BATCH_KEYS, prefetch_to_device
 
-__all__ = ["TrainState", "create_train_state", "make_train_step"]
+__all__ = ["TrainState", "create_train_state", "make_train_step", "BATCH_KEYS",
+           "prefetch_to_device"]

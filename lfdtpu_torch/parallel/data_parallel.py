@@ -53,7 +53,10 @@ def make_train_step(detector, optimizer, input_hw, clip_max_norm=0.0,
     grad_norm}, 0-d tensors on the net's device (grad_norm before clipping).
 
     images: (B, H, W, 3) at input_hw, float, or uint8 with `preprocess`
-      (e.g. deploy.make_device_preprocess: the host ships raw uint8 batches);
+      (e.g. deploy.make_device_preprocess: the host ships raw uint8 batches),
+      or with preprocess=data.DeviceAugment the dict {buffer, scale,
+      translation, flip} of a DeviceAugRegionSampler's batch (lfdtpu's
+      contract, `lfdtpu/execution/executor.py:183-190`);
     gt_bboxes (B, Nmax, 4) xywh, gt_labels (B, Nmax), gt_mask (B, Nmax);
     lr: the schedule's float for this step; clip_enabled: bool (or a bool
       tensor on the device), used only when clip_max_norm > 0.
@@ -69,6 +72,8 @@ def make_train_step(detector, optimizer, input_hw, clip_max_norm=0.0,
         preprocess = copy.deepcopy(preprocess).to(device)
 
     def to_device(x):
+        if isinstance(x, dict):  # the device-aug images {buffer, scale, ...}
+            return {k: to_device(v) for k, v in x.items()}
         return torch.as_tensor(x).to(device, non_blocking=True)
 
     def step(images, gt_bboxes, gt_labels, gt_mask, lr, clip_enabled):

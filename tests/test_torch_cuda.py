@@ -112,3 +112,69 @@ def test_conv_kernels_reject_bad_input(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         conv_kernels.pair_conv3x3(nhwc.transpose(1, 2), w, torch.ones(64, device=cuda),
                                   torch.zeros(64, device=cuda))
+
+
+def _shm_batches(loader, device, keys):
+    from lfdtpu_torch.execution import set_random_seed
+    from lfdtpu_torch.parallel import prefetch_to_device
+
+    set_random_seed(5)
+    if device is None:  # read batch by batch: copy, then release
+        out = []
+        for batch in loader:
+            out.append({k: np.array(batch[k]) for k in keys})
+            loader.release_slot(batch)
+        return out
+    return [{k: v.cpu().numpy() for k, v in b.items() if k in keys}
+            for b in prefetch_to_device(loader, device, size=2, keys=keys)]
+
+
+def test_prefetch_to_cuda_releases_shm_slots_after_the_copy(cuda):
+    """A ShmDataLoader with 2 slots through prefetch_to_device on the card:
+    each slot released once it is copied into pinned staging, the
+    asynchronous copies reading only that staging; every batch equals the
+    batch-by-batch read of the same seed, and every slot is back at the end."""
+    from lfdtpu_torch import data as tdata
+
+    rng = np.random.RandomState(4)
+    samples = {i: dict(image=rng.randint(0, 256, (90 + i, 120, 3)).astype(np.uint8),
+                       bboxes=[[10 + i, 20, 30, 25]], bbox_labels=[0]) for i in range(24)}
+    ds = type("DS", (), {"__getitem__": lambda self, i: samples[i],
+                         "__len__": lambda self: len(samples),
+                         "get_indexes": lambda self: list(samples)})()
+    keys = ("images", "gt_bboxes", "gt_labels", "gt_mask") + tdata.AUG_KEYS
+
+    def loader():
+        region = tdata.DeviceAugRegionSampler(
+            tdata.RandomBBoxCropRegionSampler(crop_size=48, resize_range=(0.6, 1.5)))
+        return tdata.ShmDataLoader(ds, tdata.RandomDatasetSampler(ds, batch_size=4, seed=9),
+                                   region, num_workers=1, max_boxes_per_image=4, num_slots=2)
+
+    ref_loader, gpu_loader = loader(), loader()
+    try:
+        ref = _shm_batches(ref_loader, None, keys)
+        got = _shm_batches(gpu_loader, cuda, keys)
+        assert gpu_loader._free_slots.qsize() == gpu_loader.num_slots
+    finally:
+        ref_loader.close()
+        gpu_loader.close()
+    assert len(got) == len(ref) == 6
+    for a, b in zip(got, ref):
+        for k in keys:
+            assert np.array_equal(a[k], np.asarray(b[k], a[k].dtype)), k
+
+
+def test_device_augment_on_the_card_matches_the_cpu(cuda):
+    from lfdtpu_torch.data import make_device_augment
+
+    rng = np.random.RandomState(2)
+    batch = dict(buffer=rng.randint(0, 256, (8, 192, 192, 3)).astype(np.uint8),
+                 scale=rng.uniform(0.4, 2.5, (8, 2)).astype(np.float32),
+                 translation=rng.uniform(-200, 60, (8, 2)).astype(np.float32),
+                 flip=(np.arange(8) % 2).astype(np.float32))
+    cpu = {k: torch.as_tensor(v) for k, v in batch.items()}
+    for dtype in (torch.float32, torch.bfloat16):
+        aug = make_device_augment(96, compute_dtype=dtype)
+        ref = aug(cpu).float()
+        got = aug({k: v.to(cuda) for k, v in cpu.items()}).float().cpu()
+        assert (got - ref).abs().max() <= (1e-3 if dtype == torch.float32 else 1.0)
