@@ -12,8 +12,11 @@ step, and checks them:
               1536: random boxes, valid holes, tied scores, integer boxes whose
               IoUs hit the threshold exactly;
   4. K2, K3   stem and 3x3 conv against their plain versions at the engine's
-              1088x1920 shapes, max|err| / max|ref| < 0.03 (K2), 0.02 (K3):
-              both are bf16 out of fp32 accumulation in another order;
+              1088x1920 shapes, at batch 1 and at the bf16_kernels_b4
+              engine's batch 4, max|err| / max|ref| < 0.03 (K2), 0.02 (K3):
+              K3 is bf16 out of fp32 accumulation in another order, K2 also
+              rounds its taps and weights to bf16 (the TPU kernel's
+              numerics);
   5. engine   bf16 engines at 1088x1920 (1080p padded to the stride-64
               multiple): 8 single frames through
               predict_for_single_image_with_engine and one batch of 4 with
@@ -37,9 +40,20 @@ step, and checks them:
               a frame (every kernel launches, rows checked), and
               predict_for_single_image on the net left in train() leaves its
               running stats alone;
-  7. timings  CUDA events, warmup excluded: ms/frame of the three engines and
-              each kernel against its plain version, beside the card's name
-              and power limit;
+  7. timings  CUDA events, warmup excluded: ms/frame of the three engines; each
+              kernel's device ms (CUDA events around replays of a CUDA graph
+              of its launches, warm on repeated inputs and cold rotating over
+              more than the 50 MB L2) at the shapes the engine gives it, beside
+              its bound (kernel_bound_ms), its share of the bound, its plain
+              version (eager) and, for K3, cuDNN in bf16 with the BN folded
+              in: conv2d alone, with the bias, followed by the residual add
+              and ReLU, and the fused call of K3's own function
+              (cudnn_convolution_add_relu / _relu), which is K3's library
+              call where the card runs it;
+              one frame of the bf16_kernels engine launches K1 once, K2 once
+              and K3 10 times; torch.profiler over 5 frames of that engine
+              gives each kernel's device ms per frame; all beside the card's
+              name and power limit;
   8. workload the WIDERFACE training entry point end to end: a seeded
               synthetic pack (170 uint8 images 1024 wide, 680-1024 high, 0-30
               faces of 4-320 px, every fifth a negative: 3 iterations per
@@ -95,6 +109,15 @@ DENSE_BF16_TOL = 0.1
 DENSE_BF16_VS_PLAIN = 1.5
 DENSE_FP32_TOL = 1e-3       # GPU vs CPU fp32 engine, max|err| / max|ref|
 TIMED_ITERS, WARMUP = 20, 3
+# kernel bounds: NVIDIA's H100 SXM data sheet, dense rates (see kernel_bound_ms)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+IOU_FLOPS = 14              # per box pair: 4 min/max, 2 sub, 2 clamp, mul, 2 add/sub,
+#                             max, div, compare (K1's IoU test)
+GRAPH_LAUNCHES = 20         # kernel timing: launches per CUDA graph
+COLD_BYTES = 100 * 2 ** 20  # cold timing rotates over more inputs than the L2 holds
+PROFILED_FRAMES = 5
+ENGINE_LAUNCHES = {"nms_mask_sorted": 1, "stem_conv": 1, "pair_conv3x3": 10}  # one L frame
 # training: the WIDERFACE workload's batch, crop, GT padding and optimizer
 # (`workloads/WIDERFACE_train/_common.py:82-158`)
 TRAIN_HW, TRAIN_BATCH, TRAIN_NMAX = (480, 480), 64, 200
@@ -147,6 +170,72 @@ def time_ms(fn, iters=TIMED_ITERS, warmup=WARMUP):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(calls, launches=GRAPH_LAUNCHES, reps=5):
+    """Device ms per call: CUDA events around `reps` replays of a CUDA graph
+    of `launches` calls cycling through `calls` (one per input set), after
+    one eager call each and one replay. Replaying keeps the host's cost of an
+    eager call (Python, ctypes; tens of µs, more than the small launches
+    take on the device) out of the number."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for call in calls:
+            call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(launches):
+            calls[i % len(calls)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (launches * reps)
+
+
+def kernel_work(name, shape, residual=False):
+    """(bytes, operations, their type) of one launch: each input read once
+    and each output written once, the operations its inputs need.
+    shape: (N, H, W) of K3's activations or K2's frame; (B, K) for K1."""
+    if name == "pair_conv3x3":
+        n, h, w = shape
+        act = n * h * w * 64 * 2  # bf16 NHWC
+        weights = 9 * 64 * 64 * 2 + 2 * 64 * 4  # + fp32 scale, bias
+        return act * (3 if residual else 2) + weights, 2 * n * h * w * 64 * 9 * 64, "bf16"
+    if name == "stem_conv":
+        n, h, w = shape
+        out = n * ((h + 1) // 2) * ((w + 1) // 2)
+        consts = 27 * 64 * 4 + 2 * 3 * 4 + 2 * 64 * 4  # fp32 weights, mean/std, scale/bias
+        return n * h * w * 3 + out * 64 * 2 + consts, 2 * out * 64 * 27, "bf16"
+    if name == "nms_mask_sorted":
+        b, k = shape  # fp32 xyxy boxes and a bool mask in, a bool mask out
+        return b * k * (16 + 1 + 1), b * k * (k - 1) // 2 * IOU_FLOPS, "fp32"
+    raise ValueError(f"unknown kernel {name}")
+
+
+def kernel_bound_ms(name, shape, residual=False):
+    """The least time the card could take for one launch: the larger of its
+    bytes over the memory rate and its operations over the peak rate of
+    their type (H100 SXM: 3.35 TB/s, 989 TFLOP/s bf16 tensor, 67 TFLOP/s
+    fp32). Returns (ms, "bytes" or "operations"), whichever binds."""
+    nbytes, ops, kind = kernel_work(name, shape, residual)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[kind]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def k3_shapes(hw=HW):
+    """K3's (H, W) in the engine: the stride-4, -8 and -16 levels."""
+    h, w = (hw[0] + 3) // 4, (hw[1] + 3) // 4
+    return (h, w), ((h + 1) // 2, (w + 1) // 2), ((h + 3) // 4, (w + 3) // 4)
 
 
 # --------------------------------------------------------------------- model
@@ -227,48 +316,51 @@ def check_k1(device, sizes=(1000, 1536)):
 
 
 def check_k2_k3(device, hw=HW):
-    """K2 and K3 against their plain versions at the engine's shapes.
-    Returns ({name: max abs err}, the inputs for timing)."""
+    """K2 and K3 against their plain versions at the engine's shapes, batch
+    1 and the bf16_kernels_b4 engine's batch 4. Returns ({name: max abs
+    err}, K2's batch-1 inputs, K3's batch-1 inputs at the first level)."""
     import torch
 
     from lfdtpu_torch.ops import conv_kernels as ck
 
     g = torch.Generator(device=device).manual_seed(2)
-    frame = torch.randint(0, 256, (1,) + tuple(hw) + (3,), generator=g,
-                          device=device, dtype=torch.uint8)
     w = torch.randn(3, 3, 3, 64, generator=g, device=device) * 0.2
     mean = torch.tensor([127.5] * 3, device=device)
     std = torch.tensor([127.5] * 3, device=device)
     s = torch.rand(64, generator=g, device=device) + 0.5
     b = torch.randn(64, generator=g, device=device) * 0.1
-    got = ck.stem_conv(frame, w, mean, std, s, b)
-    ref = ck.stem_conv_plain(frame, w, mean, std, s, b)
-    e2 = rel_err(got, ref)
-    abs2 = float((got.float() - ref.float()).abs().max())
-    print(f"K2 {tuple(frame.shape)} -> {tuple(got.shape)}: max|err|/max|ref| "
-          f"{e2:.3e} (tol {K2_TOL})")
-    check(got.shape == ref.shape and e2 < K2_TOL, "K2 disagrees with its plain version")
+    abs2, k2_inputs = 0.0, None
+    for n in (1, 4):
+        frame = torch.randint(0, 256, (n,) + tuple(hw) + (3,), generator=g,
+                              device=device, dtype=torch.uint8)
+        got = ck.stem_conv(frame, w, mean, std, s, b)
+        ref = ck.stem_conv_plain(frame, w, mean, std, s, b)
+        e2 = rel_err(got, ref)
+        abs2 = max(abs2, float((got.float() - ref.float()).abs().max()))
+        print(f"K2 {tuple(frame.shape)} -> {tuple(got.shape)}: max|err|/max|ref| "
+              f"{e2:.3e} (tol {K2_TOL})")
+        check(got.shape == ref.shape and e2 < K2_TOL, "K2 disagrees with its plain version")
+        if k2_inputs is None:
+            k2_inputs = (frame, w, mean, std, s, b)
 
-    abs3 = 0.0
-    k3_inputs = None
-    h, w_ = (hw[0] + 3) // 4, (hw[1] + 3) // 4
-    for (hh, ww) in ((h, w_), ((h + 1) // 2, (w_ + 1) // 2),
-                     ((h + 3) // 4, (w_ + 3) // 4)):
-        x = torch.randn(1, hh, ww, 64, generator=g, device=device).bfloat16()
-        wk = (torch.randn(3, 3, 64, 64, generator=g, device=device) * 0.05).bfloat16()
-        for residual, relu in ((None, True), (x, True), (None, False)):
-            got = ck.pair_conv3x3(x, wk, s, b, residual=residual, relu=relu)
-            ref = ck.pair_conv3x3_plain(x, wk, s, b, residual=residual, relu=relu)
-            e3 = rel_err(got, ref)
-            abs3 = max(abs3, float((got.float() - ref.float()).abs().max()))
-            print(f"K3 {tuple(x.shape)} residual={residual is not None} relu={relu}: "
-                  f"max|err|/max|ref| {e3:.3e} (tol {K3_TOL})")
-            check(e3 < K3_TOL, "K3 disagrees with its plain version")
-        if k3_inputs is None:
-            k3_inputs = (x, wk, s, b)
+    abs3, k3_inputs = 0.0, None
+    for n in (1, 4):
+        for (hh, ww) in k3_shapes(hw):
+            x = torch.randn(n, hh, ww, 64, generator=g, device=device).bfloat16()
+            wk = (torch.randn(3, 3, 64, 64, generator=g, device=device) * 0.05).bfloat16()
+            for residual, relu in ((None, True), (x, True), (None, False)):
+                got = ck.pair_conv3x3(x, wk, s, b, residual=residual, relu=relu)
+                ref = ck.pair_conv3x3_plain(x, wk, s, b, residual=residual, relu=relu)
+                e3 = rel_err(got, ref)
+                abs3 = max(abs3, float((got.float() - ref.float()).abs().max()))
+                print(f"K3 {tuple(x.shape)} residual={residual is not None} relu={relu}: "
+                      f"max|err|/max|ref| {e3:.3e} (tol {K3_TOL})")
+                check(e3 < K3_TOL, "K3 disagrees with its plain version")
+            if k3_inputs is None:
+                k3_inputs = (x, wk, s, b)
     if device != "cpu":
         torch.cuda.synchronize()
-    return {"stem_conv": abs2, "pair_conv3x3": abs3}, (frame, w, mean, std, s, b), k3_inputs
+    return {"stem_conv": abs2, "pair_conv3x3": abs3}, k2_inputs, k3_inputs
 
 
 # ----------------------------------------------------------------- engine
@@ -864,6 +956,182 @@ def workload_phase(device, card, counters):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ----------------------------------------------------------------- timings
+
+def _timing(name, shape, card, ms, cold, plain_ms, library_ms, residual=False, note="",
+            library_call=None):
+    """One kernel timing: printed beside its bound, and returned as the
+    fields of the kernels line (the warm time is the one the line carries:
+    in the engine a kernel reads what the previous launch just wrote)."""
+    bound, by = kernel_bound_ms(name, shape, residual)
+    pct = 100.0 * bound / ms
+    lib = "none" if library_ms is None else f"{library_ms:.4f} ms ({library_call})"
+    print(f"kernel {name} {shape}{' +residual' if residual else ''}: {ms:.4f} ms warm, "
+          f"{cold:.4f} ms cold; bound {bound:.4f} ms ({by}), {pct:.1f}% of it (warm); "
+          f"plain {plain_ms:.4f} ms; library {lib}{note} [{card}]")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                pct_of_bound=pct, library_ms=library_ms, library_call=library_call)
+
+
+def k3_library_ms(y, x, wk, s, b, w_cd, b_cd, shape, k3_ms, card):
+    """K3's yardsticks at one shape, each a CUDA-graph time of cuDNN in bf16
+    on channels_last with the BN folded into the weights: the bare conv2d
+    (less work than K3: no bias, residual or ReLU), conv2d with the bias,
+    that followed by the residual add and ReLU, and the fused call that
+    computes K3's own function, cudnn_convolution_add_relu with the residual
+    or cudnn_convolution_relu without. The fused call is the library call
+    when cuDNN runs it and it agrees with K3's plain version; else the bare
+    conv2d is. Returns (library ms, which call)."""
+    import torch
+    import torch.nn.functional as F
+
+    from lfdtpu_torch.ops import conv_kernels as ck
+
+    y_cl = y.permute(0, 3, 1, 2)
+    x_cl = None if x is None else x.permute(0, 3, 1, 2)
+    one = [1, 1]
+    bare = graph_ms([lambda: F.conv2d(y_cl, w_cd, None, padding=1)])
+    biased = graph_ms([lambda: F.conv2d(y_cl, w_cd, b_cd, padding=1)])
+    times = [f"bare conv2d {bare:.4f}", f"conv2d + bias {biased:.4f}"]
+    if x is not None:
+        chain = graph_ms([lambda: torch.relu(F.conv2d(y_cl, w_cd, b_cd, padding=1) + x_cl)])
+        times.append(f"+ residual add and ReLU unfused {chain:.4f}")
+    name = "cudnn_convolution_relu" if x is None else "cudnn_convolution_add_relu"
+
+    def fused_call():
+        if x is None:
+            return torch.cudnn_convolution_relu(y_cl, w_cd, b_cd, one, one, one, 1)
+        return torch.cudnn_convolution_add_relu(y_cl, w_cd, x_cl, 1.0, b_cd, one, one, one, 1)
+
+    # a yardstick the card may refuse: try it eagerly before timing it
+    try:
+        got = fused_call().permute(0, 2, 3, 1)
+        torch.cuda.synchronize()
+        err = rel_err(got, ck.pair_conv3x3_plain(y, wk, s, b, residual=x))
+        refusal = None if err < K3_TOL else f"{err:.3e} from K3's plain version"
+    except RuntimeError as e:
+        refusal = f"refused: {str(e).splitlines()[0][:120]}"
+    if refusal is None:
+        fused = graph_ms([fused_call])
+        times.append(f"{name} (fused) {fused:.4f}")
+        lib = (fused, f"cuDNN {name}, BN folded")
+    else:
+        times.append(f"{name} (fused) not timed, {refusal}")
+        lib = (bare, "cuDNN bf16 conv2d alone, BN folded into the weights")
+    print(f"  library calls pair_conv3x3 {shape}{' +residual' if x is not None else ''}, "
+          f"ms: " + "; ".join(times) + f"; K3 {k3_ms:.4f} is "
+          f"{'no slower than' if k3_ms <= bare else 'SLOWER than'} the bare conv2d [{card}]")
+    return lib
+
+
+def time_kernels(device, card, k2_in, k3_in):
+    """Each kernel's device ms at the engine's shapes, warm (the same inputs
+    every launch) and cold (rotating over more than COLD_BYTES); the plain
+    versions eager (CUDA events, warmup excluded; K1's syncs on the host);
+    K3's cuDNN yardsticks (k3_library_ms). Returns {kernel: fields of the
+    kernels line} for the main shapes."""
+    import torch
+
+    from lfdtpu_torch.ops import conv_kernels as ck
+    from lfdtpu_torch.ops import nms_kernel
+
+    g = torch.Generator(device=device).manual_seed(3)
+    out = {}
+
+    _, wk, s, b = k3_in
+    w_cd = (wk.float() * s).bfloat16().permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    b_cd = b.bfloat16()
+    first = True
+    for (hh, ww), residual in ((k3_shapes()[0], True), (k3_shapes()[0], False),
+                               (k3_shapes()[1], True), (k3_shapes()[2], True)):
+        shape = (1, hh, ww)
+        sets = COLD_BYTES // kernel_work("pair_conv3x3", shape, residual)[0] + 2
+        ys = [torch.randn(1, hh, ww, 64, generator=g, device=device).bfloat16()
+              for _ in range(sets)]
+        xs = [torch.randn(1, hh, ww, 64, generator=g, device=device).bfloat16()
+              if residual else None for _ in range(sets)]
+        warm = graph_ms([lambda: ck.pair_conv3x3(ys[0], wk, s, b, residual=xs[0])])
+        cold = graph_ms([lambda i=i: ck.pair_conv3x3(ys[i], wk, s, b, residual=xs[i])
+                         for i in range(sets)])
+        plain = time_ms(lambda: ck.pair_conv3x3_plain(ys[0], wk, s, b, residual=xs[0]))
+        lib_ms, call = k3_library_ms(ys[0], xs[0], wk, s, b, w_cd, b_cd, shape, warm, card)
+        row = _timing("pair_conv3x3", shape, card, warm, cold, plain, lib_ms, residual,
+                      library_call=call)
+        if first:
+            out["pair_conv3x3"] = row
+            first = False
+        del ys, xs
+
+    frame, w2, mean, std, s2, b2 = k2_in
+    sets = COLD_BYTES // kernel_work("stem_conv", tuple(frame.shape[:3]))[0] + 2
+    frames_ = [frame] + [torch.randint(0, 256, tuple(frame.shape), generator=g,
+                                       device=device, dtype=torch.uint8)
+                         for _ in range(sets - 1)]
+    warm = graph_ms([lambda: ck.stem_conv(frame, w2, mean, std, s2, b2)])
+    cold = graph_ms([lambda f=f: ck.stem_conv(f, w2, mean, std, s2, b2) for f in frames_])
+    plain = time_ms(lambda: ck.stem_conv_plain(frame, w2, mean, std, s2, b2))
+    print("stem_conv library call: none (no single PyTorch call does the uint8 "
+          "normalize, conv, BN and ReLU)")
+    out["stem_conv"] = _timing("stem_conv", tuple(frame.shape[:3]), card, warm, cold,
+                               plain, None)
+
+    boxes = torch.rand(1, 1000, 4, generator=g, device=device) * 500
+    boxes[..., 2:] += boxes[..., :2]
+    valid = torch.ones(1, 1000, dtype=torch.bool, device=device)
+    warm = graph_ms([lambda: nms_kernel.nms_mask_sorted(boxes, valid, 0.4)])
+    plain = time_ms(lambda: nms_kernel.nms_mask_sorted_plain(boxes, valid, 0.4))
+    print("nms_mask_sorted library call: none (torchvision's nms is not on the "
+          "card's machine, and the port may not need it)")
+    out["nms_mask_sorted"] = _timing("nms_mask_sorted", (1, 1000), card, warm, warm,
+                                     plain, None, note=" (inputs of 17 KB: warm = cold)")
+    return out
+
+
+def profile_engine(engine, x, vhw, card, counters):
+    """One frame of the bf16_kernels engine launches each kernel as the
+    engine's levels say; then torch.profiler over PROFILED_FRAMES frames:
+    each kernel's device ms per frame and the device's busiest kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for c in counters:
+        c.launches = 0
+    engine(x, vhw)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    print(f"one frame of the bf16_kernels engine: launches {launches}")
+    check(launches == ENGINE_LAUNCHES, f"one frame should launch {ENGINE_LAUNCHES}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILED_FRAMES):
+            engine(x, vhw)
+        torch.cuda.synchronize()
+    by_name, calls = {}, {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+            calls[e.name] = calls.get(e.name, 0) + 1
+    per_frame = {}
+    for kernel, keys in (("pair_conv3x3", ("pair_conv_kernel",)),
+                         ("stem_conv", ("stem_conv_kernel",)),
+                         ("nms_mask_sorted", ("nms_mask_kernel", "nms_reduce_kernel"))):
+        names = [n for n in by_name if any(k in n for k in keys)]
+        per_frame[kernel] = (sum(by_name[n] for n in names) / PROFILED_FRAMES,
+                             sum(calls[n] for n in names) / PROFILED_FRAMES)
+    share = busy_share(prof)
+    total = sum(by_name.values()) / PROFILED_FRAMES
+    print(f"profile, {PROFILED_FRAMES} frames of the bf16_kernels engine {HW[0]}x{HW[1]}: "
+          "device ms per frame " + ", ".join(
+              f"{k} {ms:.4f} ({n:.0f} launches)" for k, (ms, n) in per_frame.items())
+          + f"; all device work {total:.3f} ms per frame, busy share "
+          + ("not measured" if share is None else f"{share:.3f}") + f" [{card}]")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"  {ms / PROFILED_FRAMES:8.4f} ms/frame  {calls[name] / PROFILED_FRAMES:5.1f}x  "
+              f"{name[:110]}")
+    check(all(n > 0 for _, n in per_frame.values()), "the profile lost a kernel")
+
+
 # ------------------------------------------------------------------ main
 
 def main():
@@ -943,42 +1211,18 @@ def main():
     for name in order:
         runs = ", ".join(f"{t:.3f}" for t in engine_ms[name])
         print(f"engine {name} {HW[0]}x{HW[1]} batch 1: {runs} ms/frame [{card}]")
-    boxes = torch.rand(1, 1000, 4, device=device) * 500
-    boxes[..., 2:] += boxes[..., :2]
-    valid = torch.ones(1, 1000, dtype=torch.bool, device=device)
-    k1 = (time_ms(lambda: nms_kernel.nms_mask_sorted(boxes, valid, 0.4)),
-          time_ms(lambda: nms_kernel.nms_mask_sorted_plain(boxes, valid, 0.4)))
-    k2 = (time_ms(lambda: conv_kernels.stem_conv(*k2_in)),
-          time_ms(lambda: conv_kernels.stem_conv_plain(*k2_in)))
-    k3 = (time_ms(lambda: conv_kernels.pair_conv3x3(*k3_in, residual=k3_in[0])),
-          time_ms(lambda: conv_kernels.pair_conv3x3_plain(*k3_in, residual=k3_in[0])))
-    # cuDNN's own bf16 conv at K3's shape (not the plain version, which runs
-    # in fp32): the library bar the hand kernel is measured against
-    xin = k3_in[0].permute(0, 3, 1, 2)
-    wcd = k3_in[1].permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-    k3_cudnn = time_ms(lambda: torch.nn.functional.conv2d(xin, wcd, padding=1))
-    for name, (ms, plain_ms), shape in (
-            ("nms_mask_sorted", k1, "B=1 K=1000"),
-            ("stem_conv", k2, f"{tuple(k2_in[0].shape)}"),
-            ("pair_conv3x3", k3, f"{tuple(k3_in[0].shape)} +residual")):
-        print(f"kernel {name} {shape}: {ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]")
-    print(f"cuDNN bf16 conv2d at {tuple(k3_in[0].shape)} (no epilogue): "
-          f"{k3_cudnn:.4f} ms [{card}]")
-
-    kernels = [
-        dict(name="nms_mask_sorted", route="cuda", source="lfdtpu_torch/csrc/nms.cu",
-             replaces="lfdtpu/ops/nms_pallas.py:49",
-             launches=launches["nms_mask_sorted"], max_abs_err=err1,
-             ms=k1[0], plain_ms=k1[1]),
-        dict(name="stem_conv", route="cuda", source="lfdtpu_torch/csrc/stem_conv.cu",
-             replaces="lfdtpu/ops/conv_pallas.py:359",
-             launches=launches["stem_conv"], max_abs_err=errs["stem_conv"],
-             ms=k2[0], plain_ms=k2[1]),
-        dict(name="pair_conv3x3", route="cuda", source="lfdtpu_torch/csrc/pair_conv.cu",
-             replaces="lfdtpu/ops/conv_pallas.py:171",
-             launches=launches["pair_conv3x3"], max_abs_err=errs["pair_conv3x3"],
-             ms=k3[0], plain_ms=k3[1]),
-    ]
+    timings = time_kernels(device, card, k2_in, k3_in)
+    profile_engine(engines["bf16_kernels"], x, vhw, card, counters)
+    sources = {
+        "nms_mask_sorted": ("lfdtpu_torch/csrc/nms.cu", "lfdtpu/ops/nms_pallas.py:49", err1),
+        "stem_conv": ("lfdtpu_torch/csrc/stem_conv.cu", "lfdtpu/ops/conv_pallas.py:359",
+                      errs["stem_conv"]),
+        "pair_conv3x3": ("lfdtpu_torch/csrc/pair_conv.cu", "lfdtpu/ops/conv_pallas.py:171",
+                         errs["pair_conv3x3"]),
+    }
+    kernels = [dict(name=name, route="cuda", source=src, replaces=tpu,
+                    launches=launches[name], max_abs_err=err, **timings[name])
+               for name, (src, tpu, err) in sources.items()]
     print(f"[8 workload] {card}")
     t0 = time.time()
     workload_phase(device, card, counters)

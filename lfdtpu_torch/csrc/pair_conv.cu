@@ -8,153 +8,538 @@
 // "overlapped pair" weight layout existed only to fill the TPU's 128-wide
 // matrix unit. Its contract is kept, not its layout.
 //
-// What bounds it on the H100: at 272 x 480 a launch is 9.6 GFLOP against
-// about 50 MB of bf16 traffic (in, residual, out), so it is compute bound on
-// the tensor cores only for a kernel far faster than this one; a simple
-// tensor-core kernel is bound by how quickly it feeds them from shared memory.
-// The design is an implicit GEMM on warp-level bf16 tensor-core tiles
-// (WMMA 16x16x16, fp32 accumulate):
-//   * a block owns an 8 x 16 tile of output pixels and all 64 channels;
-//     each of its 8 warps owns one output row (16 pixels x 64 channels,
-//     four accumulator fragments);
-//   * the (8+2) x (16+2) x 64 input window (zero outside the image) and all
-//     9 x 64 x 64 weights are staged once in shared memory; the GEMM's K loop
-//     runs over the 9 taps x 4 chunks of 16 input channels, each A fragment a
-//     16-pixel run of the window shifted by the tap;
-//   * row strides of 80 (window) and 72 (weights) elements keep every
-//     fragment pointer 32-byte aligned and spread the rows over the banks;
-//   * the epilogue stages the fp32 accumulators through shared memory and
-//     writes 16-byte bf16 vectors, masked at the ragged right/bottom edge,
-//     so there is no H % 8 or even-W limit.
-// wgmma, TMA and a persistent multi-stage pipeline are later work.
+// What bounds it on the H100: bytes. At 272 x 480 with a residual a launch
+// moves 50 MB (in, residual, out, weights) and does 9.6 GFLOP: 15 us of
+// bytes against 9.7 us at the bf16 tensor-core peak. So the tensor cores
+// must run near that peak and be fed from shared memory, with the loads
+// overlapped, for the bytes to bind.
+//
+// Design: a persistent implicit GEMM on wgmma (bf16 in, fp32 accumulate)
+// whose loads and stores are all TMA, issued by one thread, so that no warp
+// waits on memory while the tensor cores have work. wgmma rather than
+// mma.sync: it runs at the full tensor-core rate and reads the weights from
+// shared memory once per warpgroup, where mma.sync at half the rate needs
+// every warp to load them again; A keeps mma.sync's ldmatrix path.
+//   * Grid = min(work items, blocks per SM x SMs), blocks per SM from the
+//     occupancy query, made once per device with cudaFuncSetAttribute.
+//   * Each block loads the 9 x 64 x 64 weights ONCE, by TMA, in three boxes
+//     of three taps, each on its own barrier, after its first input window:
+//     the first item's math starts with the first box. TMA's 128B swizzle of
+//     the HWIO rows (64 output channels, 128 bytes) is wgmma's MN-major B
+//     layout, so wgmma reads them straight from shared memory, once per
+//     warpgroup, with no repacking. The block then walks work items with
+//     32-bit index math.
+//   * A (pixels x input channels) comes from registers, loaded by ldmatrix
+//     from the input window: each lane hands ldmatrix its own pixel row, so
+//     a 3x3 tap is only an address offset and the shifted im2col costs
+//     nothing. The window is a 4-D TMA box of the NHWC input ((8+2) x (32+2)
+//     pixels, zero outside the image by TMA's out-of-bounds fill), its
+//     128-byte pixel rows 128B-swizzled, so ldmatrix is conflict-free.
+//   * A work item is an 8 x 32 output tile and 64 channels, or 32 of them,
+//     or 32 of a 4 x 32 tile (templates kN, the wgmma N, and kTH). The
+//     launch takes the shape with the least rounds x item time: a short last
+//     round costs a whole item, so 136 x 240 runs 136 items of 8 x 32 x 64
+//     and 68 x 120 runs 72 of 8 x 32 x 32, on fewer blocks than SMs. Each of
+//     the two warpgroups owns half the tile's rows: one m64 product per 2
+//     rows, per tap and 16-channel step, with the A registers
+//     double-buffered so that the next ldmatrix overlaps the wgmma in flight.
+//   * A ring of 2 windows: item i + 1's is in flight during item i's math,
+//     item i + 2's is issued as soon as item i's math ends.
+//   * Epilogue in registers (scale, bias, residual, ReLU, one bf16 rounding)
+//     in place on a residual/output tile: TMA brings the residual in (issued
+//     an item ahead), the threads overwrite it with the result, and a TMA
+//     store writes it out (clipped at the image's edge). Two such tiles
+//     alternate, so a store overlaps the next item. The tiles are swizzled
+//     (128B for 64 channels, 64B for 32) so that the threads' accesses are
+//     free of bank conflicts; scale and bias wait in shared memory.
+//   * The block's start: thread 0 prefetches the four TMA descriptors before
+//     it initializes the barriers, and issues its copies at about 900-1,100
+//     cycles (2,000-2,800 without the prefetch).
+// What holds it back now (clock64 traces on the H100, PERF.md): an item's
+// math reads about 576 KB of shared memory (A by ldmatrix, B by wgmma), near
+// the SM's 128 bytes a cycle; its residual wait and epilogue (about a third
+// of the math) do not overlap the math; the first window arrives late at
+// 272 x 480, where every SM loads its first window at once.
+// Not done here: fusing a FasterBlock's two launches (y would stay on chip).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+#include <limits.h>
 #include <stdint.h>
+
+#include "trace.cuh"
 
 namespace {
 
-using namespace nvcuda;
-
 constexpr int kC = 64;
-constexpr int kTileH = 8;
-constexpr int kTileW = 16;
+constexpr int kTileH = 8;   // output rows per tile (4 on the smallest levels)
+constexpr int kTileW = 32;  // output pixels per row
 constexpr int kWinH = kTileH + 2;
 constexpr int kWinW = kTileW + 2;
-constexpr int kInLd = 80;   // window channel stride (elements)
-constexpr int kWLd = 72;    // weight row stride (elements)
-constexpr int kOutLd = 68;  // fp32 epilogue row stride
 constexpr int kThreads = 256;
-constexpr size_t kWBytes = 9 * kC * kWLd * sizeof(__nv_bfloat16);
-constexpr size_t kInBytes = kWinH * kWinW * kInLd * sizeof(__nv_bfloat16);
-constexpr size_t kSmemBytes = kWBytes + kInBytes;
-static_assert(kWBytes % 128 == 0, "window must start 128-byte aligned");
-static_assert(kThreads / 32 == kTileH, "one warp per output row");
-static_assert(kTileH * kTileW * kOutLd * sizeof(float) <= kSmemBytes,
-              "epilogue staging must fit in the reused shared memory");
+constexpr int kSteps = 9 * 4;  // taps x 16-channel K steps
+// shared memory, bytes: the weights (HWIO rows of 128 bytes, 2 KB per step),
+// two input windows (128-byte pixel rows), all 128B-swizzled TMA boxes 1 KB
+// aligned; two residual/output tiles; the mbarriers; scale and bias
+constexpr int kWBytes = kSteps * 16 * kC * 2;
+constexpr int kWBoxRows = 192;  // TMA boxes of the weights' 576 rows: 3 taps each
+constexpr int kWBoxes = 9 * kC / kWBoxRows;
+constexpr int kBoxSteps = kSteps / kWBoxes;  // K steps per weight box
+constexpr int kWinBoxBytes = kWinH * kWinW * kC * 2;
+constexpr int kWinBytes = (kWinBoxBytes + 1023) / 1024 * 1024;
+constexpr int kTileBytes = kTileH * kTileW * kC * 2;
+constexpr int kOffWin = kWBytes;
+constexpr int kOffTile = kOffWin + 2 * kWinBytes;
+constexpr int kOffBar = kOffTile + 2 * kTileBytes;
+constexpr int kBars = 4 + kWBoxes;  // window full x2, residual full x2, weight boxes
+constexpr int kOffSB = (kOffBar + kBars * 8 + 15) / 16 * 16;  // scale, bias: 2 x 64 fp32
+constexpr size_t kSmemBytes = kOffSB + 2 * kC * 4 + 1024;  // + alignment slack
+static_assert(kSmemBytes <= 232448, "shared memory of one H100 block");
+static_assert(kWBytes % 1024 == 0 && kWinBytes % 1024 == 0, "1 KB aligned boxes");
+static_assert(9 * kC % kWBoxRows == 0 && kWBoxRows % (3 * kC) == 0, "boxes of whole tap rows");
+constexpr int kMaxDevices = 64;
 
-__global__ void __launch_bounds__(kThreads)
-pair_conv_kernel(const __nv_bfloat16* __restrict__ x,
-                 const __nv_bfloat16* __restrict__ w,
-                 const float* __restrict__ scale, const float* __restrict__ bias,
-                 const __nv_bfloat16* __restrict__ res,
-                 __nv_bfloat16* __restrict__ out, int H, int W, int relu) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* s_w = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* s_in = reinterpret_cast<__nv_bfloat16*>(smem + kWBytes);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// a TMA box at {c, x, y, n} (a 4-D map; a 2-D one ignores y and n); parts
+// outside the tensor read as zero
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c,
+                                         int x, int y, int n) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c), "r"(x), "r"(y), "r"(n)
+      : "memory");
+}
+
+// fetch a TMA descriptor ahead of its first use
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// parts of the box outside the tensor are not written
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c, int x, int y,
+                                          int n) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c), "r"(x), "r"(y), "r"(n)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// generic-proxy shared-memory writes, made visible to TMA and wgmma
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accumulator accesses across wgmma's
+// asynchronous window
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory descriptor of an MN-major B operand with 128B swizzle: atoms
+// of 8 input-channel rows x 128 bytes (the 64 output channels), 1 KB each.
+// Both strides are 1 KB, the next 8 input channels: N never spans a second
+// atom, so the field that would step along N is never used.
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1024 >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// D(64 x N, fp32) += A(64 x 16, bf16 registers) * B(16 x N, bf16 shared, MN-major)
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  static __device__ __forceinline__ void mma(float (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+struct Item {
+  int n, y0, x0, c0;
+};
+
+__device__ __forceinline__ Item item_of(int item, int split, int tiles_x, int tiles_img,
+                                        int cout, int tile_h) {
+  Item it;
+  const int tile = item / split;
+  it.c0 = (item - tile * split) * cout;
+  it.n = tile / tiles_img;
+  const int r = tile - it.n * tiles_img;
+  const int ty = r / tiles_x;
+  it.y0 = ty * tile_h;
+  it.x0 = (r - ty * tiles_x) * kTileW;
+  return it;
+}
+
+// Byte offset of (pixel q, 16-byte chunk) in a TMA box of kRow-byte pixel
+// rows, swizzled as TMA writes it (box 1 KB aligned): 128-byte rows 128B
+// (chunk ^ q % 8), 64-byte rows 64B (chunk ^ q / 2 % 4).
+template <int kRow>
+__device__ __forceinline__ uint32_t box_offset(int q, int chunk) {
+  if (kRow == 128) return q * 128 + ((chunk ^ (q & 7)) << 4);
+  return q * 64 + ((chunk ^ ((q >> 1) & 3)) << 4);
+}
+
+// kN: output channels per work item (the wgmma N); kTH: output rows per tile
+template <int kN, int kTH>
+__global__ void __launch_bounds__(kThreads, 1)
+pair_conv_kernel(const __grid_constant__ CUtensorMap map_w,
+                 const __grid_constant__ CUtensorMap map_x,
+                 const __grid_constant__ CUtensorMap map_res,
+                 const __grid_constant__ CUtensorMap map_out, const float* __restrict__ scale, const float* __restrict__ bias, int has_res,
+                 int tiles_x, int tiles_img, int work, int relu) {
+  static_assert((kN == 32 || kN == 64) && (kTH == 4 || kTH == 8), "tile shapes");
+  constexpr int kSplit = kC / kN;
+  constexpr int kM = kTH / 4;  // m64 products per warpgroup (2 rows each)
+  constexpr uint32_t kWinBox = (kTH + 2) * kWinW * kC * 2;
+  constexpr int kAcc = kN / 2;     // accumulator registers per m64 product
+  constexpr int kRow = kN * 2;     // bytes per pixel in a residual/output tile
+  constexpr uint32_t kResBytes = kTH * kTileW * kRow;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t w_u32 = base;
+  const uint32_t win_u32 = base + kOffWin;
+  const uint32_t tile_u32 = base + kOffTile;
+  const uint32_t bar_u32 = base + kOffBar;  // [0,1] windows, [2,3] residuals, [4..] weights
   const int tid = threadIdx.x;
-  const int n = blockIdx.z;
-  const int ty0 = blockIdx.y * kTileH;
-  const int tx0 = blockIdx.x * kTileW;
+  const int warp = tid >> 5, lane = tid & 31;
 
-  // weights: [tap][cin][cout], 8 x 16-byte vectors per 64-wide row
-  const uint4* w4 = reinterpret_cast<const uint4*>(w);
-  for (int q = tid; q < 9 * kC * 8; q += kThreads) {
-    const int row = q >> 3, part = q & 7;
-    *reinterpret_cast<uint4*>(s_w + row * kWLd + part * 8) = w4[q];
-  }
-  // input window, zero outside the image
-  for (int q = tid; q < kWinH * kWinW * 8; q += kThreads) {
-    const int part = q & 7, pix = q >> 3;
-    const int iy = ty0 - 1 + pix / kWinW;
-    const int ix = tx0 - 1 + pix % kWinW;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (iy >= 0 && iy < H && ix >= 0 && ix < W) {
-      v = reinterpret_cast<const uint4*>(
-          x + ((static_cast<size_t>(n) * H + iy) * W + ix) * kC)[part];
-    }
-    *reinterpret_cast<uint4*>(s_in + pix * kInLd + part * 8) = v;
+  int item = blockIdx.x;
+  if (item >= work) return;
+  LFD_TR(0);  // stamps for tools/kernel_trace.py, nothing unless LFD_TRACE
+  Item cur = item_of(item, kSplit, tiles_x, tiles_img, kN, kTH);
+
+  if (tid == 0) {
+    prefetch_map(&map_x);
+    prefetch_map(&map_w);
+    prefetch_map(&map_res);
+    prefetch_map(&map_out);
+    for (int b = 0; b < kBars; ++b) mbar_init(bar_u32 + 8 * b, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-
-  const int warp = tid >> 5;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
-#pragma unroll
-  for (int f = 0; f < 4; ++f) wmma::fill_fragment(acc[f], 0.0f);
-
-#pragma unroll 1
-  for (int tap = 0; tap < 9; ++tap) {
-    const int dy = tap / 3, dx = tap % 3;
-    const __nv_bfloat16* a_base = s_in + ((warp + dy) * kWinW + dx) * kInLd;
-    const __nv_bfloat16* b_base = s_w + tap * kC * kWLd;
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, a_base + kc * 16, kInLd);
-#pragma unroll
-      for (int f = 0; f < 4; ++f) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, b_base + kc * 16 * kWLd + f * 16, kWLd);
-        wmma::mma_sync(acc[f], a, b, acc[f]);
-      }
+  // Thread 0 issues every copy: window 0, the weights (HWIO, 128B-swizzled
+  // by TMA, which is wgmma's MN-major B layout) in boxes of 3 taps, each on
+  // its own barrier so that the first item's math starts with the first box,
+  // then residual 0 and window 1.
+  if (tid == 0) {
+    mbar_expect(bar_u32, kWinBox);
+    tma_load(win_u32, &map_x, bar_u32, 0, cur.x0 - 1, cur.y0 - 1, cur.n);
+    for (int r = 0; r < kWBoxes; ++r) {
+      mbar_expect(bar_u32 + 32 + 8 * r, kWBoxRows * kC * 2);
+      tma_load(w_u32 + r * kWBoxRows * kC * 2, &map_w, bar_u32 + 32 + 8 * r, 0, r * kWBoxRows, 0,
+               0);
+    }
+    if (has_res) {
+      mbar_expect(bar_u32 + 16, kResBytes);
+      tma_load(tile_u32, &map_res, bar_u32 + 16, cur.c0, cur.x0, cur.y0, cur.n);
+    }
+    const int next = item + gridDim.x;
+    if (next < work) {
+      const Item nx = item_of(next, kSplit, tiles_x, tiles_img, kN, kTH);
+      mbar_expect(bar_u32 + 8, kWinBox);
+      tma_load(win_u32 + kWinBytes, &map_x, bar_u32 + 8, 0, nx.x0 - 1, nx.y0 - 1, nx.n);
     }
   }
-  __syncthreads();  // every warp is done with the window and the weights
+  LFD_TR(1);
+  // scale and bias into shared memory, read by every epilogue: a global load
+  // in the first one would queue behind the launch's copies (thousands of
+  // cycles at 272 x 480)
+  float* s_sb = reinterpret_cast<float*>(smem + kOffSB);
+  if (tid >= 128) s_sb[tid - 128] = tid < 128 + kC ? scale[tid - 128] : bias[tid - 128 - kC];
 
-  float* s_out = reinterpret_cast<float*>(smem);
-#pragma unroll
-  for (int f = 0; f < 4; ++f) {
-    wmma::store_matrix_sync(s_out + warp * 16 * kOutLd + f * 16, acc[f], kOutLd,
-                            wmma::mem_row_major);
-  }
-  __syncthreads();
+  // This warp's A rows: warpgroup wg owns tile rows 2kM wg .. 2kM wg + 2kM - 1;
+  // m64 product j covers rows 2kM wg + 2j + {0, 1}, each warp 16 pixels of
+  // one of them.
+  const int w4 = warp & 3;
+  const int row0 = (warp >> 2) * 2 * kM + (w4 >> 1);  // tile row of product 0
+  const int xo = (w4 & 1) * 16;                  // first pixel in that row
+  const int p_lane = row0 * kWinW + xo + (lane & 15);  // window pixel at tap (0, 0)
+  const int c_lane = lane >> 4;                        // 16-byte chunk within k16
+  const int g = lane >> 2, t = lane & 3;
+  const uint64_t desc_item = b_desc(w_u32);
 
-  for (int q = tid; q < kTileH * kTileW * 8; q += kThreads) {
-    const int part = q & 7, pix = q >> 3;
-    const int oy = ty0 + pix / kTileW;
-    const int ox = tx0 + pix % kTileW;
-    if (oy >= H || ox >= W) continue;
-    const float* src = s_out + pix * kOutLd + part * 8;
-    const size_t o = ((static_cast<size_t>(n) * H + oy) * W + ox) * kC + part * 8;
-    float v[8];
+  for (int i = 0; item < work; ++i) {
+    const int s = i & 1;
+    const uint32_t phase = (i >> 1) & 1;
+    mbar_wait(bar_u32 + 8 * s, phase);  // this item's window
+    LFD_TR(2 + 3 * i);
+
+    float acc[kM][kAcc];
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const int c = part * 8 + k;
-      v[k] = src[k] * __ldg(scale + c) + __ldg(bias + c);
+    for (int j = 0; j < kM; ++j) {
+#pragma unroll
+      for (int e = 0; e < kAcc; ++e) acc[j][e] = 0.0f;
+      fence_regs(acc[j]);
     }
-    if (res != nullptr) {
-      const uint4 r = *reinterpret_cast<const uint4*>(res + o);
-      const __nv_bfloat162* r2 = reinterpret_cast<const __nv_bfloat162*>(&r);
+    const uint32_t win = win_u32 + s * kWinBytes;
+    const uint64_t desc0 = desc_item + ((cur.c0 * 2) >> 4);  // c0 channels into the rows
+    uint32_t a[2][kM][4];  // [buffer][product][fragment]
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const float2 rf = __bfloat1622float2(r2[k]);
-        v[2 * k] += rf.x;
-        v[2 * k + 1] += rf.y;
+    for (int st = 0; st < kSteps; ++st) {
+      const int tap = st >> 2, kc = st & 3;
+      const int dy = tap / 3, dx = tap % 3;
+#pragma unroll
+      for (int j = 0; j < kM; ++j) {
+        const int p = p_lane + (2 * j + dy) * kWinW + dx;
+        ldsm_x4(win + box_offset<128>(p, kc * 2 + c_lane), a[st & 1][j]);
+      }
+      // this step's weight box (passes at once after the first item)
+      if (st % kBoxSteps == 0) mbar_wait(bar_u32 + 32 + 8 * (st / kBoxSteps), 0);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kM; ++j) {
+        Wgmma<kN>::mma(acc[j], a[st & 1][j], desc0 + ((st * 2048) >> 4));
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous step is done: its A buffer is free
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < kM; ++j) fence_regs(acc[j]);
+    __syncthreads();  // every warp is done with window s
+    LFD_TR(3 + 3 * i);
+
+    const int next = item + gridDim.x;
+    const Item nxt = item_of(next < work ? next : item, kSplit, tiles_x, tiles_img, kN, kTH);
+    if (tid == 0 && next + static_cast<int>(gridDim.x) < work) {  // window of item i + 2
+      const Item n2 = item_of(next + gridDim.x, kSplit, tiles_x, tiles_img, kN, kTH);
+      mbar_expect(bar_u32 + 8 * s, kWinBox);
+      tma_load(win, &map_x, bar_u32 + 8 * s, 0, n2.x0 - 1, n2.y0 - 1, n2.n);
+    }
+    if (has_res) mbar_wait(bar_u32 + 16 + 8 * s, phase);  // this item's residual
+
+    // epilogue in place: residual tile s in, output tile s out
+    unsigned char* tile = smem + kOffTile + s * kTileBytes;
+#pragma unroll
+    for (int nt = 0; nt < kN / 8; ++nt) {
+      const int ch = nt * 8 + 2 * t;
+      const float2 sc = *reinterpret_cast<const float2*>(s_sb + cur.c0 + ch);
+      const float2 bi = *reinterpret_cast<const float2*>(s_sb + kC + cur.c0 + ch);
+#pragma unroll
+      for (int j = 0; j < kM; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int q = (row0 + 2 * j) * kTileW + xo + g + 8 * h;
+          __nv_bfloat162* slot =
+              reinterpret_cast<__nv_bfloat162*>(tile + box_offset<kRow>(q, nt) + 4 * t);
+          float v0 = acc[j][nt * 4 + 2 * h] * sc.x + bi.x;
+          float v1 = acc[j][nt * 4 + 2 * h + 1] * sc.y + bi.y;
+          if (has_res) {
+            const float2 r = __bfloat1622float2(*slot);
+            v0 += r.x;
+            v1 += r.y;
+          }
+          if (relu) {
+            v0 = fmaxf(v0, 0.0f);
+            v1 = fmaxf(v1, 0.0f);
+          }
+          *slot = __floats2bfloat162_rn(v0, v1);
+        }
       }
     }
-    __align__(16) __nv_bfloat162 packed[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      float a = v[2 * k], b = v[2 * k + 1];
-      if (relu) {
-        a = fmaxf(a, 0.0f);
-        b = fmaxf(b, 0.0f);
+    fence_async_smem();
+    __syncthreads();
+    LFD_TR(4 + 3 * i);
+    if (tid == 0) {
+      tma_store(&map_out, tile_u32 + s * kTileBytes, cur.c0, cur.x0, cur.y0, cur.n);
+      tma_store_wait_read<1>();  // item i - 1's store has read the other tile
+      if (has_res && next < work) {  // residual of item i + 1 into it
+        mbar_expect(bar_u32 + 16 + 8 * (s ^ 1), kResBytes);
+        tma_load(tile_u32 + (s ^ 1) * kTileBytes, &map_res, bar_u32 + 16 + 8 * (s ^ 1), nxt.c0,
+                 nxt.x0, nxt.y0, nxt.n);
       }
-      packed[k] = __floats2bfloat162_rn(a, b);
     }
-    *reinterpret_cast<uint4*>(out + o) = *reinterpret_cast<const uint4*>(packed);
+    item = next;
+    cur = nxt;
   }
+  if (tid == 0) tma_store_wait_read<0>();  // the tiles stay until the stores read them
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, found once through the runtime's entry points
+cudaError_t encoder(EncodeTiled* out) {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err != cudaSuccess) return err;
+    if (q != cudaDriverEntryPointSuccess || p == nullptr) return cudaErrorNotSupported;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  *out = fn;
+  return cudaSuccess;
+}
+
+// A 4-D TMA map of a bf16 tensor, dims innermost first, the innermost
+// contiguous; a box with 128-byte rows is 128B-swizzled.
+cudaError_t tensor_map(CUtensorMap* map, const void* ptr, const int (&dims)[4],
+                       const int (&box)[4]) {
+  EncodeTiled encode = nullptr;
+  const cudaError_t err = encoder(&encode);
+  if (err != cudaSuccess) return err;
+  cuuint64_t size[4], strides[3];
+  cuuint32_t bx[4];
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  cuuint64_t stride = 2;
+  for (int d = 0; d < 4; ++d) {
+    size[d] = static_cast<cuuint64_t>(dims[d]);
+    bx[d] = static_cast<cuuint32_t>(box[d]);
+    stride *= size[d];
+    if (d < 3) strides[d] = stride;
+  }
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), size,
+                            strides, bx, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            box[0] * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Blocks per SM x SMs for one instantiation on the current device, queried
+// (with the shared-memory opt-in) once per process and device.
+template <int kN, int kTH>
+cudaError_t capacity(int* out) {
+  static int cached[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (cached[dev] == 0) {
+    err = cudaFuncSetAttribute(pair_conv_kernel<kN, kTH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kSmemBytes));
+    if (err != cudaSuccess) return err;
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pair_conv_kernel<kN, kTH>, kThreads,
+                                                        kSmemBytes);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    cached[dev] = per_sm * sms;
+  }
+  *out = cached[dev];
+  return cudaSuccess;
+}
+
+template <int kN, int kTH>
+cudaError_t launch(const __nv_bfloat16* x, const __nv_bfloat16* w, const float* scale,
+                   const float* bias, const __nv_bfloat16* res, __nv_bfloat16* out, int N, int H,
+                   int W, int tiles_x, int tiles_img, int work, int relu, cudaStream_t stream) {
+  int cap = 0;
+  cudaError_t err = capacity<kN, kTH>(&cap);
+  if (err != cudaSuccess) return err;
+  // the weights as 576 rows of 64 output channels; x, residual and output NHWC
+  CUtensorMap map_w, map_x, map_res, map_out;
+  const int nhwc[4] = {kC, W, H, N};
+  err = tensor_map(&map_w, w, {kC, 9 * kC, 1, 1}, {kC, kWBoxRows, 1, 1});
+  if (err == cudaSuccess) err = tensor_map(&map_x, x, nhwc, {kC, kWinW, kTH + 2, 1});
+  if (err == cudaSuccess) err = tensor_map(&map_out, out, nhwc, {kN, kTileW, kTH, 1});
+  if (err == cudaSuccess) {
+    err = tensor_map(&map_res, res != nullptr ? res : out, nhwc, {kN, kTileW, kTH, 1});
+  }
+  if (err != cudaSuccess) return err;
+  const int grid = work < cap ? work : cap;
+  pair_conv_kernel<kN, kTH><<<grid, kThreads, kSmemBytes, stream>>>(
+      map_w, map_x, map_res, map_out, scale, bias, res != nullptr, tiles_x, tiles_img, work, relu);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -165,12 +550,45 @@ extern "C" int lfd_pair_conv3x3(const __nv_bfloat16* x, const __nv_bfloat16* w,
                                 int N, int H, int W, int relu,
                                 cudaStream_t stream) {
   if (N <= 0 || H <= 0 || W <= 0) return static_cast<int>(cudaGetLastError());
-  cudaError_t err = cudaFuncSetAttribute(
-      pair_conv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemBytes));
+  if (static_cast<long long>(N) * H * W * kC > INT_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);  // 32-bit index math
+  }
+  int cap = 0;  // one block per SM for every instantiation (shared memory)
+  cudaError_t err = capacity<64, 8>(&cap);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, N);
-  pair_conv_kernel<<<grid, kThreads, kSmemBytes, stream>>>(x, w, scale, bias, res,
-                                                           out, H, W, relu);
-  return static_cast<int>(cudaGetLastError());
+  // Three item shapes: 8 x 32 x 64, 8 x 32 x 32 and 4 x 32 x 32. Take the
+  // least rounds x item time. An item's time, in units of an 8 x 32 x 64
+  // item's math, is its math (1, 0.73, 0.49) plus 0.37 for its window wait
+  // and epilogue (clock64 traces on the H100). A last round of a few items
+  // costs a whole item time, so a level whose items barely exceed the SMs
+  // takes fewer, larger items (136 x 240: 136 items of 8 x 32 x 64, not 272
+  // of 8 x 32 x 32; 68 x 120: 72 of 8 x 32 x 32 on 72 SMs, not 136 of
+  // 4 x 32 x 32); a small image takes the smallest items, in one round.
+  const int tiles_x = (W + kTileW - 1) / kTileW;
+  const int tiles_img8 = tiles_x * ((H + 7) / 8), tiles_img4 = tiles_x * ((H + 3) / 4);
+  const long long items[3] = {static_cast<long long>(N) * tiles_img8,
+                              2LL * N * tiles_img8, 2LL * N * tiles_img4};
+  const float item_time[3] = {1.37f, 1.10f, 0.86f};
+  int pick = 0;
+  float best = 3.0e38f;
+  for (int k = 0; k < 3; ++k) {
+    const float cost = static_cast<float>((items[k] + cap - 1) / cap) * item_time[k];
+    if (cost < best) {
+      best = cost;
+      pick = k;
+    }
+  }
+  if (items[pick] > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const int work = static_cast<int>(items[pick]);
+  if (pick == 0) {
+    err = launch<64, 8>(x, w, scale, bias, res, out, N, H, W, tiles_x, tiles_img8, work, relu,
+                        stream);
+  } else if (pick == 1) {
+    err = launch<32, 8>(x, w, scale, bias, res, out, N, H, W, tiles_x, tiles_img8, work, relu,
+                        stream);
+  } else {
+    err = launch<32, 4>(x, w, scale, bias, res, out, N, H, W, tiles_x, tiles_img4, work, relu,
+                        stream);
+  }
+  return static_cast<int>(err);
 }

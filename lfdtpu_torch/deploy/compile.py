@@ -21,6 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..device import resolve_device
 from .kernel_net import attach_kernels, prepack_stem
 
 _DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
@@ -158,7 +159,9 @@ def compile_inference(
     device=None,
 ):
     """Build one inference engine from `detector` (its net's current
-    weights) on `device` (default: where the net's weights lie).
+    weights) on `device`: the card ("cuda") unless the caller asks for
+    another (device="cpu" serves on the CPU); without a CUDA device an
+    omitted device raises.
 
     Kernel switches (the JAX knobs in brackets), with lfdtpu's defaults:
       nms_use_kernel [nms_use_pallas], default on: K1 for CUDA tensors.
@@ -180,9 +183,7 @@ def compile_inference(
         spec = dataclasses.replace(spec, pre_nms_points=int(pre_nms_points))
     if nms_budget is not None:
         spec = dataclasses.replace(spec, nms_budget=int(nms_budget))
-    if device is None:
-        device = next(detector.net.parameters()).device
-    device = torch.device(device)
+    device = resolve_device(device)
 
     net = cast_variables(detector.net, _DTYPES[precision])
     net = net.to(device=device, memory_format=torch.channels_last).eval()

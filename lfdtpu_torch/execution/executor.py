@@ -27,6 +27,7 @@ import os
 import torch
 
 from ..data.device_aug import AUG_KEYS
+from ..device import resolve_device
 from .hooks import (CheckpointHook, Hook, LoggerHook, LrSchedulerHook, OptimizerHook,
                     SpeedHook, get_priority)
 from .utils import (AverageMeter, get_root_logger, load_checkpoint, load_weights,
@@ -52,11 +53,7 @@ def _device(cfg):
     if cfg.get("mesh") is not None or isinstance(device, (list, tuple)):
         raise NotImplementedError("training on several devices is not ported yet "
                                   "(ROADMAP queue 1, item 15)")
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"config_dict['device'] is {device} but torch sees no CUDA "
-                           "device; pass device='cpu' to train on the CPU")
-    return device
+    return resolve_device(device, "config_dict['device']")
 
 
 class Executor:

@@ -4,8 +4,11 @@
 # They replace `lfdtpu/ops/conv_pallas.py::stem_conv` and `::pair_conv3x3`.
 # The TPU versions packed their weights into 128-lane matmul layouts for the
 # TPU's matrix unit; these keep the contract (shapes, padding, epilogue,
-# bf16 in/out with fp32 accumulation) and take a batch N. What bounds each on
+# bf16 in/out with fp32 accumulation) and take a batch N. K3 is a persistent
+# wgmma kernel fed by TMA, K2 a persistent mma.sync one; what bounds each on
 # the H100 and what the design does about it is in the head of its .cu file.
+# Their index math is 32-bit: the C entry points refuse a launch whose
+# tensors exceed it (cudaErrorInvalidValue, raised by kernel_lib.launch).
 #
 # Layout: NHWC tensors. The port runs its net in torch.channels_last, whose
 # NCHW tensors ARE NHWC in memory, so `x.permute(0, 2, 3, 1)` hands a

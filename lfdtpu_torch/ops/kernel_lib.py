@@ -55,30 +55,38 @@ def _nvcc():
 
 
 def library_path():
-    """Content-addressed path of the built library for the current sources."""
+    """Content-addressed path of the built library for the current sources
+    (and the headers they include)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC_DIR.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"liblfd_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build(verbose=False):
-    """Compile the kernels if the library for these sources is missing.
-    Returns the library path; the compiler's output (register and shared
-    memory use per kernel, from -Xptxas=-v) is kept beside it as `.log`."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def compile_sources(sources, out, *flags):
+    """Compile `sources` with NVCC_FLAGS (and `flags`) into the shared
+    library `out`. Returns the compiler's output (register and shared memory
+    use per kernel, from -Xptxas=-v), which is kept beside it as `.log`."""
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp), *map(str, sources)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     log = proc.stdout + proc.stderr
     out.with_suffix(".log").write_text(" ".join(cmd) + "\n" + log)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log[-4000:]}")
     os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
+    return log
+
+
+def build(verbose=False):
+    """Compile the kernels if the library for these sources is missing.
+    Returns the library path."""
+    out = library_path()
+    if out.exists():
+        return out
+    log = compile_sources(_sources(), out)
     if verbose:
         print(log)
     return out

@@ -20,6 +20,7 @@ import dataclasses
 import torch
 from torch import nn
 
+from ..device import resolve_device
 from ..execution.optim import clip_by_global_norm, global_norm, set_lr
 
 
@@ -34,9 +35,12 @@ class TrainState:
 
 def create_train_state(detector, optimizer, generator=None, device=None):
     """Initialize detector.net from `generator` (if given) with lfdtpu's
-    initializers, put it on `device` in channels_last memory format (the
-    NHWC input then reaches cuDNN without a copy) and in train mode, and
-    build `optimizer` (an optim.SGD / GroupedSGD config) over it."""
+    initializers, put it on `device` (the card unless the caller asks for
+    another, e.g. device="cpu"; without a CUDA device an omitted device
+    raises) in channels_last memory format (the NHWC input then reaches cuDNN
+    without a copy) and in train mode, and build `optimizer` (an optim.SGD /
+    GroupedSGD config) over it."""
+    device = resolve_device(device)
     if generator is not None:
         detector.init(generator)
     net = detector.net.to(device=device, memory_format=torch.channels_last).train()

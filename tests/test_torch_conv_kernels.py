@@ -107,7 +107,7 @@ def test_prepack_stem_folds_bgr_and_bn_like_lfdtpu():
 
     pre = make_device_preprocess(mean, std, bgr2rgb=True)
     engine = compile_inference(tdet, (32, 48), "bf16", preprocess=pre,
-                               kernel_stem=True)
+                               kernel_stem=True, device="cpu")
     pack = engine.net._backbone.fused_stem.pack
     got = conv_kernels.stem_conv(torch.from_numpy(frame), *pack)
     assert max_rel(got[0].float().numpy(), ref) < 0.03
@@ -115,7 +115,7 @@ def test_prepack_stem_folds_bgr_and_bn_like_lfdtpu():
 
 def test_block_routing_matches_lfdtpu_eligibility():
     _, _, tdet = jax_and_port("WIDERFACE-L")
-    net = compile_inference(tdet, (64, 64), "bf16", kernel_convs=True).net
+    net = compile_inference(tdet, (64, 64), "bf16", kernel_convs=True, device="cpu").net
     routed = [n for n, m in net.named_modules() if getattr(m, "fused", None)]
     # stage0 blocks 1-3, stage1 block 1, stage2 block 1 (the 64-channel
     # stride-1 FasterBlocks); stages 3-4 are 128 channels
@@ -123,7 +123,7 @@ def test_block_routing_matches_lfdtpu_eligibility():
                       "_backbone.stage0.3", "_backbone.stage1.1",
                       "_backbone.stage2.1"]
     # fp32 engines leave every conv on F.conv2d, as lfdtpu leaves fp32 on XLA
-    net32 = compile_inference(tdet, (64, 64), "fp32", kernel_convs=True).net
+    net32 = compile_inference(tdet, (64, 64), "fp32", kernel_convs=True, device="cpu").net
     assert not [m for m in net32.modules() if getattr(m, "fused", None)]
 
 
@@ -131,7 +131,7 @@ def test_fused_block_matches_module_block():
     """One fused FasterBlock (two K3 plain calls, BN folded in fp32) against
     the same block's layers in fp32 on the bf16-cast weights."""
     _, _, tdet = jax_and_port("WIDERFACE-L")
-    net = compile_inference(tdet, (64, 64), "bf16", kernel_convs=True).net
+    net = compile_inference(tdet, (64, 64), "bf16", kernel_convs=True, device="cpu").net
     block = net._backbone.stage0[1]
     x = torch.from_numpy(np.random.RandomState(7).randn(2, 64, 16, 20)
                          .astype(np.float32)).bfloat16()
@@ -147,10 +147,12 @@ def test_kernel_stem_rejects_ineligible_nets():
     _, _, tdet = jax_and_port("WIDERFACE-XS")  # 32-channel stem0
     pre = make_device_preprocess((0.5,) * 3, (0.5,) * 3)
     with pytest.raises(ValueError, match="stem0"):
-        compile_inference(tdet, (64, 64), "bf16", preprocess=pre, kernel_stem=True)
+        compile_inference(tdet, (64, 64), "bf16", preprocess=pre, kernel_stem=True,
+                          device="cpu")
     _, _, tdet = jax_and_port("WIDERFACE-L")
     with pytest.raises(ValueError, match="bf16"):
-        compile_inference(tdet, (64, 64), "fp32", preprocess=pre, kernel_stem=True)
+        compile_inference(tdet, (64, 64), "fp32", preprocess=pre, kernel_stem=True,
+                          device="cpu")
 
 
 def test_cpu_wrappers_do_not_launch():

@@ -102,6 +102,68 @@ def test_stem_kernel_matches_plain(cuda, hw):
     assert max_rel(got, ref) < 0.03
 
 
+def _k3_inputs(cuda, n, hw, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(n, *hw, 64, device=cuda, generator=g).bfloat16()
+    w = (torch.randn(3, 3, 64, 64, device=cuda, generator=g) * 0.05).bfloat16()
+    s = torch.rand(64, device=cuda, generator=g) + 0.5
+    b = torch.randn(64, device=cuda, generator=g) * 0.1
+    return x, w, s, b
+
+
+def _k2_inputs(cuda, n, hw, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    frame = torch.randint(0, 256, (n, *hw, 3), device=cuda, generator=g, dtype=torch.uint8)
+    w = torch.randn(3, 3, 3, 64, device=cuda, generator=g) * 0.1
+    mean = torch.tensor([100.0, 110.0, 120.0], device=cuda)
+    std = torch.tensor([50.0, 55.0, 60.0], device=cuda)
+    s = torch.rand(64, device=cuda, generator=g) + 0.5
+    b = torch.randn(64, device=cuda, generator=g) * 0.1
+    return frame, w, mean, std, s, b
+
+
+# the engine's three K3 shapes at 1088x1920, at batch 4 (the bf16_kernels_b4
+# engine), and shapes with a partial tile in every dimension or fewer 8x32
+# tiles than SMs, which take each of the kernel's three item shapes (8x32x64,
+# 8x32x32 at 68x120, 4x32x32 at the smallest)
+@pytest.mark.parametrize("n,hw", [(4, (272, 480)), (4, (136, 240)), (4, (68, 120)),
+                                  (1, (1, 1)), (1, (5, 7)), (1, (68, 120)),
+                                  (1, (136, 240))])
+@pytest.mark.parametrize("residual", [True, False])
+def test_pair_conv_kernel_matches_plain_at_engine_and_partial_shapes(cuda, n, hw, residual):
+    x, w, s, b = _k3_inputs(cuda, n, hw, hw[0] * 7 + n)
+    res = x.roll(1, 0).contiguous() if residual else None
+    got = conv_kernels.pair_conv3x3(x, w, s, b, residual=res, relu=True)
+    ref = conv_kernels.pair_conv3x3_plain(x, w, s, b, residual=res, relu=True)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape
+    assert max_rel(got, ref) < 0.02
+
+
+@pytest.mark.parametrize("n,hw", [(4, (1088, 1920)), (1, (1087, 1919)), (1, (3, 5))])
+def test_stem_kernel_matches_plain_at_batch_and_odd_shapes(cuda, n, hw):
+    args = _k2_inputs(cuda, n, hw, hw[1] + n)
+    got = conv_kernels.stem_conv(*args)
+    ref = conv_kernels.stem_conv_plain(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (n, (hw[0] + 1) // 2, (hw[1] + 1) // 2, 64)
+    assert max_rel(got, ref) < 0.03
+
+
+def test_conv_kernels_are_deterministic(cuda):
+    """Two launches on the same inputs give bitwise equal outputs: a race in
+    the ring of input windows or the staging tiles would show here."""
+    x, w, s, b = _k3_inputs(cuda, 2, (272, 480), 3)
+    k3 = [conv_kernels.pair_conv3x3(x, w, s, b, residual=x, relu=True) for _ in range(2)]
+    small = _k3_inputs(cuda, 1, (68, 120), 4)
+    k3s = [conv_kernels.pair_conv3x3(*small, relu=False) for _ in range(2)]
+    args = _k2_inputs(cuda, 2, (1088, 1920), 5)
+    k2 = [conv_kernels.stem_conv(*args) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b_ in (k3, k3s, k2):
+        assert torch.equal(a, b_)
+
+
 def test_conv_kernels_reject_bad_input(cuda):
     x = torch.zeros(1, 8, 8, 64, device=cuda)  # float32, not bf16
     w = torch.zeros(3, 3, 64, 64, device=cuda, dtype=torch.bfloat16)

@@ -33,7 +33,7 @@ def _engines(name, precision, **port_kw):
     jdet, variables, tdet = jax_and_port(name)
     je = jax_compile(jdet, variables, HW, precision, batch_size=2,
                      preprocess=jax_preprocess(MEAN, STD, bgr2rgb=True), **KW)
-    te = compile_inference(tdet, HW, precision, batch_size=2,
+    te = compile_inference(tdet, HW, precision, batch_size=2, device="cpu",
                            preprocess=make_device_preprocess(MEAN, STD, bgr2rgb=True),
                            **KW, **port_kw)
     return jdet, variables, je, te
@@ -97,8 +97,9 @@ def test_predict_paths_match_lfdtpu():
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=1e-5, atol=1e-3)
 
     pre = make_device_preprocess(MEAN, STD)
-    single = compile_inference(tdet, HW, "fp32", preprocess=pre, **KW)
-    batched = compile_inference(tdet, HW, "fp32", preprocess=pre, batch_size=2, **KW)
+    single = compile_inference(tdet, HW, "fp32", preprocess=pre, device="cpu", **KW)
+    batched = compile_inference(tdet, HW, "fp32", preprocess=pre, batch_size=2, device="cpu",
+                                **KW)
     jsingle = jax_compile(jdet, variables, HW, "fp32",
                           preprocess=jax_preprocess(MEAN, STD), **KW)
     rows_b = tdet.predict_for_batch_with_engine(batched, imgs)
@@ -116,10 +117,11 @@ def test_packed_output_and_budgets():
     _, _, tdet = jax_and_port("WIDERFACE-L")
     pre = make_device_preprocess(MEAN, STD)
     imgs = _frames(4)
-    base = compile_inference(tdet, HW, "fp32", preprocess=pre, batch_size=2, **KW)
-    packed = compile_inference(tdet, HW, "fp32", preprocess=pre, batch_size=2,
+    base = compile_inference(tdet, HW, "fp32", preprocess=pre, batch_size=2, device="cpu",
+                             **KW)
+    packed = compile_inference(tdet, HW, "fp32", preprocess=pre, batch_size=2, device="cpu",
                                pack_output=True, **KW)
-    small = compile_inference(tdet, HW, "fp32", preprocess=pre, batch_size=2,
+    small = compile_inference(tdet, HW, "fp32", preprocess=pre, batch_size=2, device="cpu",
                               pre_nms_points=300, nms_budget=300, max_det=20, **KW)
     d0 = {k: v.numpy() for k, v in base(imgs, [128, 128]).items()}
     d1 = unpack_detections(packed(imgs, [128, 128]))

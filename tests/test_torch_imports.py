@@ -29,6 +29,8 @@ from lfdtpu_torch.execution import (executor, hooks, jax_convert, optim, schedul
 from lfdtpu_torch.ops import (assign, boxes, conv_kernels, decode, kernel_lib, loss_wrappers,
                               losses, nms, nms_kernel, points)
 from lfdtpu_torch.parallel import data_parallel, prefetch
+from lfdtpu_torch import device
+from lfdtpu_torch.tools import kernel_trace
 spec = importlib.util.spec_from_file_location(
     "widerface_common", "lfdtpu_torch/workloads/WIDERFACE_train/_common.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -37,7 +39,7 @@ det = zoo.widerface_lfd("L")
 det.init(torch.Generator().manual_seed(0))
 eng = compile.compile_inference(
     det, (64, 64), "bf16", preprocess=compile.make_device_preprocess((0.5,) * 3, (0.5,) * 3),
-    kernel_convs=True, kernel_stem=True)
+    kernel_convs=True, kernel_stem=True, device="cpu")
 out = eng(torch.zeros(1, 64, 64, 3, dtype=torch.uint8), [64, 64])
 print(json.dumps({
     "foreign": sorted(m for m in sys.modules

@@ -117,7 +117,7 @@ def jax_run(hw, dtype):
 def port_state(variables, hw, dtype="float32"):
     tdet = port_detector("WIDERFACE-L", variables)
     tdet.net.to(getattr(torch, dtype))
-    state = create_train_state(tdet, SGD(momentum=0.9, weight_decay=1e-4))
+    state = create_train_state(tdet, SGD(momentum=0.9, weight_decay=1e-4), device="cpu")
     step = make_train_step(tdet, state.optimizer, hw, clip_max_norm=CLIP)
     return tdet, state, step
 
@@ -192,7 +192,7 @@ def test_bf16_step_loss_stays_near_fp32():
     losses = {}
     for mp in (False, True):
         tdet = port_detector("WIDERFACE-L", variables)
-        state = create_train_state(tdet, SGD(momentum=0.9, weight_decay=1e-4))
+        state = create_train_state(tdet, SGD(momentum=0.9, weight_decay=1e-4), device="cpu")
         step = make_train_step(tdet, state.optimizer, HW, clip_max_norm=CLIP,
                                mixed_precision=mp)
         losses[mp] = [float(step(*batch, lr, True)["loss"]) for lr in LRS]
@@ -246,7 +246,7 @@ def test_frozen_stages_and_norm_eval(frozen_stages, norm_eval):
     tdet = port_detector("WIDERFACE-L", variables)
     bb = tdet.net._backbone
     bb.frozen_stages, bb.norm_eval = frozen_stages, norm_eval
-    state = create_train_state(tdet, SGD(momentum=0.9))  # no weight decay
+    state = create_train_state(tdet, SGD(momentum=0.9), device="cpu")  # no weight decay
     frozen = [bb._stem] if frozen_stages > 0 else []
     frozen += bb.stages()[:frozen_stages]
     frozen_params = {id(p) for m in frozen for p in m.parameters()}
