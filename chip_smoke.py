@@ -9,8 +9,10 @@ step, and checks them:
   1. card     the GPU's name and power limit (nvidia-smi);
   2. build    the hand-written kernels from lfdtpu_torch/csrc/*.cu (nvcc);
   3. K1       NMS keep mask against its plain version, EXACT, at K = 1000 and
-              1536: random boxes, valid holes, tied scores, integer boxes whose
-              IoUs hit the threshold exactly;
+              1536, batch 4: random boxes, valid holes, tied scores, integer
+              boxes whose IoUs hit the threshold exactly, and the greedy walk's
+              hard cases: a suppression chain (every other box kept), disjoint
+              boxes (all kept), identical boxes (one kept);
   4. K2, K3   stem and 3x3 conv against their plain versions at the engine's
               1088x1920 shapes, at batch 1 and at the bf16_kernels_b4
               engine's batch 4, max|err| / max|ref| < 0.03 (K2), 0.02 (K3):
@@ -49,7 +51,9 @@ step, and checks them:
               in: conv2d alone, with the bias, followed by the residual add
               and ReLU, and the fused call of K3's own function
               (cudnn_convolution_add_relu / _relu), which is K3's library
-              call where the card runs it;
+              call where the card runs it; K1 on random boxes at B=1,
+              K=1000, on the walk's hard cases and at B=4, each with its
+              kept count;
               one frame of the bf16_kernels engine launches K1 once, K2 once
               and K3 10 times; torch.profiler over 5 frames of that engine
               gives each kernel's device ms per frame; all beside the card's
@@ -88,6 +92,7 @@ import copy
 import importlib.util
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -117,6 +122,7 @@ IOU_FLOPS = 14              # per box pair: 4 min/max, 2 sub, 2 clamp, mul, 2 ad
 GRAPH_LAUNCHES = 20         # kernel timing: launches per CUDA graph
 COLD_BYTES = 100 * 2 ** 20  # cold timing rotates over more inputs than the L2 holds
 PROFILED_FRAMES = 5
+NMS_KERNEL_NAME = re.compile(r"nms_\w+(<[^>]*>)?")  # K1's kernels in a profile
 ENGINE_LAUNCHES = {"nms_mask_sorted": 1, "stem_conv": 1, "pair_conv3x3": 10}  # one L frame
 # training: the WIDERFACE workload's batch, crop, GT padding and optimizer
 # (`workloads/WIDERFACE_train/_common.py:82-158`)
@@ -296,6 +302,9 @@ def check_k1(device, sizes=(1000, 1536)):
         gwh = rng.randint(1, 5, (4, K, 2)) * 2.0
         cases["exact-threshold"] = (np.concatenate([gxy, gxy + gwh], -1),
                                     rng.rand(4, K), np.ones((4, K), bool))
+        scores = np.tile(1.0 - np.arange(K) / K, (4, 1))  # the hard cases come sorted
+        cases.update({name: (b.numpy(), scores, v.numpy())
+                      for name, (b, v) in nms_kernel.walk_cases(4, K).items()})
         for name, (b, s, v) in cases.items():
             boxes = torch.as_tensor(b, dtype=torch.float32, device=device)
             scores = torch.as_tensor(s, dtype=torch.float32, device=device)
@@ -1079,13 +1088,40 @@ def time_kernels(device, card, k2_in, k3_in):
     boxes = torch.rand(1, 1000, 4, generator=g, device=device) * 500
     boxes[..., 2:] += boxes[..., :2]
     valid = torch.ones(1, 1000, dtype=torch.bool, device=device)
-    warm = graph_ms([lambda: nms_kernel.nms_mask_sorted(boxes, valid, 0.4)])
+    out["nms_mask_sorted"] = time_k1(boxes, valid, g, card)
+    return out
+
+
+def time_k1(boxes, valid, g, card):
+    """K1 at the engine's B=1, K=1000, thr 0.4 on the random boxes (rand*500)
+    that earlier runs timed, then on the walk's hard cases
+    (nms_kernel.walk_cases) and at B=4, each with its kept count. Returns the
+    fields of the kernels line."""
+    import torch
+
+    from lfdtpu_torch.ops import nms_kernel
+
+    device = boxes.device
+    b4 = torch.rand(4, 1000, 4, generator=g, device=device) * 500
+    b4[..., 2:] += b4[..., :2]
+    inputs = {"random boxes (rand*500)": (boxes, valid),
+              "random boxes (rand*500), B=4": (b4, torch.ones(4, 1000, dtype=torch.bool,
+                                                                device=device))}
+    for name, (b, v) in nms_kernel.walk_cases(1, 1000).items():
+        inputs[name] = (b.to(device), v.to(device))
+    case_ms = {}
+    for name, (b, v) in inputs.items():
+        kept = int(nms_kernel.nms_mask_sorted(b, v, 0.4).sum())
+        case_ms[name] = graph_ms([lambda b=b, v=v: nms_kernel.nms_mask_sorted(b, v, 0.4)])
+        print(f"K1 {name} K=1000: {case_ms[name]:.4f} ms, kept {kept}/{v.numel()} [{card}]")
+    print(f"K1 all kept / all suppressed: "
+          f"{case_ms['all kept'] / case_ms['all suppressed']:.2f}x")
+    warm = case_ms["random boxes (rand*500)"]
     plain = time_ms(lambda: nms_kernel.nms_mask_sorted_plain(boxes, valid, 0.4))
     print("nms_mask_sorted library call: none (torchvision's nms is not on the "
           "card's machine, and the port may not need it)")
-    out["nms_mask_sorted"] = _timing("nms_mask_sorted", (1, 1000), card, warm, warm,
-                                     plain, None, note=" (inputs of 17 KB: warm = cold)")
-    return out
+    return _timing("nms_mask_sorted", (1, 1000), card, warm, warm, plain, None,
+                   note=" (inputs of 17 KB: warm = cold)")
 
 
 def profile_engine(engine, x, vhw, card, counters):
@@ -1115,7 +1151,7 @@ def profile_engine(engine, x, vhw, card, counters):
     per_frame = {}
     for kernel, keys in (("pair_conv3x3", ("pair_conv_kernel",)),
                          ("stem_conv", ("stem_conv_kernel",)),
-                         ("nms_mask_sorted", ("nms_mask_kernel", "nms_reduce_kernel"))):
+                         ("nms_mask_sorted", ("nms_iou_kernel", "nms_walk_kernel"))):
         names = [n for n in by_name if any(k in n for k in keys)]
         per_frame[kernel] = (sum(by_name[n] for n in names) / PROFILED_FRAMES,
                              sum(calls[n] for n in names) / PROFILED_FRAMES)
@@ -1126,6 +1162,9 @@ def profile_engine(engine, x, vhw, card, counters):
               f"{k} {ms:.4f} ({n:.0f} launches)" for k, (ms, n) in per_frame.items())
           + f"; all device work {total:.3f} ms per frame, busy share "
           + ("not measured" if share is None else f"{share:.3f}") + f" [{card}]")
+    k1_names = {n: NMS_KERNEL_NAME.search(n).group(0) for n in by_name if "nms_" in n}
+    print("  K1's kernels, ms per frame: " + ", ".join(
+        f"{label} {by_name[n] / PROFILED_FRAMES:.4f}" for n, label in k1_names.items()))
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         print(f"  {ms / PROFILED_FRAMES:8.4f} ms/frame  {calls[name] / PROFILED_FRAMES:5.1f}x  "
               f"{name[:110]}")

@@ -2,9 +2,10 @@
 #
 # Replaces `lfdtpu/ops/nms_pallas.py::nms_mask_pallas_sorted` (fixpoint sweeps
 # over a VMEM-resident suppression matrix). On the H100 the work is tiny and
-# the cost is the serial greedy chain plus launches: the CUDA version builds a
-# 64-box IoU bitmask in one launch and walks the greedy chain on the device in
-# a second, one block per image, with no host sync and no K limit.
+# the cost is the serial greedy chain: the CUDA version builds a 64-box IoU
+# bitmask over the upper triangle on many SMs, then one block per image walks
+# the chain a 64-box chunk at a time from shared memory, with no host sync and
+# no K limit below the one the kernel has always had.
 #
 # The plain PyTorch version below is the fixpoint of the TPU kernel, batched.
 # Both must give the same mask bit for bit.
@@ -48,6 +49,35 @@ def nms_mask_sorted_plain(boxes_sorted, valid_sorted, iou_thr):
         keep = new_keep
 
 
+def walk_cases(B, K):
+    """The greedy walk's hard cases at thr 0.4, each a pair of CPU tensors:
+    boxes (B, K, 4) f32, already sorted (box i ranks above box i + 1), and
+    valid (B, K) bool, all true. Image b is shifted b to the right.
+
+    chain: boxes 10 wide, each 3 to the right of the last (IoU(i, i+1) = 7/13,
+        IoU(i, i+2) = 1/4), so box i suppresses only box i + 1 and greedy
+        keeps every other box;
+    all kept: disjoint boxes on a grid 64 boxes wide;
+    all suppressed: identical boxes, the first kept."""
+    i = torch.arange(K, dtype=torch.float32)[None]
+    shift = torch.arange(B, dtype=torch.float32)[:, None]
+    zero = torch.zeros(B, K)
+    layouts = {"chain": (i * 3 + shift, zero, 10.0),
+               "all kept": ((i % 64) * 20 + shift, (i // 64) * 20 + zero, 10.0),
+               "all suppressed": (5.0 + shift + zero, 5.0 + zero, 20.0)}
+    return {name: (torch.stack([x, y, x + side, y + side], -1),
+                   torch.ones(B, K, dtype=torch.bool))
+            for name, (x, y, side) in layouts.items()}
+
+
+def scratch_words(B, K):
+    """Length of K1's int64 scratch (`csrc/nms.cu::image_words` per image):
+    cb = ceil(K / 64) words of valid bits (padded to an even count), 64 * cb
+    diagonal words and the packed upper triangle of the 64-box word mask."""
+    cb = (K + 63) // 64
+    return B * (cb + cb % 2 + 32 * cb * (cb + 1))
+
+
 def nms_mask_sorted(boxes_sorted, valid_sorted, iou_thr):
     """Greedy-NMS keep mask for boxes sorted by descending score, batched.
 
@@ -60,15 +90,13 @@ def nms_mask_sorted(boxes_sorted, valid_sorted, iou_thr):
     dev = boxes_sorted.device
     kernel_lib.check_cuda("nms boxes", boxes_sorted, torch.float32, (B, K, 4), dev)
     kernel_lib.check_cuda("nms valid", valid_sorted, torch.bool, (B, K), dev)
-    keep = torch.empty((B, K), dtype=torch.bool, device=boxes_sorted.device)
-    col_blocks = (K + 63) // 64
-    scratch = torch.empty((B, K, col_blocks), dtype=torch.int64,
-                          device=boxes_sorted.device)
-    with torch.cuda.device(boxes_sorted.device):
+    keep = torch.empty((B, K), dtype=torch.bool, device=dev)
+    scratch = torch.empty(scratch_words(B, K), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
         kernel_lib.launch(
-            "lfd_nms_mask_sorted", boxes_sorted.data_ptr(),
-            valid_sorted.data_ptr(), keep.data_ptr(), scratch.data_ptr(),
-            B, K, float(iou_thr), kernel_lib.stream_of(boxes_sorted),
+            "lfd_nms_mask_sorted", boxes_sorted.data_ptr(), valid_sorted.data_ptr(),
+            keep.data_ptr(), scratch.data_ptr(), B, K, float(iou_thr),
+            kernel_lib.stream_of(boxes_sorted),
         )
     nms_mask_sorted.launches += 1
     return keep

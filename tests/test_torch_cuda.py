@@ -62,6 +62,75 @@ def test_nms_kernel_matches_plain_exactly(cuda, K, case):
     assert not got[~valid].any()
 
 
+def k1_case(case, B, K, seed=0):
+    """Sorted boxes (B, K, 4) f32 and valid (B, K) bool, CPU tensors: the
+    walk's hard cases of `nms_kernel.walk_cases` (a suppression chain, all
+    kept, all suppressed), or random boxes."""
+    if case != "random":
+        return nms_kernel.walk_cases(B, K)[case]
+    rng = np.random.RandomState(seed)
+    xy = rng.rand(B, K, 2) * 12 * K ** 0.5
+    boxes = np.concatenate([xy, xy + 30.0], -1).astype(np.float32)
+    return torch.from_numpy(boxes), torch.ones(B, K, dtype=torch.bool)
+
+
+def _k1_check(cuda, case, B, K):
+    boxes, valid = (a.to(cuda) for a in k1_case(case, B, K, seed=K + B))
+    got = nms_kernel.nms_mask_sorted(boxes, valid, 0.4)
+    ref = nms_kernel.nms_mask_sorted_plain(boxes, valid, 0.4)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    return got.cpu().numpy()
+
+
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("K", [1000, 1536])
+@pytest.mark.parametrize("case", ["chain", "all kept", "all suppressed"])
+def test_nms_kernel_walk_hard_cases(cuda, case, K, B):
+    got = _k1_check(cuda, case, B, K)
+    want = {"chain": np.arange(K) % 2 == 0, "all kept": np.ones(K, bool),
+            "all suppressed": np.arange(K) == 0}[case]
+    assert (got == want).all()
+
+
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("K", [1, 63, 64, 65])
+def test_nms_kernel_small_k(cuda, K, B):
+    for case in ("chain", "random", "all suppressed"):
+        _k1_check(cuda, case, B, K)
+
+
+# the walk stages the image's words in shared memory up to K = 1728 and reads
+# them from global memory past it
+@pytest.mark.parametrize("K", [1000, 1536, 3000])
+def test_nms_kernel_staged_and_global_walks(cuda, K):
+    before = nms_kernel.nms_mask_sorted.launches
+    _k1_check(cuda, "random", 4, K)
+    _k1_check(cuda, "chain", 2, K)
+    assert nms_kernel.nms_mask_sorted.launches == before + 2
+
+
+@pytest.mark.parametrize("K", [1000, 3000])
+def test_nms_kernel_graph_replays_match_eager(cuda, K):
+    """Two replays of a CUDA graph holding the launch (the walk a programmatic
+    dependent launch) give the eager mask."""
+    boxes, valid = (a.to(cuda) for a in k1_case("random", 4, K))
+    eager = nms_kernel.nms_mask_sorted(boxes, valid, 0.4)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        nms_kernel.nms_mask_sorted(boxes, valid, 0.4)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = nms_kernel.nms_mask_sorted(boxes, valid, 0.4)
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+
+
 def test_nms_kernel_rejects_bad_input(cuda):
     boxes = torch.zeros(1, 8, 4, device=cuda, dtype=torch.float64)
     valid = torch.ones(1, 8, dtype=torch.bool, device=cuda)

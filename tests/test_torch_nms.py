@@ -62,6 +62,31 @@ def test_plain_matches_pallas_interpret():
         np.testing.assert_array_equal(got[b], ref)
 
 
+@pytest.mark.parametrize("K", [200, 130])
+@pytest.mark.parametrize("case", ["chain", "all kept", "all suppressed"])
+def test_long_suppression_chain_matches(case, K):
+    """The walk's hard cases (`nms_kernel.walk_cases`), above all the chain:
+    greedy keeps every other box and the fixpoint needs about K sweeps. K =
+    130 is not a multiple of the kernel's 64-box chunks. Image 1 has valid
+    holes."""
+    rng = np.random.RandomState(K)
+    boxes, valid = (a.numpy() for a in nms_kernel.walk_cases(2, K)[case])
+    valid[1] = rng.rand(K) > 0.1
+    scores = np.tile((K - np.arange(K, dtype=np.float32)) / K, (2, 1))  # sorted already
+    got = port_mask(boxes, scores, 0.4, valid)
+    np.testing.assert_array_equal(got, jax_mask(boxes, scores, 0.4, valid))
+    want = {"chain": np.arange(K) % 2 == 0, "all kept": np.ones(K, bool),
+            "all suppressed": np.arange(K) == 0}[case]
+    np.testing.assert_array_equal(got[0], want)
+    plain = nms_kernel.nms_mask_sorted_plain(torch.from_numpy(boxes),
+                                             torch.from_numpy(valid), 0.4).numpy()
+    np.testing.assert_array_equal(plain, got)
+    for b in range(2):
+        ref = np.asarray(nms_mask_pallas_sorted(jnp.asarray(boxes[b]), jnp.asarray(valid[b]),
+                                                0.4, interpret=True))
+        np.testing.assert_array_equal(plain[b], ref)
+
+
 def test_tied_scores_and_valid_holes_match():
     rng = np.random.RandomState(2)
     K = 300
