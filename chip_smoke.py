@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (lfdtpu_torch) on one NVIDIA GPU.
 
-Drives the port's two paths at full width, the WIDERFACE-L inference engine
+Drives the port's paths at full width: the WIDERFACE-L inference engine
 (random seeded weights with randomized BatchNorm statistics and affines and
-head Scales, so the BN folding is exercised) and the WIDERFACE-L training
-step, and checks them:
+head Scales, so the BN folding is exercised), captured into a CUDA graph as
+a user gets it on the card, the WIDERFACE-L training step, the training
+entry point with its val loop, and the evaluation script. It checks them:
 
   1. card     the GPU's name and power limit (nvidia-smi);
   2. build    the hand-written kernels from lfdtpu_torch/csrc/*.cu (nvcc);
@@ -19,15 +20,30 @@ step, and checks them:
               K3 is bf16 out of fp32 accumulation in another order, K2 also
               rounds its taps and weights to bf16 (the TPU kernel's
               numerics);
-  5. engine   bf16 engines at 1088x1920 (1080p padded to the stride-64
-              multiple): 8 single frames through
-              predict_for_single_image_with_engine and one batch of 4 with
-              different valid extents through predict_for_batch_with_engine,
-              with all three kernels on; every kernel's launch counter must
-              grow during that run. Then: dense outputs of the kernel engine
+  5. engine   engines at 1088x1920 (1080p padded to the stride-64
+              multiple), built as a user builds them: on the card
+              compile_inference returns a CAPTURED engine, one CUDA graph of
+              net + decode + NMS that a call replays. Five of them (fp32,
+              bf16 with lfdtpu's default switches, bf16 with K1-K3 at batch
+              1 and 4, bf16 with the plain NMS); then 8 single frames
+              through predict_for_single_image_with_engine and one batch of
+              4 with different valid extents through
+              predict_for_batch_with_engine, with all three kernels on. The
+              kernels' launch counters (zeroed before the engines are
+              built) tick in the warmup calls and during the capture, where
+              the wrappers launch them; the 9 replays' launches are counted
+              from a torch.profiler trace by kernel name and must be 9 x
+              K1/K2/K3 = 1/1/10. Then: dense outputs of the kernel engine
               against the plain bf16 engine and both against fp32; decode + NMS on the same dense
               outputs, K1 against plain, rows identical; the fp32 engine on the
               GPU against the fp32 port on the CPU at 256x256, TF32 off;
+              every captured engine (WIDERFACE-L: fp32, bf16, bf16 with
+              K1-K3 at batch 1 and 4, bf16 with the plain NMS at batch 1;
+              WIDERFACE-S: fp32 and bf16) against an EAGER engine of the
+              same build (captured=False) on two different frames in a row:
+              every output bit-equal, the first result unchanged by the
+              second call, the two results different, and the launches each
+              capture recorded;
   6. train    the training path (forward, on-device target assignment,
               loss, backward, clip, SGD) of WIDERFACE-L, which runs no
               hand-written kernel: two fp32 steps at 128x128, batch 2, on the
@@ -42,7 +58,12 @@ step, and checks them:
               a frame (every kernel launches, rows checked), and
               predict_for_single_image on the net left in train() leaves its
               running stats alone;
-  7. timings  CUDA events, warmup excluded: ms/frame of the three engines; each
+  7. timings  CUDA events, warmup excluded: ms/frame of the eager and the
+              captured engine of fp32, bf16 and bf16 with K1-K3, in A B B A
+              order within the run, on a frame already on the card and from
+              a numpy frame (the copy from host memory included), and at
+              batch 4; the predict entry point around both (host clock);
+              each
               kernel's device ms (CUDA events around replays of a CUDA graph
               of its launches, warm on repeated inputs and cold rotating over
               more than the 50 MB L2) at the shapes the engine gives it, beside
@@ -55,9 +76,17 @@ step, and checks them:
               K=1000, on the walk's hard cases and at B=4, each with its
               kept count;
               one frame of the bf16_kernels engine launches K1 once, K2 once
-              and K3 10 times; torch.profiler over 5 frames of that engine
-              gives each kernel's device ms per frame; all beside the card's
-              name and power limit;
+              and K3 10 times (the wrappers' counters for the eager engine,
+              the capture's record and the profiled replays for the
+              captured one); torch.profiler over 5 frames of each gives
+              each kernel's device ms per frame and the device-busy share,
+              eager against captured; then the latency sweep that the
+              WIDERFACE timing_inference_latency.py script runs
+              (inference_latency_evaluation: one captured engine per cell,
+              each call timed by CUDA events and waited for) for
+              WIDERFACE-L and -XS in bf16 at 640x480, 1280x720, 1920x1080
+              and 3840x2160, 30 timed calls a cell (the script's 50); all
+              beside the card's name and power limit;
   8. workload the WIDERFACE training entry point end to end: a seeded
               synthetic pack (170 uint8 images 1024 wide, 680-1024 high, 0-30
               faces of 4-320 px, every fifth a negative: 3 iterations per
@@ -71,8 +100,17 @@ step, and checks them:
               iterations; the device half of the augmentation on the GPU
               against the CPU on one loader batch (1e-3 pixel units); the
               final checkpoint served through the bf16 kernel engine (every
-              kernel launches). Printed beside the card: loader-alone
-              images/s of both paths (4 batches per worker thread, every
+              kernel launches). The first of these runs also validates: a
+              val loader over the pack's first 24 images (whole images,
+              batch 8), val_interval 1 and a COCOEvaluator over their boxes
+              (one result list per val image, finite metrics, the net's
+              weights, BN statistics and train mode untouched by the val
+              pass); and the port's evaluation.py script runs its SIO
+              evaluation on the final checkpoint over 6 JPEGs written from
+              the pack into event folders (one txt per image, in the
+              WIDERFACE format). Printed beside the card: loader-alone
+              images/s of both paths (4 batches per worker thread with
+              device augmentation, 2 with host augmentation, every
               image over the time from the workers' start to the last
               batch), Executor images/s after one warmup
               iteration (wall time ending in a synchronize), device-aug and
@@ -124,6 +162,20 @@ COLD_BYTES = 100 * 2 ** 20  # cold timing rotates over more inputs than the L2 h
 PROFILED_FRAMES = 5
 NMS_KERNEL_NAME = re.compile(r"nms_\w+(<[^>]*>)?")  # K1's kernels in a profile
 ENGINE_LAUNCHES = {"nms_mask_sorted": 1, "stem_conv": 1, "pair_conv3x3": 10}  # one L frame
+# the hand-written kernels' names in a profile, per wrapper (K1 launches two)
+KERNEL_NAMES = {"pair_conv3x3": ("pair_conv_kernel",), "stem_conv": ("stem_conv_kernel",),
+                "nms_mask_sorted": ("nms_iou_kernel", "nms_walk_kernel")}
+# engine variants: compile_inference's switches (lfdtpu's defaults: K1 on, K2
+# and K3 off) and the K1/K2/K3 launches one capture of WIDERFACE-L records
+VARIANTS = {
+    "fp32": (dict(precision="fp32"), (1, 0, 0)),
+    "bf16": (dict(precision="bf16"), (1, 0, 0)),
+    "bf16_kernels": (dict(precision="bf16", kernel_convs=True, kernel_stem=True), (1, 1, 10)),
+    "bf16_plain": (dict(precision="bf16", nms_use_kernel=False), (0, 0, 0)),
+}
+SWEEP_LOOPS = 30            # timed calls per cell of the latency sweep (the script's: 50)
+VAL_IMAGES, VAL_BATCH = 24, 8  # the val loader: the pack's first images
+SIO_IMAGES = 6              # JPEGs written from the pack for the SIO evaluation
 # training: the WIDERFACE workload's batch, crop, GT padding and optimizer
 # (`workloads/WIDERFACE_train/_common.py:82-158`)
 TRAIN_HW, TRAIN_BATCH, TRAIN_NMAX = (480, 480), 64, 200
@@ -135,7 +187,7 @@ SERVE_HW = (480, 480)       # the trained net's engine
 PACK_IMAGES, PACK_NEG_EVERY = 170, 5  # 136 positives: 3 iterations of 52 + 12 negs
 AUG_TOL = 1e-3              # device-aug GPU vs CPU, pixel units (0-255)
 LOSS_BLOWUP = 1.5           # the last loss may not exceed the first by more
-LOADER_BATCHES_PER_WORKER = 4  # loader-alone run length, per worker thread
+LOADER_BATCHES_PER_WORKER = {"device aug": 4, "host aug": 2}  # loader-alone run length
 SERVE_THRESHOLD = 1e-4      # the workload checkpoint's engine, see workload_phase
 
 
@@ -246,15 +298,16 @@ def k3_shapes(hw=HW):
 
 # --------------------------------------------------------------------- model
 
-def build_detector(device, seed=0):
-    """WIDERFACE-L at full width, seeded init, randomized norms and Scales."""
+def build_detector(device, seed=0, size="L"):
+    """WIDERFACE-L (or `size`) at full width, seeded init, randomized norms
+    and Scales."""
     import torch
     from torch import nn
 
     from lfdtpu_torch import zoo
     from lfdtpu_torch.models.layers import Scale
 
-    det = zoo.widerface_lfd("L")
+    det = zoo.widerface_lfd(size)
     g = torch.Generator().manual_seed(seed)
     det.init(g)
     with torch.no_grad():
@@ -374,21 +427,75 @@ def check_k2_k3(device, hw=HW):
 
 # ----------------------------------------------------------------- engine
 
-def compile_engines(det, hw, device):
+def compile_engine(det, hw, device, variant, batch_size=1, captured=None, **kw):
+    """One engine of VARIANTS: captured (the default on the card) or eager."""
     from lfdtpu_torch.deploy import compile_inference, make_device_preprocess
 
-    pre = make_device_preprocess(MEAN, STD)
-    kernels = dict(nms_use_kernel=True, kernel_convs=True, kernel_stem=True)
-    plain = dict(nms_use_kernel=False, kernel_convs=False, kernel_stem=False)
-    return dict(
-        bf16_kernels=compile_inference(det, hw, "bf16", preprocess=pre, device=device,
-                                       **kernels),
-        bf16_kernels_b4=compile_inference(det, hw, "bf16", preprocess=pre,
-                                          batch_size=4, device=device, **kernels),
-        bf16_plain=compile_inference(det, hw, "bf16", preprocess=pre, device=device,
-                                     **plain),
-        fp32=compile_inference(det, hw, "fp32", preprocess=pre, device=device),
-    )
+    return compile_inference(det, hw, preprocess=make_device_preprocess(MEAN, STD),
+                             batch_size=batch_size, device=device, captured=captured,
+                             **VARIANTS[variant][0], **kw)
+
+
+def compile_engines(det, hw, device):
+    """The captured engines the later phases serve, check and time."""
+    engines = {name: compile_engine(det, hw, device, name) for name in VARIANTS}
+    engines["bf16_kernels_b4"] = compile_engine(det, hw, device, "bf16_kernels", batch_size=4)
+    for name, engine in engines.items():
+        check(engine.captured, f"compile_inference returned an eager {name} engine on the card")
+    return engines
+
+
+PROFILE_MARK = "lfd_counted_window"
+
+
+def profiled(warm, work):
+    """torch.profiler over `work()`, which ends synchronized. The trace has
+    been seen to miss a kernel launched right after it starts (one K2 launch
+    of five, on the eager and on the captured engine), so `warm()` runs
+    first inside the trace, the device drains, and `work()` runs inside a
+    record_function range named PROFILE_MARK a few ms later: device_events
+    returns what started inside that range."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        warm()
+        torch.cuda.synchronize()
+        time.sleep(0.005)  # well over any skew between the host's and the device's stamps
+        with record_function(PROFILE_MARK):
+            out = work()
+            torch.cuda.synchronize()
+    return prof, out
+
+
+def device_events(prof):
+    """(device events that started inside the PROFILE_MARK range, the range's
+    (start, end)); every device event and the whole trace without a mark."""
+    from torch.autograd import DeviceType
+
+    events = list(prof.events())
+    mark = [e for e in events if e.name == PROFILE_MARK and e.device_type == DeviceType.CPU]
+    if mark:
+        lo, hi = mark[0].time_range.start, mark[0].time_range.end
+    else:
+        lo = min(e.time_range.start for e in events)
+        hi = max(e.time_range.end for e in events)
+    # (the range itself also shows up as a device-side annotation: not work)
+    dev = [e for e in events if e.device_type == DeviceType.CUDA and e.name != PROFILE_MARK
+           and lo <= e.time_range.start <= hi]
+    return dev, (lo, hi)
+
+
+def kernel_launches_in(prof):
+    """{wrapper name: launches} counted from a profile's device events by
+    kernel name: what a CUDA graph's replays launch, which the wrappers'
+    host counters do not see (K1's two kernels count as one launch)."""
+    counts = {name: 0 for name in KERNEL_NAMES}
+    for e in device_events(prof)[0]:
+        for name, keys in KERNEL_NAMES.items():
+            if keys[0] in e.name:
+                counts[name] += 1
+    return counts
 
 
 def serve(det, engines, hw, rng):
@@ -449,6 +556,50 @@ def check_engine_parity(det, engines, hw, rng):
           f"{int(dk['count'][0])} rows, identical={same}")
     check(same, "decode with K1 differs from decode with the plain NMS")
     return imgs
+
+
+def check_captured_engines(det, det_s, engines, device, rng):
+    """Every captured engine against an eager engine of the same build, on
+    two different frames in a row: the same count and labels, boxes and
+    scores bit-equal (the same kernels in the same order on the same
+    inputs); the first result survives the second call; each capture
+    recorded the K1/K2/K3 launches of its variant. WIDERFACE-L at batch 1 in
+    every variant and at batch 4 in fp32, bf16 and bf16 with K1-K3;
+    WIDERFACE-S in fp32 and bf16."""
+    import torch
+
+    cases = [("L", det, name, 1) for name in VARIANTS]
+    cases += [("L", det, name, 4) for name in ("fp32", "bf16", "bf16_kernels")]
+    cases += [("S", det_s, name, 1) for name in ("fp32", "bf16")]
+    for size, d, name, batch in cases:
+        key = name if batch == 1 else f"{name}_b{batch}"
+        captured = engines.get(key) if size == "L" else None
+        if captured is None:
+            captured = compile_engine(d, HW, device, name, batch_size=batch)
+        eager = compile_engine(d, HW, device, name, batch_size=batch, captured=False)
+        check(captured.captured and not eager.captured, "wrong engine form")
+        want = VARIANTS[name][1]
+        got = tuple(captured.captured_launches[k] for k in ENGINE_LAUNCHES)
+        f1, f2 = frames(rng, batch, HW), frames(rng, batch, HW)
+        vhw = np.asarray([[HW[0] - 8 * i, HW[1] - 16 * i] for i in range(batch)], np.float32)
+        r1 = captured(f1, vhw)
+        kept = {k: v.clone() for k, v in r1.items()}
+        r2 = captured(torch.as_tensor(f2, device=device), torch.as_tensor(vhw, device=device))
+        e1, e2 = eager(f1, vhw), eager(f2, vhw)
+        torch.cuda.synchronize()
+        survived = all(torch.equal(r1[k], kept[k]) for k in kept)
+        differ = not torch.equal(r1["scores"], r2["scores"])
+        same = all(torch.equal(r[k], e[k]) for r, e in ((r1, e1), (r2, e2)) for k in r)
+        print(f"captured vs eager WIDERFACE-{size} {name} batch {batch}: rows "
+              f"{r1['count'].tolist()} and {r2['count'].tolist()}, bit-equal={same}, first "
+              f"result survives={survived}, frames differ={differ}, K1/K2/K3 per capture {got}")
+        check(got == want, f"{key}: a capture should launch K1/K2/K3 {want} times")
+        check(int(r1["count"].sum()) > 0 and int(r2["count"].sum()) > 0, f"{key}: no rows")
+        check(same, f"{key}: the captured engine's rows differ from the eager engine's")
+        check(survived, f"{key}: a result did not survive the next call")
+        check(differ, f"{key}: two different frames gave the same result")
+        del captured, eager
+        torch.cuda.empty_cache()
 
 
 def check_fp32_reference(det, device, rng):
@@ -631,19 +782,22 @@ def train_to_serve(det, device, counters, classification_threshold=None):
 
     from lfdtpu_torch.deploy import compile_inference, make_device_preprocess
 
+    for c in counters:  # they tick while the engine is built and captured
+        c.launches = 0
     engine = compile_inference(det, SERVE_HW, "bf16", preprocess=make_device_preprocess(
         MEAN, STD), device=device, nms_use_kernel=True, kernel_convs=True,
         kernel_stem=True, classification_threshold=classification_threshold)
     frame = frames(np.random.RandomState(13), 1, (SERVE_HW[0] - 24, SERVE_HW[1] - 8))[0]
-    for c in counters:
-        c.launches = 0
     rows = det.predict_for_single_image_with_engine(engine, frame)
     torch.cuda.synchronize()
     launches = {c.__name__: c.launches for c in counters}
-    print(f"trained net served through the bf16 kernel engine {SERVE_HW}: "
-          f"{len(rows)} rows; launches {launches}")
+    print(f"trained net served through the captured bf16 kernel engine {SERVE_HW}: "
+          f"{len(rows)} rows; launches at build and capture {launches}, per capture "
+          f"{engine.captured_launches}")
     for name, n in launches.items():
         check(n > 0, f"the trained net's engine never launched {name}")
+    check(engine.captured and engine.captured_launches == ENGINE_LAUNCHES,
+          "the trained net's engine did not capture every kernel")
     check_rows(det, rows, frame)
     check(det.net.training, "the trained net left train mode")
     before = {k: v.clone() for k, v in det.net.state_dict().items()}
@@ -734,8 +888,8 @@ def _record_hook():
             torch.cuda.synchronize()
             self.t1 = time.perf_counter()
 
-        def images_per_s(self, batch):
-            return (len(self.lrs) - 1) * batch / (self.t1 - self.t0)
+        def images_per_s(self, batch, minus_s=0.0):
+            return (len(self.lrs) - 1) * batch / (self.t1 - self.t0 - minus_s)
 
         def values(self, key):
             return torch.stack([m[key] for m in self.metrics]).cpu().numpy()
@@ -743,21 +897,26 @@ def _record_hook():
     return Record()
 
 
-def run_workload(cfg, card, label):
+def run_workload(cfg, card, label, watch=None):
+    """Run the config through the Executor. `watch` (add_val_loop's hook):
+    its val passes' seconds are taken out of the images/s, which stays the
+    train loop's as in earlier runs."""
     from lfdtpu_torch.execution import Executor
 
     rec = _record_hook()
     cfg["extra_hooks"] = cfg.get("extra_hooks", []) + [rec]
     ex = Executor(cfg)
     ex.run()
+    val_s = sum(p["seconds"] for p in watch.passes) if watch else 0.0
     loss = rec.values("loss")
     sched = cfg["lr_schedule"]
     want = [0.1 * (1 - (1 - (i + 1) / 200) * 0.9) for i in range(len(rec.lrs))]
     print(f"workload {label}: {len(rec.lrs)} iterations, loss "
           + " ".join(f"{v:.4f}" for v in loss)
           + f", lr {rec.lrs[0]:.6f} -> {rec.lrs[-1]:.6f}; Executor "
-          f"{rec.images_per_s(cfg['batch_size']):.1f} images/s after one warmup "
-          f"iteration (wall, synchronized) [{card}]")
+          f"{rec.images_per_s(cfg['batch_size'], val_s):.1f} images/s after one warmup "
+          f"iteration (wall, synchronized{', val passes taken out' if watch else ''}) "
+          f"[{card}]")
     check(np.isfinite(loss).all() and np.isfinite(rec.values("grad_norm")).all(),
           f"non-finite losses ({label})")
     check(loss[-1] <= LOSS_BLOWUP * loss[0], f"the loss blew up ({label})")
@@ -769,13 +928,10 @@ def run_workload(cfg, card, label):
 
 def busy_share(prof):
     """Union of the device's kernel and copy intervals over the profiled
-    window (first to last traced event): each device interval counted once,
-    whatever the ops above it."""
-    from torch.autograd import DeviceType
-
-    events = list(prof.events())
-    dev = sorted((e.time_range.start, e.time_range.end) for e in events
-                 if e.device_type == DeviceType.CUDA)
+    window (the PROFILE_MARK range, or first to last traced event): each
+    device interval counted once, whatever the ops above it."""
+    events, (lo, hi) = device_events(prof)
+    dev = sorted((e.time_range.start, e.time_range.end) for e in events)
     if not dev:
         return None
     busy, cur_s, cur_e = 0.0, dev[0][0], dev[0][1]
@@ -786,8 +942,6 @@ def busy_share(prof):
         else:
             cur_e = max(cur_e, en)
     busy += cur_e - cur_s
-    lo = min(e.time_range.start for e in events)
-    hi = max(e.time_range.end for e in events)
     return busy / (hi - lo)
 
 
@@ -811,7 +965,7 @@ class _Repeat:
 
 def loader_alone(cfg, card, label):
     """The config's loader setup over the pack repeated until it gives
-    LOADER_BATCHES_PER_WORKER batches per worker thread: every image over
+    LOADER_BATCHES_PER_WORKER[label] batches per worker thread: every image over
     the wall time from the start of the iteration (the workers start there)
     to the last batch."""
     from lfdtpu_torch.data import DataLoader, RandomWithNegDatasetSampler
@@ -820,7 +974,7 @@ def loader_alone(cfg, card, label):
     workers = src._num_workers
     k = 0
     sampler = []
-    while len(sampler) < LOADER_BATCHES_PER_WORKER * workers:
+    while len(sampler) < LOADER_BATCHES_PER_WORKER[label] * workers:
         k += 1
         ds = _Repeat(src._dataset, k)
         sampler = RandomWithNegDatasetSampler(ds, batch_size=cfg["batch_size"],
@@ -877,6 +1031,151 @@ def h2d_ms(batch, keys, device):
     return ms, nbytes, pin_ms
 
 
+class _ValSet:
+    """The pack's first VAL_IMAGES images with the image ids that a
+    COCOEvaluator matches on."""
+
+    def __init__(self, dataset):
+        self._ds, self._indexes = dataset, dataset.get_indexes()[:VAL_IMAGES]
+
+    def __getitem__(self, i):
+        sample = dict(self._ds[i])
+        sample["image_id"] = int(i) + 1
+        return sample
+
+    def __len__(self):
+        return len(self._indexes)
+
+    def get_indexes(self):
+        return list(self._indexes)
+
+
+def add_val_loop(cfg, tmp):
+    """val_interval 1, a val loader over _ValSet (whole images, padded to
+    the batch's largest, the workload's val pipeline) and a COCOEvaluator
+    over its boxes. Returns the hook that watches the val passes."""
+    import torch
+
+    from lfdtpu_torch.data import (DataLoader, IdleRegionSampler, RandomDatasetSampler,
+                                   simple_widerface_val_pipeline)
+    from lfdtpu_torch.evaluation import COCOEvaluator
+    from lfdtpu_torch.execution import Hook
+
+    val = _ValSet(cfg["train_data_loader"]._dataset)
+    images, annotations = [], []
+    for i in val.get_indexes():
+        s = val[i]
+        h, w = s["image"].shape[:2]
+        images.append({"id": s["image_id"], "height": h, "width": w, "file_name": f"{i}.jpg"})
+        for x, y, bw, bh in s.get("bboxes", []):
+            annotations.append({"id": len(annotations) + 1, "image_id": s["image_id"],
+                                "category_id": 1, "bbox": [x, y, bw, bh], "iscrowd": 0,
+                                "area": bw * bh})
+    ann_path = os.path.join(tmp, "val.json")
+    with open(ann_path, "w") as f:
+        json.dump({"images": images, "annotations": annotations,
+                   "categories": [{"id": 1, "name": "face"}]}, f)
+    # a few steps on noise may leave every score under the detector's 0.05:
+    # a lower threshold makes the val pass emit rows to evaluate
+    cfg["model"].classification_threshold = SERVE_THRESHOLD
+    cfg["val_interval"] = 1
+    cfg["val_data_loader"] = DataLoader(
+        val, RandomDatasetSampler(val, batch_size=VAL_BATCH, shuffle=False), IdleRegionSampler(),
+        augmentation_pipeline=simple_widerface_val_pipeline, num_workers=2, pad_divisor=64)
+    cfg["evaluator"] = COCOEvaluator(ann_path, {0: 1})
+
+    class WatchVal(Hook):
+        """Per val pass: its seconds (synchronized), the result lists by
+        image id, and whether the net's state (weights, BN statistics) and
+        mode came through unchanged."""
+
+        def __init__(self):
+            super().__init__()
+            self.passes = []
+
+        def before_val_epoch(self, executor):
+            torch.cuda.synchronize()
+            net = executor.state.net
+            self._t0 = time.perf_counter()
+            self._before = {k: v.clone() for k, v in net.state_dict().items()}
+            self._results = {}
+
+        def after_val_iter(self, executor):
+            c = executor.config_dict
+            for rows, meta in zip(c["eval_results"], c["eval_meta"]):
+                self._results[meta["image_id"]] = rows
+
+        def after_val_epoch(self, executor):
+            torch.cuda.synchronize()
+            net = executor.state.net
+            same = all(torch.equal(v, self._before[k]) for k, v in net.state_dict().items())
+            self.passes.append(dict(seconds=time.perf_counter() - self._t0,
+                                    results=self._results, untouched=same and net.training,
+                                    metrics=dict(executor.config_dict["evaluator"].metrics)))
+
+    watch = WatchVal()
+    cfg["extra_hooks"] = cfg.get("extra_hooks", []) + [watch]
+    return watch, len(annotations)
+
+
+def check_val_loop(watch, n_boxes, card):
+    check(len(watch.passes) == 2, "val_interval 1 over 2 epochs should validate twice")
+    for i, p in enumerate(watch.passes):
+        rows = sum(len(r) for r in p["results"].values())
+        print(f"val pass {i + 1}: {len(p['results'])} images ({n_boxes} GT boxes) in "
+              f"{p['seconds']:.2f} s (fp32 eval forward, batch {VAL_BATCH}, decode, "
+              f"COCOEvaluator; wall, synchronized), {rows} result rows, metrics "
+              + ", ".join(f"{k} {v:.4f}" for k, v in p["metrics"].items())
+              + f", net state and train mode untouched={p['untouched']} [{card}]")
+        check(sorted(p["results"]) == list(range(1, VAL_IMAGES + 1)),
+              "not one result list per val image")
+        check(p["metrics"] and np.isfinite(list(p["metrics"].values())).all(),
+              "non-finite evaluation metrics")
+        check(p["untouched"], "the val pass changed the net's state or mode")
+
+
+def check_sio_evaluation(common_dir, pack, ckpt, tmp):
+    """The port's evaluation.py script over SIO_IMAGES JPEGs written from the
+    pack into two event folders: one txt per image, in the WIDERFACE
+    format."""
+    from lfdtpu_torch.data import Dataset, jpeg_encode
+
+    ds = Dataset(load_path=pack)
+    val_root, out_root = os.path.join(tmp, "WIDER_val"), os.path.join(tmp, "sio")
+    want = []
+    for n, i in enumerate(ds.get_indexes()[:SIO_IMAGES]):
+        event = f"{n % 2}--Event{n % 2}"
+        os.makedirs(os.path.join(val_root, event), exist_ok=True)
+        with open(os.path.join(val_root, event, f"img_{n}.jpg"), "wb") as f:
+            f.write(jpeg_encode(ds[i]["image"], quality=90))
+        want.append(os.path.join(event, f"img_{n}.txt"))
+    spec = importlib.util.spec_from_file_location(
+        "widerface_evaluation", os.path.join(common_dir, "evaluation.py"))
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    t0 = time.time()
+    n = script.run_SIO_evaluation("L", ckpt, val_root, out_root,
+                                  classification_threshold=SERVE_THRESHOLD)
+    got = sorted(os.path.relpath(os.path.join(d, f), out_root)
+                 for d, _, files in os.walk(out_root) for f in files)
+    rows = 0
+    for rel in got:
+        with open(os.path.join(out_root, rel)) as f:
+            lines = f.read().splitlines()
+        ok = (lines[0] == os.path.basename(rel)[:-4] and int(lines[1]) == len(lines) - 2
+              and lines[2] == "0 0 0 0 0.001")
+        for line in lines[3:]:
+            parts = line.split(" ")
+            ok = ok and len(parts) == 5 and all(p.lstrip("-").isdigit() for p in parts[:4]) \
+                and re.fullmatch(r"[01]\.\d{3}", parts[4]) is not None
+        check(ok, f"{rel} is not in the WIDERFACE result format")
+        rows += len(lines) - 3
+    print(f"SIO evaluation script: {n} JPEGs (quality 90, from the pack) in "
+          f"{time.time() - t0:.1f} s, {len(got)} txt files, {rows} rows")
+    check(n == SIO_IMAGES and got == sorted(want) and rows > 0,
+          "the SIO evaluation did not write one txt per image")
+
+
 def workload_phase(device, card, counters):
     """Phase 8: the WIDERFACE training entry point, end to end."""
     import torch
@@ -900,7 +1199,9 @@ def workload_phase(device, card, counters):
               f"({os.path.getsize(pack) / 2 ** 20:.0f} MiB)")
 
         cfg = workload_config(common, script, pack, device_aug=True, epochs=2)
-        ex, rec = run_workload(cfg, card, "device aug, 2 epochs")
+        watch, n_boxes = add_val_loop(cfg, tmp)
+        ex, rec = run_workload(cfg, card, "device aug, 2 epochs, a val pass after each", watch)
+        check_val_loop(watch, n_boxes, card)
         work = cfg["work_dir"]
         ckpts = sorted(f for f in os.listdir(work) if f.endswith(".pth"))
         print(f"checkpoints: {ckpts}")
@@ -957,6 +1258,7 @@ def workload_phase(device, card, counters):
         # a lower threshold makes the engine emit rows to check
         rows = train_to_serve(det, device, counters, classification_threshold=SERVE_THRESHOLD)
         check(len(rows) > 0, "the trained checkpoint's engine returned no rows")
+        check_sio_evaluation(os.path.dirname(script), pack, final, tmp)
     finally:
         os.chdir(cwd)
         sys.excepthook = hook
@@ -1124,41 +1426,40 @@ def time_k1(boxes, valid, g, card):
                    note=" (inputs of 17 KB: warm = cold)")
 
 
-def profile_engine(engine, x, vhw, card, counters):
-    """One frame of the bf16_kernels engine launches each kernel as the
-    engine's levels say; then torch.profiler over PROFILED_FRAMES frames:
-    each kernel's device ms per frame and the device's busiest kernels."""
+def profile_engine(engine, x, vhw, card, label, counters):
+    """One frame of a bf16_kernels engine launches each kernel as the
+    engine's levels say: counted by the wrappers for the eager engine, and
+    for the captured one at its capture and, over the profiled replays, by
+    kernel name. Then torch.profiler over PROFILED_FRAMES frames: each
+    kernel's device ms per frame, all device work per frame, the device-busy
+    share and the busiest kernels. Returns the busy share."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     for c in counters:
         c.launches = 0
     engine(x, vhw)
     torch.cuda.synchronize()
     launches = {c.__name__: c.launches for c in counters}
-    print(f"one frame of the bf16_kernels engine: launches {launches}")
-    check(launches == ENGINE_LAUNCHES, f"one frame should launch {ENGINE_LAUNCHES}")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILED_FRAMES):
-            engine(x, vhw)
-        torch.cuda.synchronize()
+    print(f"one frame of the {label} bf16_kernels engine: the wrappers counted {launches}"
+          + (f", the capture {engine.captured_launches}" if engine.captured else ""))
+    check(launches == ({k: 0 for k in launches} if engine.captured else ENGINE_LAUNCHES)
+          and (not engine.captured or engine.captured_launches == ENGINE_LAUNCHES),
+          f"one {label} frame should launch {ENGINE_LAUNCHES}")
+    prof, _ = profiled(lambda: engine(x, vhw),
+                       lambda: [engine(x, vhw) for _ in range(PROFILED_FRAMES)])
     by_name, calls = {}, {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-            calls[e.name] = calls.get(e.name, 0) + 1
+    for e in device_events(prof)[0]:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        calls[e.name] = calls.get(e.name, 0) + 1
     per_frame = {}
-    for kernel, keys in (("pair_conv3x3", ("pair_conv_kernel",)),
-                         ("stem_conv", ("stem_conv_kernel",)),
-                         ("nms_mask_sorted", ("nms_iou_kernel", "nms_walk_kernel"))):
+    for kernel, keys in KERNEL_NAMES.items():
         names = [n for n in by_name if any(k in n for k in keys)]
         per_frame[kernel] = (sum(by_name[n] for n in names) / PROFILED_FRAMES,
-                             sum(calls[n] for n in names) / PROFILED_FRAMES)
+                             sum(calls[n] for n in names) / PROFILED_FRAMES / len(keys))
     share = busy_share(prof)
     total = sum(by_name.values()) / PROFILED_FRAMES
-    print(f"profile, {PROFILED_FRAMES} frames of the bf16_kernels engine {HW[0]}x{HW[1]}: "
-          "device ms per frame " + ", ".join(
+    print(f"profile, {PROFILED_FRAMES} frames of the {label} bf16_kernels engine "
+          f"{HW[0]}x{HW[1]}: device ms per frame " + ", ".join(
               f"{k} {ms:.4f} ({n:.0f} launches)" for k, (ms, n) in per_frame.items())
           + f"; all device work {total:.3f} ms per frame, busy share "
           + ("not measured" if share is None else f"{share:.3f}") + f" [{card}]")
@@ -1168,7 +1469,99 @@ def profile_engine(engine, x, vhw, card, counters):
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         print(f"  {ms / PROFILED_FRAMES:8.4f} ms/frame  {calls[name] / PROFILED_FRAMES:5.1f}x  "
               f"{name[:110]}")
-    check(all(n > 0 for _, n in per_frame.values()), "the profile lost a kernel")
+    counted = kernel_launches_in(prof)  # a replay's launches are visible only here
+    check(counted == {k: PROFILED_FRAMES * v for k, v in ENGINE_LAUNCHES.items()},
+          f"{PROFILED_FRAMES} {label} frames launched {counted}, not {ENGINE_LAUNCHES} each")
+    return share
+
+
+def time_engines(det, det_s, engines, imgs, device, card):
+    """ms/frame of the eager (A) and the captured (B) engine of each variant
+    at batch 1, CUDA events around 30 calls after 10, in the order A B B A
+    within this one run (eager times move between runs: the host sets their
+    pace); first on a frame already on the card, then from a numpy frame
+    (the copy from host memory included). Then the captured engines alone
+    of bf16 with the plain NMS (the oracle's price) and of WIDERFACE-S, and
+    the bf16_kernels engines at batch 4, per batch."""
+    import torch
+
+    x = torch.as_tensor(imgs, device=device)
+    vhw_np = np.asarray([HW[0] - 8, HW[1]], np.float32)
+    vhw = torch.as_tensor(vhw_np, device=device)
+    for name in ("bf16_kernels", "bf16", "fp32"):
+        pair = {"eager": compile_engine(det, HW, device, name, captured=False),
+                "captured": engines[name]}
+        for source, args in (("frame on the card", (x, vhw)), ("numpy frame", (imgs, vhw_np))):
+            ms = {k: [] for k in pair}
+            for k in ("eager", "captured", "captured", "eager"):
+                ms[k].append(time_ms(lambda e=pair[k]: e(*args), iters=30, warmup=10))
+            print(f"engine {name} {HW[0]}x{HW[1]} batch 1, {source}: eager "
+                  + ", ".join(f"{t:.3f}" for t in ms["eager"]) + " ms/frame; captured "
+                  + ", ".join(f"{t:.3f}" for t in ms["captured"]) + f" ms/frame [{card}]")
+        if name == "bf16_kernels":
+            # the predict entry point around it: pad into the bucket, the
+            # engine, the results to the host, rows (host clock: every call
+            # ends in the copy of its rows to the host)
+            frame = imgs[0, :1080]
+            ms = {k: [] for k in pair}
+            for k in ("eager", "captured", "captured", "eager"):
+                det.predict_for_single_image_with_engine(pair[k], frame)
+                t0 = time.perf_counter()
+                for _ in range(20):
+                    det.predict_for_single_image_with_engine(pair[k], frame)
+                ms[k].append((time.perf_counter() - t0) * 1e3 / 20)
+            print(f"predict_for_single_image_with_engine, {name}, a 1080x1920 uint8 frame to "
+                  "rows on the host: eager " + ", ".join(f"{t:.3f}" for t in ms["eager"])
+                  + " ms/frame; captured " + ", ".join(f"{t:.3f}" for t in ms["captured"])
+                  + f" ms/frame (host clock, 20 calls after 1) [{card}]")
+        del pair
+    alone = {"WIDERFACE-L bf16_plain (K - 1 fixed NMS rounds)": engines["bf16_plain"]}
+    for name in ("bf16", "fp32"):
+        alone[f"WIDERFACE-S {name}"] = compile_engine(det_s, HW, device, name)
+    for label, engine in alone.items():
+        ms = [time_ms(lambda: engine(x, vhw), iters=15, warmup=5) for _ in range(2)]
+        print(f"engine {label} {HW[0]}x{HW[1]} batch 1, frame on the card: captured "
+              + ", ".join(f"{t:.3f}" for t in ms) + f" ms/frame [{card}]")
+    del alone, engine
+    x4 = torch.as_tensor(np.concatenate([imgs] * 4), device=device)
+    pair = {"eager": compile_engine(det, HW, device, "bf16_kernels", batch_size=4,
+                                    captured=False),
+            "captured": engines["bf16_kernels_b4"]}
+    ms = {k: [] for k in pair}
+    for k in ("eager", "captured", "captured", "eager"):
+        ms[k].append(time_ms(lambda e=pair[k]: e(x4, vhw), iters=15, warmup=5))
+    print(f"engine bf16_kernels {HW[0]}x{HW[1]} batch 4, frames on the card: eager "
+          + ", ".join(f"{t:.3f}" for t in ms["eager"]) + " ms/batch; captured "
+          + ", ".join(f"{t:.3f}" for t in ms["captured"]) + f" ms/batch [{card}]")
+
+
+def latency_sweep(device, card):
+    """The port's inference_latency_evaluation (what the WIDERFACE
+    timing_inference_latency.py script runs) for WIDERFACE-L and -XS in bf16
+    at the script's four resolutions, SWEEP_LOOPS timed calls per cell (the
+    script's default is 50), each call waited for."""
+    import torch
+
+    from lfdtpu_torch import zoo
+    from lfdtpu_torch.deploy import inference_latency_evaluation, make_device_preprocess
+
+    for size in ("L", "XS"):
+        det = zoo.widerface_lfd(size)
+        det.init(torch.Generator().manual_seed(0))
+        res = inference_latency_evaluation(
+            det, precisions=("bf16",), preprocess=make_device_preprocess(MEAN, STD),
+            timing_loops=SWEEP_LOOPS, verbose=False, device=device)
+        check(len(res) == 4, "the sweep should give four cells")
+        for (precision, (h, w)), r in res.items():
+            print(f"sweep WIDERFACE-{size} {precision} {w}x{h}: median "
+                  f"{r['ms_per_image']:.3f} ms/image, p25 {r['ms_p25']:.3f}, p75 "
+                  f"{r['ms_p75']:.3f}, p95 {r['ms_p95']:.3f}, min {r['ms_min']:.3f}, "
+                  f"{r['fps']:.1f} FPS, {r['loops']} calls, {r['method']} [{card}]")
+            check(r["method"] == "cuda_events_per_call" and r["loops"] == SWEEP_LOOPS
+                  and np.isfinite(list(v for v in r.values() if not isinstance(v, str))).all()
+                  and 0 < r["ms_min"] <= r["ms_per_image"] <= r["ms_p95"],
+                  f"bad latency cell {precision} {w}x{h}")
+        torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------------ main
@@ -1207,21 +1600,38 @@ def main():
 
     print("[5 engine]")
     det = build_detector(device)
-    engines = compile_engines(det, HW, device)
     rng = np.random.RandomState(5)
     counters = (nms_kernel.nms_mask_sorted, conv_kernels.stem_conv,
                 conv_kernels.pair_conv3x3)
+    # The main path: compile_inference (the wrappers launch their kernels in
+    # the warmup calls and while the graph is captured; that is where the
+    # host counters tick), then the predict entry points, whose calls replay
+    # the graphs: those launches are counted from a profile by kernel name.
     for c in counters:
         c.launches = 0
-    rows_single, rows_batch = serve(det, engines, HW, rng)
-    torch.cuda.synchronize()
+    t0 = time.time()
+    engines = compile_engines(det, HW, device)
+    print(f"compiled {len(engines)} captured engines {HW[0]}x{HW[1]} in "
+          f"{time.time() - t0:.1f} s; launches per capture "
+          f"{ {k: e.captured_launches for k, e in engines.items()} }")
+    warm = frames(rng, 1, HW)
+    prof, (rows_single, rows_batch) = profiled(
+        lambda: engines["bf16_kernels"](warm, HW), lambda: serve(det, engines, HW, rng))
     launches = {c.__name__: c.launches for c in counters}
+    replayed = kernel_launches_in(prof)
     print(f"served 8 single frames ({sum(map(len, rows_single))} rows) and a batch "
-          f"of 4 ({[len(r) for r in rows_batch]} rows); launches {launches}")
+          f"of 4 ({[len(r) for r in rows_batch]} rows); launches at build and capture "
+          f"{launches}; launches by the 9 replays (profile, by kernel name) {replayed}")
     for name, n in launches.items():
         check(n > 0, f"the main path never launched {name}")
+    check(replayed == {k: 9 * v for k, v in ENGINE_LAUNCHES.items()},
+          "the served replays did not launch each kernel as captured")
     imgs = check_engine_parity(det, engines, HW, rng)
     check_fp32_reference(det, device, rng)
+    t0 = time.time()
+    det_s = build_detector(device, seed=1, size="S")
+    check_captured_engines(det, det_s, engines, device, rng)
+    print(f"captured engines checked in {time.time() - t0:.1f} s")
 
     print("[6 train]")
     t0 = time.time()
@@ -1238,20 +1648,19 @@ def main():
     print(f"train phase {time.time() - t0:.1f} s")
 
     print(f"[7 timings] {card}")
+    time_engines(det, det_s, engines, imgs, device, card)
+    timings = time_kernels(device, card, k2_in, k3_in)
     x = torch.as_tensor(imgs, device=device)
     vhw = torch.tensor([HW[0] - 8, HW[1]], dtype=torch.float32, device=device)
-    # the eager engines are partly host bound, so their times move between
-    # runs: each is timed twice, in the order A B C C B A, after a long warmup
-    order = ("bf16_kernels", "bf16_plain", "fp32")
-    engine_ms = {name: [] for name in order}
-    for name in order + order[::-1]:
-        engine_ms[name].append(time_ms(lambda e=engines[name]: e(x, vhw),
-                                       iters=30, warmup=10))
-    for name in order:
-        runs = ", ".join(f"{t:.3f}" for t in engine_ms[name])
-        print(f"engine {name} {HW[0]}x{HW[1]} batch 1: {runs} ms/frame [{card}]")
-    timings = time_kernels(device, card, k2_in, k3_in)
-    profile_engine(engines["bf16_kernels"], x, vhw, card, counters)
+    eager = compile_engine(det, HW, device, "bf16_kernels", captured=False)
+    share = {"eager": profile_engine(eager, x, vhw, card, "eager", counters),
+             "captured": profile_engine(engines["bf16_kernels"], x, vhw, card, "captured",
+                                        counters)}
+    del eager
+    check(share["captured"] is not None, "the profiler saw no device time")
+    print(f"device-busy share, bf16_kernels engine, frame on the card: eager "
+          f"{share['eager']:.3f}, captured {share['captured']:.3f} [{card}]")
+    latency_sweep(device, card)
     sources = {
         "nms_mask_sorted": ("lfdtpu_torch/csrc/nms.cu", "lfdtpu/ops/nms_pallas.py:49", err1),
         "stem_conv": ("lfdtpu_torch/csrc/stem_conv.cu", "lfdtpu/ops/conv_pallas.py:359",
@@ -1260,7 +1669,8 @@ def main():
                          errs["pair_conv3x3"]),
     }
     kernels = [dict(name=name, route="cuda", source=src, replaces=tpu,
-                    launches=launches[name], max_abs_err=err, **timings[name])
+                    launches=launches[name], replayed_launches=replayed[name],
+                    max_abs_err=err, **timings[name])
                for name, (src, tpu, err) in sources.items()]
     print(f"[8 workload] {card}")
     t0 = time.time()

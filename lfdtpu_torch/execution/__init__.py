@@ -1,6 +1,6 @@
 from .executor import Executor
-from .hooks import (CheckpointHook, Hook, LoggerHook, LrSchedulerHook, OptimizerHook, Priority,
-                    ProfilerHook, SpeedHook, get_priority)
+from .hooks import (CheckpointHook, EvaluationHook, Hook, LoggerHook, LrSchedulerHook,
+                    OptimizerHook, Priority, ProfilerHook, SpeedHook, get_priority)
 from .jax_convert import jax_train_state_to_port, jax_variables_to_state_dict
 from .optim import SGD, GroupedSGD, clip_by_global_norm, global_norm, set_lr
 from .schedules import (ConstantLRSchedule, CosineLRSchedule, MultiStepLRSchedule,
@@ -11,7 +11,7 @@ from .utils import (AverageMeter, collect_envs, customize_exception_hook, get_ro
 __all__ = [
     "Executor",
     "Hook", "Priority", "get_priority", "LrSchedulerHook", "OptimizerHook", "SpeedHook",
-    "CheckpointHook", "LoggerHook", "ProfilerHook",
+    "CheckpointHook", "EvaluationHook", "LoggerHook", "ProfilerHook",
     "jax_train_state_to_port", "jax_variables_to_state_dict",
     "SGD", "GroupedSGD", "clip_by_global_norm", "global_norm", "set_lr",
     "ConstantLRSchedule", "CosineLRSchedule", "MultiStepLRSchedule", "WarmupSetting",

@@ -1,6 +1,7 @@
 # Executor, the port of `lfdtpu/execution/executor.py` (reference
 # `lfd/execution/executor.py:13-259`): owns the config_dict, the hook
-# registry, the train loop, checkpoint save / resume and weight loading.
+# registry, the train and val loops, checkpoint save / resume and weight
+# loading.
 #
 # One device, named by config_dict["device"] (default "cuda"; a missing CUDA
 # device raises, the run never moves to the CPU). The train step
@@ -12,13 +13,16 @@
 # config_dict keys consumed (as lfdtpu's):
 #   model (LFD from zoo / models), optimizer (execution.optim config),
 #   lr_schedule, optimizer_grad_clip_cfg {max_norm, duration}?,
-#   train_data_loader, training_epochs, work_dir, log_path?,
-#   display_interval, save_interval, seed?, batch_size, input_hw,
-#   weight_path?, resume_path?, device_preprocess?, device_augment?,
-#   device_prefetch?, extra_hooks?, device?
-# Not ported yet (they raise NotImplementedError): val_interval > 0 with a
-# val_data_loader, an evaluator (the evaluation slice, ROADMAP queue 1 item
-# 10) and several devices (item 15).
+#   train_data_loader, val_data_loader?, evaluator?, training_epochs,
+#   work_dir, log_path?, display_interval, save_interval, val_interval,
+#   seed?, batch_size, input_hw, weight_path?, resume_path?,
+#   device_preprocess?, device_augment?, device_prefetch?, extra_hooks?,
+#   device?
+# The val loop (every val_interval epochs, over val_data_loader) runs the net
+# in eval mode without touching its BN statistics, decodes each batch once
+# and hands the per-image rows to the evaluator through EvaluationHook.
+# Not ported yet (it raises NotImplementedError): several devices (ROADMAP
+# queue 1, item 8).
 
 from __future__ import annotations
 
@@ -28,8 +32,8 @@ import torch
 
 from ..data.device_aug import AUG_KEYS
 from ..device import resolve_device
-from .hooks import (CheckpointHook, Hook, LoggerHook, LrSchedulerHook, OptimizerHook,
-                    SpeedHook, get_priority)
+from .hooks import (CheckpointHook, EvaluationHook, Hook, LoggerHook, LrSchedulerHook,
+                    OptimizerHook, SpeedHook, get_priority)
 from .utils import (AverageMeter, get_root_logger, load_checkpoint, load_weights,
                     save_checkpoint, set_random_seed)
 
@@ -52,7 +56,7 @@ def _device(cfg):
     device = cfg.get("device", "cuda")
     if cfg.get("mesh") is not None or isinstance(device, (list, tuple)):
         raise NotImplementedError("training on several devices is not ported yet "
-                                  "(ROADMAP queue 1, item 15)")
+                                  "(ROADMAP queue 1, item 8)")
     return resolve_device(device, "config_dict['device']")
 
 
@@ -65,12 +69,6 @@ class Executor:
         self.config_dict = config_dict
         cfg = self.config_dict
         self.device = _device(cfg)
-        if cfg.get("val_interval", 0) > 0 and cfg.get("val_data_loader") is not None:
-            raise NotImplementedError("the val loop comes with the evaluation slice "
-                                      "(ROADMAP queue 1, item 10)")
-        if cfg.get("evaluator") is not None:
-            raise NotImplementedError("EvaluationHook comes with the evaluation slice "
-                                      "(ROADMAP queue 1, item 10)")
 
         cfg.setdefault("work_dir", "./work_dir")
         os.makedirs(cfg["work_dir"], exist_ok=True)
@@ -120,6 +118,7 @@ class Executor:
             preprocess=cfg.get("device_augment") or cfg.get("device_preprocess"),
         )
 
+        self._eval_step = None
         self._pending_metrics = []
         self.last_metrics = None
         self._hooks = []
@@ -148,6 +147,8 @@ class Executor:
         )
         self.register_hook(SpeedHook())
         self.register_hook(CheckpointHook())
+        if cfg.get("evaluator") is not None:
+            self.register_hook(EvaluationHook())
         self.register_hook(LoggerHook())
 
     def call_hooks(self, fn_name):
@@ -208,12 +209,41 @@ class Executor:
         cfg["grad_norm"] = values[-1][-1]
         self._pending_metrics.clear()
 
+    # -------------------------------------------------------------- val
+    def val(self):
+        """One pass over val_data_loader (`lfdtpu/execution/executor.py:
+        219-243`): eval-mode forward, one batched decode, the per-image rows
+        in config_dict['eval_results'] and the loader meta in
+        config_dict['eval_meta'] for the hooks."""
+        from ..parallel.data_parallel import make_eval_step
+
+        cfg = self.config_dict
+        if cfg.get("val_data_loader") is None:
+            return
+        cfg["mode"] = "val"
+        if self._eval_step is None:
+            self._eval_step = make_eval_step(self.detector)
+        self.call_hooks("before_val_epoch")
+        for inner, batch in enumerate(cfg["val_data_loader"]):
+            cfg["inner_val_iter"] = inner
+            self.call_hooks("before_val_iter")
+            outs = self._eval_step(self.state, batch["images"])
+            input_hw = (batch["images"].shape[1], batch["images"].shape[2])
+            cfg["eval_results"] = self.detector.results_from_outputs(
+                outs, input_hw, batch["meta"])
+            cfg["eval_meta"] = batch["meta"]
+            self.call_hooks("after_val_iter")
+        self.call_hooks("after_val_epoch")
+        cfg["mode"] = "train"
+
     def run(self):
-        """Epochs of train (`executor.py:249-259`)."""
+        """Epochs of train + periodic val (`executor.py:249-259`)."""
         cfg = self.config_dict
         self.call_hooks("before_run")
         while cfg["epoch"] < cfg["training_epochs"]:
             self.train()
+            if cfg.get("val_interval", 0) > 0 and (cfg["epoch"] + 1) % cfg["val_interval"] == 0:
+                self.val()
             cfg["epoch"] += 1
         self.call_hooks("after_run")
 

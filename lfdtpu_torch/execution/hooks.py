@@ -8,8 +8,7 @@
 #     clip window.
 #   - LrSchedulerHook evaluates the host-side schedule (schedules.py) and
 #     stashes the lr for the step.
-# ProfilerHook traces with torch.profiler. EvaluationHook comes with the
-# evaluation slice.
+# ProfilerHook traces with torch.profiler.
 
 from __future__ import annotations
 
@@ -160,6 +159,21 @@ class CheckpointHook(Hook):
     def after_train_epoch(self, executor):
         if executor.config_dict["epoch"] % executor.config_dict["save_interval"] == 0:
             executor.save()
+
+
+class EvaluationHook(Hook):
+    """Feeds each val iteration's per-image results and loader meta to
+    config_dict['evaluator'] and evaluates after the val epoch
+    (`lfdtpu/execution/hooks.py:159-167`)."""
+
+    def after_val_iter(self, executor):
+        executor.config_dict["evaluator"].update(
+            executor.config_dict["eval_results"],
+            executor.config_dict.get("eval_meta"),
+        )
+
+    def after_val_epoch(self, executor):
+        executor.config_dict["evaluator"].evaluate()
 
 
 class LoggerHook(Hook):

@@ -10,6 +10,7 @@
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from .layers import activation_from_cfg, norm_from_cfg
@@ -74,7 +75,10 @@ class FastBlock(_Block):
 class FasterBlock(_Block):
     """3x3 -> 3x3 + residual. `fused` is the deploy-time dispatch to K3:
     an engine sets it to a callable (deploy/kernel_net.py) on blocks that
-    the kernel can run, and forward then calls it instead of the layers."""
+    the kernel can run, and forward then calls it instead of the layers, in
+    eval mode on bf16 input only (`lfdtpu/deploy/pallas_net.py:152,278`: K3
+    folds the running statistics and takes bf16): a block in train() or fed
+    another dtype runs its layers."""
 
     def __init__(self, in_channels, features, stride=1, use_downsample=False,
                  act_cfg=None, norm_cfg=None):
@@ -83,7 +87,7 @@ class FasterBlock(_Block):
         self.fused = None
 
     def forward(self, x):
-        if self.fused is not None:
+        if self.fused is not None and not self.training and x.dtype == torch.bfloat16:
             return self.fused(x)
         return super().forward(x)
 

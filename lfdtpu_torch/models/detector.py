@@ -72,6 +72,22 @@ def _read_image(image):
     return image
 
 
+def eval_forward(net, images):
+    """Dense outputs of `net` in eval mode under inference_mode, on the net's
+    own device and dtype; the net is left in the mode it was found in and
+    its BN running statistics are not touched.
+    images: (B, H, W, 3) array or tensor."""
+    p = next(net.parameters())
+    was_training = net.training
+    net.eval()
+    try:
+        with torch.inference_mode():
+            x = torch.as_tensor(images).to(p.device, non_blocking=True).to(p.dtype)
+            return net(x)
+    finally:
+        net.train(was_training)
+
+
 class LFD:
     """Anchor-free multi-scale detector with soft center-score targets: owns
     the net (an nn.Module holding the weights), the point grids, the loss
@@ -313,13 +329,49 @@ class LFD:
         """Decode one image's (P, Cc) / (P, 4) outputs (`lfdtpu`'s
         decode_single); valid_hw is its unpadded (h, w)."""
         cls_o, reg_o = outputs_single
-        vhw = torch.as_tensor(valid_hw, dtype=torch.float32,
-                              device=cls_o.device).reshape(1, 2)
+        if isinstance(valid_hw, torch.Tensor):  # stays on its device: no host data
+            vhw = valid_hw.to(cls_o.device, torch.float32).reshape(1, 2)
+        else:
+            vhw = torch.as_tensor(valid_hw, dtype=torch.float32,
+                                  device=cls_o.device).reshape(1, 2)
         out = self.decode_batch((cls_o[None], reg_o[None]), input_hw, vhw, spec,
                                 level_arrays)
         return {k: v[0] for k, v in out.items()}
 
     # ------------------------------------------------- reference-API paths
+    def results_from_outputs(self, outputs, input_hw, meta_batch, spec=None):
+        """Batch of dense outputs -> reference result rows
+        (`lfdtpu/models/detector.py:411-443`), shared by get_results and the
+        Executor's val loop: one batched decode on the outputs' device, one
+        copy of the decoded dict to the host, then per image its rows with
+        its own `resize_scale`. Each image's valid extent
+        (`resized_height`, `resized_width`) comes from the loader meta."""
+        spec = spec or self.decode_spec()
+        input_hw = (int(input_hw[0]), int(input_hw[1]))
+        cls_o, reg_o = outputs
+        metas = [m or {} for m in meta_batch]
+        valid_hws = np.asarray(
+            [[m.get("resized_height", input_hw[0]), m.get("resized_width", input_hw[1])]
+             for m in metas[:cls_o.shape[0]]], np.float32)
+        with torch.inference_mode():
+            decoded = self.decode_batch(
+                (cls_o.float(), reg_o.float()), input_hw,
+                torch.as_tensor(valid_hws).to(cls_o.device), spec)
+        decoded = {k: v.cpu().numpy() for k, v in decoded.items()}
+        return [detections_to_lists({k: v[i] for k, v in decoded.items()},
+                                    resize_scale=metas[i].get("resize_scale", 1.0))
+                for i in range(cls_o.shape[0])]
+
+    def get_results(self, images, meta_batch, classification_threshold=None,
+                    nms_threshold=None):
+        """Batched eval decode (`lfd/model/lfd.py:397-430`): images
+        (B, H, W, 3), already normalized, through the net on its own device;
+        one result list per image."""
+        spec = self.decode_spec(classification_threshold, nms_threshold)
+        input_hw = (int(images.shape[1]), int(images.shape[2]))
+        return self.results_from_outputs(eval_forward(self.net, images), input_hw,
+                                         meta_batch, spec)
+
     def predict_for_single_image(self, image, aug_pipeline=None,
                                  classification_threshold=None,
                                  nms_threshold=None, class_agnostic=False,
@@ -340,19 +392,11 @@ class LFD:
         input_hw = tuple(int(v) for v in padded.shape[:2])
         spec = self.decode_spec(classification_threshold, nms_threshold,
                                 class_agnostic=class_agnostic)
-        p = next(self.net.parameters())
         # eval mode, as lfdtpu's train=False: a net left in train() would
         # predict with batch statistics and write into its running stats
-        was_training = self.net.training
-        self.net.eval()
-        try:
-            with torch.inference_mode():
-                x = torch.as_tensor(padded, device=p.device)[None].to(p.dtype)
-                cls_o, reg_o = self.net(x)
-                decoded = self.decode_single((cls_o[0], reg_o[0]), input_hw, (h, w),
-                                             spec)
-        finally:
-            self.net.train(was_training)
+        cls_o, reg_o = eval_forward(self.net, padded[None])
+        with torch.inference_mode():
+            decoded = self.decode_single((cls_o[0], reg_o[0]), input_hw, (h, w), spec)
         return detections_to_lists(decoded)
 
     def predict_for_single_image_with_engine(self, engine, image, aug_pipeline=None):

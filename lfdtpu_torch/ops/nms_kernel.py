@@ -30,17 +30,30 @@ def _iou_matrix(boxes):
     return inter / union.clamp_min(1e-12)
 
 
-def nms_mask_sorted_plain(boxes_sorted, valid_sorted, iou_thr):
+def nms_mask_sorted_plain(boxes_sorted, valid_sorted, iou_thr, fixed_rounds=None):
     """Plain version of K1: keep = valid & !(any kept earlier row with
     IoU > thr), iterated to its fixpoint (the suppression chain depth).
 
     boxes_sorted (B, K, 4) f32 xyxy, sorted by descending score;
-    valid_sorted (B, K) bool. Returns (B, K) bool, in sorted order."""
+    valid_sorted (B, K) bool. Returns (B, K) bool, in sorted order.
+    fixed_rounds: run K - 1 rounds without asking whether the mask still
+    changes (no host sync); None means only inside a CUDA-graph capture."""
     K = boxes_sorted.shape[1]
     upper = torch.ones(K, K, dtype=torch.bool, device=boxes_sorted.device).triu(1)
     sup = (_iou_matrix(boxes_sorted.float()) > iou_thr) & upper
     sup = sup & valid_sorted[:, :, None]
     keep = valid_sorted
+    if fixed_rounds is None:
+        fixed_rounds = boxes_sorted.is_cuda and torch.cuda.is_current_stream_capturing()
+    if fixed_rounds:
+        # Inside a CUDA-graph capture the loop cannot ask the device whether
+        # it has converged (that is a host sync). Round t settles row t at
+        # the latest and a settled mask stays as it is, so K - 1 rounds give
+        # the same mask, at K times the work: the oracle's price when it is
+        # captured.
+        for _ in range(K - 1):
+            keep = valid_sorted & ~(sup & keep[:, :, None]).any(dim=1)
+        return keep
     while True:
         suppressed = (sup & keep[:, :, None]).any(dim=1)
         new_keep = valid_sorted & ~suppressed

@@ -11,6 +11,8 @@
 # Not ported yet: `mesh` (data parallel over several devices) and `remat`
 # (under torch.utils.checkpoint the recomputed forward would update the BN
 # running stats a second time).
+#
+# make_eval_step is the val loop's forward (`data_parallel.py:151-172`).
 
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..execution.optim import clip_by_global_norm, global_norm, set_lr
+from ..models.detector import eval_forward
 
 
 @dataclasses.dataclass
@@ -109,5 +112,25 @@ def make_train_step(detector, optimizer, input_hw, clip_max_norm=0.0,
         metrics = {k: v.detach() for k, v in ld["loss_values"].items()}
         metrics["grad_norm"] = grad_norm.detach()
         return metrics
+
+    return step
+
+
+def make_eval_step(detector, mesh=None, spatial=False):
+    """The val loop's batched forward: step(state, images) -> dense outputs
+    (cls (B, P, Cc), reg (B, P, 4)) of state.net in eval mode under
+    inference_mode, on the state's device; the per-image decode happens
+    downstream (LFD.results_from_outputs). The BN running statistics are not
+    touched and the net is left in the mode it was found in.
+
+    images: (B, H, W, 3) array or tensor, already normalized.
+    mesh / spatial (lfdtpu: the batch or the image height sharded over
+    several devices) are not ported (ROADMAP queue 1, item 8)."""
+    if mesh is not None or spatial:
+        raise NotImplementedError("evaluating over several devices (mesh, spatial) is "
+                                  "not ported yet (ROADMAP queue 1, item 8)")
+
+    def step(state, images):
+        return eval_forward(state.net, images)
 
     return step

@@ -309,3 +309,167 @@ def test_device_augment_on_the_card_matches_the_cpu(cuda):
         ref = aug(cpu).float()
         got = aug({k: v.to(cuda) for k, v in cpu.items()}).float().cpu()
         assert (got - ref).abs().max() <= (1e-3 if dtype == torch.float32 else 1.0)
+
+
+# ---------------------------------------------------------------- engines
+# The captured (CUDA-graph) engine against the eager engine of the same
+# build, on the card: the same kernels in the same order on the same inputs,
+# so every output tensor must be bit-equal.
+
+ENGINE_HW = (256, 320)
+ENGINE_VARIANTS = {
+    "fp32": dict(precision="fp32"),
+    "bf16": dict(precision="bf16"),
+    "bf16_kernels": dict(precision="bf16", kernel_convs=True, kernel_stem=True),
+    "bf16_plain": dict(precision="bf16", nms_use_kernel=False),
+}
+
+
+def _detector(size, seed=0):
+    """A WIDERFACE detector with seeded weights and randomized norm
+    statistics, affines and head Scales (so BN folding is exercised)."""
+    from chip_smoke import build_detector
+
+    return build_detector("cpu", seed=seed, size=size)
+
+
+def _engine(det, variant, hw=ENGINE_HW, batch_size=2, **kw):
+    from lfdtpu_torch.deploy import compile_inference, make_device_preprocess
+
+    return compile_inference(det, hw, preprocess=make_device_preprocess((0.5,) * 3, (0.5,) * 3),
+                             batch_size=batch_size, **ENGINE_VARIANTS[variant], **kw)
+
+
+def _frames(seed, batch=2, hw=ENGINE_HW):
+    return np.random.RandomState(seed).randint(0, 256, (batch, *hw, 3)).astype(np.uint8)
+
+
+def _same(a, b):
+    return all(torch.equal(a[k], b[k]) for k in a)
+
+
+@pytest.mark.parametrize("variant", list(ENGINE_VARIANTS))
+@pytest.mark.parametrize("size", ["S", "L"])
+def test_captured_engine_rows_equal_eager(cuda, size, variant):
+    det = _detector(size)
+    captured = _engine(det, variant)  # the default on the card
+    eager = _engine(det, variant, captured=False)
+    assert captured.captured and not eager.captured
+    k3 = 10  # five eligible FasterBlocks in S and in L, two launches each
+    assert captured.captured_launches == {
+        "nms_mask_sorted": int(variant != "bf16_plain"),
+        "stem_conv": int(variant == "bf16_kernels"),
+        "pair_conv3x3": k3 * int(variant == "bf16_kernels")}
+    vhw = np.asarray([[256, 320], [200, 311]], np.float32)
+    before = nms_kernel.nms_mask_sorted.launches
+    for seed in (1, 2):
+        f = _frames(seed)
+        got = captured(f, vhw)
+        ref = eager(f, vhw)
+        assert int(got["count"].sum()) > 0
+        assert _same(got, ref), (size, variant, seed)
+        # a frame and extents already on the card take the other input path
+        again = captured(torch.as_tensor(f, device=cuda), torch.as_tensor(vhw, device=cuda))
+        assert _same(again, ref)
+    # a replay launches kernels without the wrappers: only the eager engine counted
+    assert nms_kernel.nms_mask_sorted.launches == before + 2 * int(variant != "bf16_plain")
+
+
+def test_captured_engine_results_survive_the_next_call(cuda):
+    det = _detector("S")
+    engine = _engine(det, "bf16_kernels", pack_output=True)
+    eager = _engine(det, "bf16_kernels", pack_output=True, captured=False)
+    f1, f2 = _frames(3), _frames(4)
+    r1 = engine(f1, ENGINE_HW)
+    kept = r1.clone()
+    r2 = engine(f2, ENGINE_HW)
+    torch.cuda.synchronize()
+    assert r1.shape == (2, det.post_nms_bbox_limit, 7)
+    assert torch.equal(r1, kept) and not torch.equal(r1, r2)
+    assert torch.equal(r1, eager(f1, ENGINE_HW)) and torch.equal(r2, eager(f2, ENGINE_HW))
+    # the caller's arrays are free to change as soon as the call returns
+    f3 = _frames(5)
+    want = eager(f3, ENGINE_HW)
+    r3 = engine(f3, ENGINE_HW)
+    f3[:] = 0
+    assert torch.equal(r3, want)
+
+
+def test_two_captured_engines_alive_at_once(cuda):
+    det_s, det_l = _detector("S"), _detector("L", seed=1)
+    a = _engine(det_s, "bf16_kernels")
+    b = _engine(det_l, "bf16_kernels", hw=(192, 256), batch_size=1)
+    ea = _engine(det_s, "bf16_kernels", captured=False)
+    eb = _engine(det_l, "bf16_kernels", hw=(192, 256), batch_size=1, captured=False)
+    outs = []
+    for seed in (6, 7, 8):  # interleaved: neither graph disturbs the other's buffers
+        fa, fb = _frames(seed), _frames(seed + 10, 1, (192, 256))
+        outs.append((a(fa, ENGINE_HW), ea(fa, ENGINE_HW), b(fb, (192, 256)), eb(fb, (192, 256))))
+    for ra, wa, rb, wb in outs:
+        assert _same(ra, wa) and _same(rb, wb)
+
+
+def test_captured_engine_called_from_another_stream(cuda):
+    det = _detector("S")
+    engine = _engine(det, "bf16_kernels")
+    eager = _engine(det, "bf16_kernels", captured=False)
+    f1, f2 = _frames(9), _frames(10)
+    want1, want2 = eager(f1, ENGINE_HW), eager(f2, ENGINE_HW)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        got1 = engine(f1, ENGINE_HW)
+        got2 = engine(torch.as_tensor(f2).to(cuda, non_blocking=True), ENGINE_HW)
+    side.synchronize()
+    assert _same(got1, want1) and _same(got2, want2)
+    back = engine(f1, ENGINE_HW)  # and on the default stream again
+    assert _same(back, want1)
+
+
+def test_captured_engine_refuses_what_it_was_not_built_for(cuda):
+    engine = _engine(_detector("S"), "bf16")
+    with pytest.raises(ValueError, match="batch_size"):
+        engine(_frames(1, batch=1), ENGINE_HW)
+    with pytest.raises(ValueError, match="expected"):
+        engine(_frames(1, hw=(128, 128)), ENGINE_HW)
+    with pytest.raises(ValueError, match="uint8"):
+        engine(_frames(1).astype(np.float32), ENGINE_HW)
+    with pytest.raises(ValueError, match="uint8"):
+        engine(torch.zeros(2, *ENGINE_HW, 3, device=cuda), ENGINE_HW)
+    assert int(engine(_frames(1), ENGINE_HW)["count"].sum()) > 0  # still serves
+
+
+def test_a_capture_that_cannot_succeed_raises(cuda, monkeypatch):
+    """A host sync inside what is captured: compile_inference raises, hands
+    back no engine, and the next capture works."""
+    from lfdtpu_torch.deploy import compile as compile_mod
+
+    det = _detector("S")
+    real = compile_mod.Engine._decode
+    state = {"calls": 0}
+
+    def syncing(self, cls_o, reg_o, vhw):
+        state["calls"] += 1
+        if torch.cuda.is_current_stream_capturing():
+            cls_o.sum().item()  # a host sync: not permitted in a capture
+        return real(self, cls_o, reg_o, vhw)
+
+    monkeypatch.setattr(compile_mod.Engine, "_decode", syncing)
+    with pytest.raises(RuntimeError, match="capturing the engine"):
+        _engine(det, "bf16_kernels")
+    assert state["calls"] > 1  # the warmup calls ran eagerly before the capture
+    assert _engine(det, "bf16_kernels", captured=False).captured is False  # eager on request
+    monkeypatch.setattr(compile_mod.Engine, "_decode", real)
+    engine = _engine(det, "bf16_kernels")
+    f = _frames(11)
+    assert engine.captured
+    assert _same(engine(f, ENGINE_HW), _engine(det, "bf16_kernels", captured=False)(f, ENGINE_HW))
+
+
+def test_timing_inference_on_the_card(cuda):
+    from lfdtpu_torch.deploy import timing_inference
+
+    engine = _engine(_detector("S"), "bf16_kernels", batch_size=1)
+    r = timing_inference(engine, _frames(12, 1), ENGINE_HW, warmup_loops=3, timing_loops=10)
+    assert r["method"] == "cuda_events_per_call" and r["loops"] == 10
+    assert 0 < r["ms_min"] <= r["ms_per_image"] <= r["ms_p95"]

@@ -13,7 +13,7 @@
 # weight_path (counters, params and momentum exact), a port checkpoint read
 # by lfdtpu.execution.load_reference_checkpoint, hook priority order,
 # AverageMeter modes, the speed reading (ROADMAP F12) and the refusals
-# (no CUDA device, several devices, the val loop).
+# (no CUDA device, several devices).
 import os
 
 import jax
@@ -306,7 +306,11 @@ def test_executor_refuses_what_it_cannot_run(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         texe.Executor(base())  # the workload default device is cuda
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
         texe.Executor(base(device=["cuda:0", "cuda:1"]))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        texe.Executor(base(device="cpu", val_interval=1, val_data_loader=object()))
+    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
+        texe.Executor(base(device="cpu", mesh=object()))
+    # a val loop and an evaluator are taken now (tests/test_torch_val.py runs them)
+    ex = texe.Executor(base(device="cpu", val_interval=1, val_data_loader=object(),
+                            evaluator=object()))
+    assert "EvaluationHook" in [type(h).__name__ for h in ex._hooks]

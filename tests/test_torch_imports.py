@@ -1,5 +1,6 @@
 # The port stands alone: importing lfdtpu_torch (every module, the WIDERFACE
-# workload's _common included) pulls in neither jax, flax, lfdtpu nor cv2,
+# workload's _common and its predict, evaluation, timing and pack scripts
+# included) pulls in neither jax, flax, lfdtpu nor cv2,
 # and the kernel modules import and run their plain versions on a machine
 # with no nvcc and no GPU, building nothing. cv2 is imported only inside the
 # functions that need it (JPEG coding, image paths, the pack checker).
@@ -23,7 +24,8 @@ import lfdtpu_torch
 from lfdtpu_torch import zoo
 from lfdtpu_torch.data import (augmentation, dataset, dataset_samplers, device_aug, jpeg,
                                loader, pack, parsers, region_samplers, resize, sample)
-from lfdtpu_torch.deploy import compile, kernel_net
+from lfdtpu_torch.deploy import compile, kernel_net, latency
+from lfdtpu_torch.evaluation import base, coco_eval, tt100k, widerface
 from lfdtpu_torch.execution import (executor, hooks, jax_convert, optim, schedules,
                                     utils)
 from lfdtpu_torch.ops import (assign, boxes, conv_kernels, decode, kernel_lib, loss_wrappers,
@@ -31,9 +33,11 @@ from lfdtpu_torch.ops import (assign, boxes, conv_kernels, decode, kernel_lib, l
 from lfdtpu_torch.parallel import data_parallel, prefetch
 from lfdtpu_torch import device
 from lfdtpu_torch.tools import kernel_trace
-spec = importlib.util.spec_from_file_location(
-    "widerface_common", "lfdtpu_torch/workloads/WIDERFACE_train/_common.py")
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for script in ("_common", "predict", "predict_engine", "evaluation",
+               "timing_inference_latency", "pack_widerface", "generate_neg_images"):
+    spec = importlib.util.spec_from_file_location(
+        "widerface_" + script, "lfdtpu_torch/workloads/WIDERFACE_train/" + script + ".py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 
 det = zoo.widerface_lfd("L")
 det.init(torch.Generator().manual_seed(0))
@@ -41,6 +45,9 @@ eng = compile.compile_inference(
     det, (64, 64), "bf16", preprocess=compile.make_device_preprocess((0.5,) * 3, (0.5,) * 3),
     kernel_convs=True, kernel_stem=True, device="cpu")
 out = eng(torch.zeros(1, 64, 64, 3, dtype=torch.uint8), [64, 64])
+timing = latency.timing_inference(eng, torch.zeros(1, 64, 64, 3, dtype=torch.uint8).numpy(),
+                                  [64, 64], warmup_loops=1, timing_loops=2, distinct_inputs=2)
+rows = det.get_results(torch.zeros(1, 64, 64, 3), [None])
 print(json.dumps({
     "foreign": sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "flax", "lfdtpu", "cv2")),
@@ -48,6 +55,9 @@ print(json.dumps({
     "launches": [conv_kernels.stem_conv.launches, conv_kernels.pair_conv3x3.launches,
                  nms_kernel.nms_mask_sorted.launches],
     "count": int(out["count"][0]),
+    "captured": eng.captured,
+    "method": timing["method"],
+    "result_lists": len(rows),
 }))
 """
 
@@ -66,6 +76,8 @@ def test_port_imports_without_jax_and_builds_nothing_on_cpu():
     assert res["built"] == 0
     assert res["launches"] == [0, 0, 0]
     assert res["count"] >= 0
+    assert res["captured"] is False and res["method"] == "perf_counter_per_call"
+    assert res["result_lists"] == 1
 
 
 def test_no_source_file_imports_jax():
