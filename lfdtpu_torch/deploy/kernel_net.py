@@ -69,20 +69,26 @@ class FusedFasterBlock:
         return out.permute(0, 3, 1, 2)
 
 
+def eligible_stem(net):
+    """The backbone's first stem unit is conv 3x3/s2 3 -> 64 + BatchNorm +
+    ReLU ('fast'/'faster' stems at 64 channels): what K2 computes."""
+    stem = net._backbone._stem
+    conv, norm = stem[0], stem[1] if len(stem) > 1 else None
+    return (isinstance(conv, nn.Conv2d) and tuple(conv.weight.shape) == (64, 3, 3, 3)
+            and conv.stride == (2, 2) and isinstance(norm, nn.BatchNorm2d)
+            and len(stem) >= 3 and isinstance(stem[2], nn.ReLU))
+
+
 def prepack_stem(net, mean, std, bgr2rgb=False):
     """Fold normalize + stem0 conv + BN into K2's constants.
 
-    net: the engine's DetectionNet; its backbone's first stem unit must be
-    conv 3x3/s2 3 -> 64 + BatchNorm + ReLU ('fast'/'faster' stems).
+    net: the engine's DetectionNet; its stem must pass eligible_stem.
     mean/std: the device-preprocess constants in pixel units (0..255).
     Returns (weight HWIO f32, mean, std, scale, bias) on the net's device,
     or None when the stem is not this shape."""
-    stem = net._backbone._stem
-    conv, norm = stem[0], stem[1] if len(stem) > 1 else None
-    if (not isinstance(conv, nn.Conv2d) or tuple(conv.weight.shape) != (64, 3, 3, 3)
-            or conv.stride != (2, 2) or not isinstance(norm, nn.BatchNorm2d)
-            or len(stem) < 3 or not isinstance(stem[2], nn.ReLU)):
+    if not eligible_stem(net):
         return None
+    conv, norm = net._backbone._stem[0], net._backbone._stem[1]
     dev = conv.weight.device
     w = conv.weight.detach().float().permute(2, 3, 1, 0)  # (3, 3, cin, 64)
     mean = torch.as_tensor(mean, dtype=torch.float32, device=dev)

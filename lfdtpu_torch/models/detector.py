@@ -208,6 +208,15 @@ class LFD:
         return self.level_info(input_hw)["points"].shape[0]
 
     # -------------------------------------------------------------- loss
+    def _assign(self, info, gt_bboxes, gt_labels, gt_mask):
+        """Batched target assignment (lfdtpu's `_assign_single`, vmapped
+        there), the seam a detector variant overrides."""
+        return assign_ops.lfd_assign(
+            info["points"], info["strides"], info["ranges"], info["gray_ranges"],
+            gt_bboxes, gt_labels, gt_mask, self.num_classes,
+            range_assign_mode=self.range_assign_mode,
+            normalize_by_range=self.regression_loss_type == "independent")
+
     def get_loss(self, outputs, gt_bboxes, gt_labels, gt_mask, input_hw,
                  level_arrays=None):
         """Loss with on-device target assignment (`lfdtpu` get_loss,
@@ -231,11 +240,8 @@ class LFD:
                 else self.level_arrays(input_hw, cls_pred.device))
         assert info["points"].shape[0] == P, (info["points"].shape, P)
 
-        cls_t, reg_t = assign_ops.lfd_assign(
-            info["points"], info["strides"], info["ranges"], info["gray_ranges"],
-            gt_bboxes.to(info["points"].dtype), gt_labels, gt_mask.bool(), self.num_classes,
-            range_assign_mode=self.range_assign_mode,
-            normalize_by_range=self.regression_loss_type == "independent")
+        cls_t, reg_t = self._assign(info, gt_bboxes.to(info["points"].dtype), gt_labels,
+                                    gt_mask.bool())
 
         cls_pred_f = cls_pred.reshape(-1, self.cls_channels)
         reg_pred_f = reg_pred.reshape(-1, 4)
@@ -321,8 +327,9 @@ class LFD:
         valid_hw = valid_hw.float()
         point_valid = ((points[None, :, 0] < valid_hw[:, 1:2])
                        & (points[None, :, 1] < valid_hw[:, 0:1]))
+        level_sizes = self.level_sizes(input_hw) if spec.per_level_limit > 0 else None
         return decode_predictions(cls_o, reg_o, points, ranges, spec, valid_hw,
-                                  point_valid=point_valid)
+                                  point_valid=point_valid, level_sizes=level_sizes)
 
     def decode_single(self, outputs_single, input_hw, valid_hw, spec,
                       level_arrays=None):

@@ -1,4 +1,5 @@
-# LFD (v1) target assignment (`lfdtpu/ops/assign.py:26-158`), batched.
+# LFD (v1) and LFDv2 target assignment (`lfdtpu/ops/assign.py:26-233`),
+# batched.
 #
 # The reference generates targets with a per-image CPU loop over GT lists and
 # data-dependent scatter writes (`lfd/model/lfd.py:109-259`). lfdtpu
@@ -17,8 +18,8 @@
 # _PAIR_BUDGET elements, and the four (l, t, r, b) deltas stay separate
 # (P, N) planes, gathered only at the selected GT.
 #
-# lfdv2_assign, fcos_assign, fcos_v1_assign and centerness_target come with
-# the LFDv2/FCOS detectors.
+# fcos_assign, fcos_v1_assign and centerness_target come with the FCOS
+# detectors.
 
 from __future__ import annotations
 
@@ -97,17 +98,12 @@ def _lfd_assign_chunk(points, strides, regression_ranges, gray_ranges,
             | ((rr_up < measure) & (measure <= gr_up))) & hit
 
     # per-class green score: max over GTs of that class (== "largest score
-    # written last", `lfd.py:243-246`); gray overrides green (`:248-251`).
-    # A label outside [0, C) has an all-zero one-hot row in lfdtpu: it writes
-    # no class score (but may still be selected for regression, as there).
-    B, P, N = point_scores.shape
-    label_ok = ((gt_labels >= 0) & (gt_labels < num_classes))[:, None, :]
-    label_idx = gt_labels.clamp(0, num_classes - 1).long()[:, None, :].expand(B, P, N)
+    # written last", `lfd.py:243-246`); gray overrides green (`:248-251`)
+    # (a GT with an out-of-range label may still be selected for regression,
+    # as in lfdtpu)
     green_scores = point_scores * green
-    zeros = point_scores.new_zeros(B, P, num_classes)
-    cls_green = zeros.scatter_reduce(2, label_idx, green_scores * label_ok, "amax")
-    gray_any = zeros.scatter_reduce(2, label_idx, (gray & label_ok).to(zeros.dtype),
-                                    "amax") > 0
+    cls_green = _class_max(green_scores, gt_labels, num_classes)
+    gray_any = _class_max(gray.to(green_scores.dtype), gt_labels, num_classes) > 0
     cls_targets = torch.where(gray_any, torch.full_like(cls_green, -1.0), cls_green)
 
     reg_targets = _select_regression_target(green_scores, delta)
@@ -140,16 +136,91 @@ def lfd_assign(points, strides, regression_ranges, gray_ranges, gt_bboxes,
       cls_targets: (B, P, C) float soft scores; -1 marks gray-ignored entries.
       reg_targets: (B, P, 4) float (l, t, r, b) deltas of the selected GT.
     """
+    return _in_chunks(_lfd_assign_chunk, points, strides, regression_ranges, gray_ranges,
+                      gt_bboxes, gt_labels, gt_mask, num_classes, range_assign_mode,
+                      normalize_by_range)
+
+
+def _in_chunks(chunk_fn, points, strides, regression_ranges, gray_ranges, gt_bboxes,
+               gt_labels, gt_mask, *args):
+    """chunk_fn over batch chunks of at most _PAIR_BUDGET (b, P, N) pairs."""
     B, N = gt_bboxes.shape[:2]
     P = points.shape[0]
     chunk = max(1, _PAIR_BUDGET // max(P * N, 1))
     outs = [
-        _lfd_assign_chunk(points, strides, regression_ranges, gray_ranges,
-                          gt_bboxes[b:b + chunk], gt_labels[b:b + chunk],
-                          gt_mask[b:b + chunk], num_classes, range_assign_mode,
-                          normalize_by_range)
+        chunk_fn(points, strides, regression_ranges, gray_ranges, gt_bboxes[b:b + chunk],
+                 gt_labels[b:b + chunk], gt_mask[b:b + chunk], *args)
         for b in range(0, B, chunk)
     ]
     if len(outs) == 1:
         return outs[0]
     return (torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]))
+
+
+def _class_max(point_scores, gt_labels, num_classes):
+    """(B, P, C): per class, the max over GTs of that class of the (B, P, N)
+    scores (lfdtpu's one-hot product and max). A label outside [0, C) has an
+    all-zero one-hot row in lfdtpu: it writes no class score."""
+    B, P, N = point_scores.shape
+    label_ok = ((gt_labels >= 0) & (gt_labels < num_classes))[:, None, :]
+    label_idx = gt_labels.clamp(0, num_classes - 1).long()[:, None, :].expand(B, P, N)
+    return point_scores.new_zeros(B, P, num_classes).scatter_reduce(
+        2, label_idx, point_scores * label_ok, "amax")
+
+
+def _lfdv2_assign_chunk(points, strides, regression_ranges, gray_ranges,
+                        gt_bboxes, gt_labels, gt_mask, num_classes,
+                        range_assign_mode, normalize_by_range):
+    delta, cx, cy = _point_gt_geometry(points, gt_bboxes)
+    d_l, d_t, d_r, d_b = delta
+    hit = torch.minimum(torch.minimum(d_l, d_t), torch.minimum(d_r, d_b)) >= 0
+
+    # centerness on hit-filtered deltas (`lfdv2.py:325-337`)
+    fl, ft, fr, fb = (d * hit for d in delta)
+    lr_min = torch.minimum(fl, fr).clamp(min=0.0)
+    lr_max = torch.maximum(fl, fr).clamp(min=0.01)
+    tb_min = torch.minimum(ft, fb).clamp(min=0.0)
+    tb_max = torch.maximum(ft, fb).clamp(min=0.01)
+    point_scores = torch.sqrt((lr_min / lr_max) * (tb_min / tb_max))
+
+    # core zone: within stride/2 of the GT center, score 1 (`lfdv2.py:339-348`)
+    px = points[None, :, 0, None]
+    py = points[None, :, 1, None]
+    s2 = (strides / 2.0)[None, :, None]
+    cx, cy = cx[:, None, :], cy[:, None, :]
+    core = (px >= cx - s2) & (px <= cx + s2) & (py >= cy - s2) & (py <= cy + s2) & hit
+    point_scores = torch.where(core, torch.ones_like(point_scores), point_scores)
+
+    # linear gray-zone relaxation instead of hard ignores (`lfdv2.py:364-378`)
+    measure = _assign_measure(range_assign_mode, gt_bboxes, delta)
+    rr_lo = regression_ranges[None, :, 0, None]
+    rr_up = regression_ranges[None, :, 1, None]
+    gr_lo = gray_ranges[None, :, 0, None]
+    gr_up = gray_ranges[None, :, 1, None]
+    left_mult = (measure - gr_lo) / (rr_lo - gr_lo).clamp(min=0.01)
+    left_ind = (gr_lo <= measure) & (measure < rr_lo)
+    in_range = (rr_lo <= measure) & (measure <= rr_up)
+    right_mult = (gr_up - measure) / (gr_up - rr_up).clamp(min=0.01)
+    right_ind = (rr_up < measure) & (measure <= gr_up)
+    relaxation = left_mult * left_ind + in_range + right_mult * right_ind
+    point_scores = point_scores * relaxation * gt_mask[:, None, :]
+
+    cls_targets = _class_max(point_scores * (point_scores > 0), gt_labels, num_classes)
+    reg_targets = _select_regression_target(point_scores, delta)
+    if normalize_by_range:
+        reg_targets = reg_targets / regression_ranges[None, :, 1, None]
+    return cls_targets, reg_targets
+
+
+@torch.no_grad()
+def lfdv2_assign(points, strides, regression_ranges, gray_ranges, gt_bboxes,
+                 gt_labels, gt_mask, num_classes, range_assign_mode="longer",
+                 normalize_by_range=False):
+    """LFDv2 target assignment (`lfd/model/lfdv2.py:281-418`), batched; the
+    arguments and returns of lfd_assign. Unlike v1: an FCOS-style centerness
+    score, a stride-sized core zone around the GT center forced to 1.0, and a
+    linear gray-zone relaxation multiplier instead of hard -1 ignores, so no
+    target is -1."""
+    return _in_chunks(_lfdv2_assign_chunk, points, strides, regression_ranges, gray_ranges,
+                      gt_bboxes, gt_labels, gt_mask, num_classes, range_assign_mode,
+                      normalize_by_range)

@@ -1,7 +1,8 @@
 # Fused dense-prediction decode: scores -> top-k -> distance2bbox -> NMS
 # (`lfdtpu/ops/decode.py`), batched over images with static shapes:
 #
-#   stage 1: per-point max-class score -> top `pre_nms_points` points
+#   stage 1: per-point max-class score -> top `pre_nms_points` points (or,
+#            with `per_level_limit`, LFDv2's top points of each level)
 #   stage 2: the kept points' (point, class) pairs above the threshold ->
 #            top `nms_budget` candidates
 #   stage 3: decode the candidates' boxes, class-offset NMS (K1), emit a
@@ -34,6 +35,11 @@ class DecodeSpec:
     nms_budget: int = 1000  # stage-2 candidate budget fed to NMS
     max_det: int = 100
     class_agnostic: bool = False
+    # LFDv2's `pre_nms_bbox_limit` applies PER LEVEL before the levels are
+    # concatenated (`lfdv2.py:618-624`), and only to a level with more points
+    # than the limit. > 0 switches stage 1 to that; decode_predictions then
+    # needs the static `level_sizes`.
+    per_level_limit: int = 0
     # K1 switch (the JAX knob is `nms_use_pallas`): True routes the keep mask
     # through the kernel wrapper, which launches the CUDA kernel for CUDA
     # tensors and runs the plain version for CPU tensors; False forces plain.
@@ -66,13 +72,15 @@ def _decode_distances(reg, ranges, mode):
 
 
 def decode_predictions(cls_logits, reg, points, ranges, spec: DecodeSpec,
-                       image_hw, point_valid=None):
+                       image_hw, point_valid=None, level_sizes=None):
     """Decode a batch of dense predictions into final detections.
 
     cls_logits (B, P, C) logits, or (B, P, C+1) when spec.use_softmax;
     reg (B, P, 4); points, ranges (P, 2); image_hw (B, 2) float [h, w], the
     valid extent of each image inside its padded input (boxes clamp to it);
-    point_valid optional (B, P) bool masking points inside the padding.
+    point_valid optional (B, P) bool masking points inside the padding;
+    level_sizes: the per-level point counts (Python ints summing to P),
+    needed when spec.per_level_limit > 0.
 
     Returns dict: boxes (B, max_det, 4) xyxy, scores (B, max_det),
     labels (B, max_det) int32, count (B,) int32; rows >= count are zero.
@@ -92,8 +100,24 @@ def decode_predictions(cls_logits, reg, points, ranges, spec: DecodeSpec,
         point_max = torch.sigmoid(cls_logits.max(dim=-1).values)
     if point_valid is not None:
         point_max = torch.where(point_valid, point_max, torch.zeros_like(point_max))
-    kp = min(spec.pre_nms_points, P)
-    _, top_idx = _top_k(point_max, kp)  # (B, Kp)
+    if spec.per_level_limit > 0:
+        # LFDv2 (`lfdtpu/ops/decode.py:142-160`): per level, its top `lim`
+        # points when it has more than `lim`, else all of them; then concat
+        assert level_sizes is not None and sum(level_sizes) == P, (
+            "per_level_limit needs static level_sizes summing to P")
+        lim, off, parts = spec.per_level_limit, 0, []
+        for n in level_sizes:
+            if n > lim:
+                parts.append(_top_k(point_max[:, off:off + n], lim)[1] + off)
+            else:
+                parts.append(torch.arange(off, off + n, device=point_max.device)
+                             .expand(B, n))
+            off += n
+        top_idx = torch.cat(parts, dim=1)
+        kp = top_idx.shape[1]
+    else:
+        kp = min(spec.pre_nms_points, P)
+        _, top_idx = _top_k(point_max, kp)  # (B, Kp)
 
     sel_logits = _gather_rows(cls_logits, top_idx)
     if spec.use_softmax:

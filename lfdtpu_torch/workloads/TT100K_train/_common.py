@@ -1,0 +1,151 @@
+# Shared config-as-code for the port's TT100K training scripts, mirroring
+# `workloads/TT100K_train/_common.py` (reference `TT100K_train/
+# TT100K_LFD_{S,L}.py`): CrossEntropy(+bg) + IoULoss, 'longer' range mode, 4
+# detection ranges, crop 512, no horizontal flip (signs are not symmetric),
+# 500 epochs with milestones [200, 300, 400].
+#
+# Environment overrides, for runs without editing the script: LFD_EPOCHS,
+# LFD_BATCH_SIZE, LFD_NUM_WORKERS, LFD_DATASET_PATH, LFD_CROP_SIZE,
+# LFD_DEVICE_AUG (1: the augmentation runs on the device, data/device_aug.py)
+# and LFD_DEVICE (the torch device, default cuda; without a CUDA device the
+# run raises).
+
+import os
+import shutil
+import sys
+import time
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..", ".."))
+
+from lfdtpu_torch import zoo  # noqa: E402
+from lfdtpu_torch.data import (  # noqa: E402
+    DataLoader,
+    Dataset,
+    RandomBBoxCropRegionSampler,
+    RandomWithNegDatasetSampler,
+)
+from lfdtpu_torch.execution import (  # noqa: E402
+    SGD,
+    MultiStepLRSchedule,
+    WarmupSetting,
+    customize_exception_hook,
+    set_random_seed,
+)
+from lfdtpu_torch.workloads.TT100K_train.TT100K_augmentation_pipeline import (  # noqa: E402
+    tt100k_train_pipeline,
+)
+
+
+def _env_int(name, default):
+    return int(os.environ.get(name, default))
+
+
+def prepare_common_settings(config_dict, script_path):
+    config_dict["timestamp"] = time.strftime("%Y%m%d_%H%M%S", time.localtime())
+    base = os.path.basename(script_path).split(".")[0]
+    config_dict["work_dir"] = "./" + base + "_work_dir_" + config_dict["timestamp"]
+    os.makedirs(config_dict["work_dir"], exist_ok=True)
+    shutil.copyfile(script_path, os.path.join(config_dict["work_dir"], os.path.basename(script_path)))
+    config_dict["log_path"] = os.path.join(
+        config_dict["work_dir"], "log_" + config_dict["timestamp"] + ".log"
+    )
+    sys.excepthook = customize_exception_hook(
+        os.path.join(config_dict["work_dir"], "exception_log_" + config_dict["timestamp"] + ".log")
+    )
+    config_dict["device"] = os.environ.get("LFD_DEVICE", "cuda")
+    config_dict["training_epochs"] = _env_int("LFD_EPOCHS", 500)
+    config_dict["seed"] = 666
+    if config_dict["seed"] is not None:
+        set_random_seed(config_dict["seed"])
+    config_dict["display_interval"] = 100
+    config_dict["save_interval"] = 50
+    config_dict["val_interval"] = 0
+
+
+def prepare_model(config_dict, size):
+    config_dict["num_input_channels"] = 3
+    config_dict["num_classes"] = 45
+    config_dict["range_mode"] = "longer"
+    config_dict["detection_ranges"] = zoo.TT100K_RANGES
+    config_dict["model"] = zoo.tt100k_lfd(size)
+    config_dict["weight_path"] = None
+    config_dict["resume_path"] = None
+    config_dict["evaluator"] = None
+
+
+def prepare_data_pipeline(config_dict):
+    config_dict["batch_size"] = _env_int("LFD_BATCH_SIZE", 64)
+    config_dict["num_train_workers"] = _env_int("LFD_NUM_WORKERS", 12)
+    config_dict["num_val_workers"] = 0
+    config_dict["train_dataset_path"] = os.environ.get(
+        "LFD_DATASET_PATH", "./TT100K_pack/tt100k_train.pkl"
+    )
+    crop = _env_int("LFD_CROP_SIZE", 512)
+    config_dict["input_hw"] = (crop, crop)
+
+    train_dataset = Dataset(load_path=config_dict["train_dataset_path"])
+    train_dataset_sampler = RandomWithNegDatasetSampler(
+        train_dataset, batch_size=config_dict["batch_size"], neg_ratio=0.1,
+        shuffle=True, ignore_last=False,
+    )
+    train_region_sampler = RandomBBoxCropRegionSampler(
+        crop_size=crop, resize_range=(0.5, 1.5), resize_prob=0.5
+    )
+    # LFD_DEVICE_AUG=1: resample and normalize move into the train step
+    # (data/device_aug.py); flip_p=0.0, as TT100K has no horizontal flip, so
+    # only the crop resample and the simple normalize run on the device.
+    if _env_int("LFD_DEVICE_AUG", 0):
+        import numpy as np
+
+        from lfdtpu_torch.data import DeviceAugRegionSampler, make_device_augment
+        from lfdtpu_torch.deploy import make_device_preprocess
+
+        config_dict["device_augment"] = make_device_augment(
+            crop,
+            normalize=make_device_preprocess((0.5,) * 3, (0.5,) * 3),
+        )
+        config_dict["train_data_loader"] = DataLoader(
+            dataset=train_dataset,
+            dataset_sampler=train_dataset_sampler,
+            region_sampler=DeviceAugRegionSampler(train_region_sampler, flip_p=0.0),
+            augmentation_pipeline=None,
+            num_workers=config_dict["num_train_workers"],
+            max_boxes_per_image=100,
+            image_dtype=np.uint8,
+        )
+        return
+    config_dict["train_data_loader"] = DataLoader(
+        dataset=train_dataset,
+        dataset_sampler=train_dataset_sampler,
+        region_sampler=train_region_sampler,
+        augmentation_pipeline=tt100k_train_pipeline,
+        num_workers=config_dict["num_train_workers"],
+        max_boxes_per_image=100,
+    )
+
+
+def prepare_optimizer(config_dict):
+    config_dict["learning_rate"] = 0.1
+    config_dict["momentum"] = 0.9
+    config_dict["weight_decay"] = 0.0001
+    config_dict["optimizer"] = SGD(
+        momentum=config_dict["momentum"], weight_decay=config_dict["weight_decay"]
+    )
+    config_dict["optimizer_grad_clip_cfg"] = dict(max_norm=10, norm_type=2, duration=5)
+    config_dict["milestones"] = [200, 300, 400]
+    config_dict["gamma"] = 0.1
+    config_dict["warmup_setting"] = dict(
+        by_epoch=False, warmup_mode="linear", warmup_loops=200, warmup_ratio=0.1
+    )
+    config_dict["lr_schedule"] = MultiStepLRSchedule(
+        base_lr=config_dict["learning_rate"],
+        milestones=tuple(config_dict["milestones"]),
+        gamma=config_dict["gamma"],
+        warmup=WarmupSetting(**config_dict["warmup_setting"]),
+    )
+
+
+def run(config_dict):
+    from lfdtpu_torch.execution import Executor
+
+    Executor(config_dict).run()

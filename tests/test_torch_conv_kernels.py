@@ -113,6 +113,41 @@ def test_prepack_stem_folds_bgr_and_bn_like_lfdtpu():
     assert max_rel(got[0].float().numpy(), ref) < 0.03
 
 
+def test_tl_stem_folds_bgr2rgb_imagenet_like_lfdtpu():
+    """TL-L's engine stem: BGR -> RGB and the imagenet mean/std (not the same
+    in each channel, so a constant swapped with the flip shows) folded into
+    K2's constants, against lfdtpu's prepack_stem and the Pallas stem in
+    interpret mode."""
+    jdet, variables, tdet = jax_and_port("TL-L")
+    mean, std = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+    frame = np.random.RandomState(8).randint(0, 255, (1, 32, 48, 3)).astype(np.uint8)
+    jpre = jax_prepack_stem(jax_cast(variables, jnp.bfloat16),
+                            np.float32(mean) * 255, np.float32(std) * 255, bgr2rgb=True)
+    with pltpu.force_tpu_interpret_mode():
+        ref = jax_stem_conv(jnp.asarray(frame[0]), *jpre, relu=True)
+    engine = compile_inference(tdet, (32, 48), "bf16",
+                               preprocess=make_device_preprocess(mean, std, bgr2rgb=True),
+                               kernel_stem=True, device="cpu")
+    pack = engine.net._backbone.fused_stem.pack
+    got = conv_kernels.stem_conv(torch.from_numpy(frame), *pack)
+    assert max_rel(got[0].float().numpy(), ref) < 0.03
+    # without the fold, the same frame gives another stem output
+    plain = make_device_preprocess(mean, std)
+    unswapped = compile_inference(tdet, (32, 48), "bf16", preprocess=plain, kernel_stem=True,
+                                  device="cpu").net._backbone.fused_stem.pack
+    assert max_rel(conv_kernels.stem_conv(torch.from_numpy(frame), *unswapped)[0]
+                   .float().numpy(), ref) > 0.03
+
+
+@pytest.mark.parametrize("name,blocks", [("TT100K-L", 6), ("TL-L", 6), ("TL-S", 1),
+                                         ("TT100K-S", 4)])
+def test_traffic_block_routing(name, blocks):
+    # the 64-channel stride-1 FasterBlocks of each zoo plan, two K3 launches each
+    _, _, tdet = jax_and_port(name)
+    net = compile_inference(tdet, (64, 64), "bf16", kernel_convs=True, device="cpu").net
+    assert len([m for m in net.modules() if getattr(m, "fused", None)]) == blocks
+
+
 def test_block_routing_matches_lfdtpu_eligibility():
     _, _, tdet = jax_and_port("WIDERFACE-L")
     net = compile_inference(tdet, (64, 64), "bf16", kernel_convs=True, device="cpu").net
@@ -146,6 +181,10 @@ def test_fused_block_matches_module_block():
 def test_kernel_stem_rejects_ineligible_nets():
     _, _, tdet = jax_and_port("WIDERFACE-XS")  # 32-channel stem0
     pre = make_device_preprocess((0.5,) * 3, (0.5,) * 3)
+    with pytest.raises(ValueError, match="stem0"):
+        compile_inference(tdet, (64, 64), "bf16", preprocess=pre, kernel_stem=True,
+                          device="cpu")
+    _, _, tdet = jax_and_port("TL-S")  # 48-channel stem0: TL-S engines keep the plain stem
     with pytest.raises(ValueError, match="stem0"):
         compile_inference(tdet, (64, 64), "bf16", preprocess=pre, kernel_stem=True,
                           device="cpu")

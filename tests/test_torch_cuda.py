@@ -325,12 +325,13 @@ ENGINE_VARIANTS = {
 }
 
 
-def _detector(size, seed=0):
-    """A WIDERFACE detector with seeded weights and randomized norm
-    statistics, affines and head Scales (so BN folding is exercised)."""
+def _detector(size, seed=0, **kw):
+    """A WIDERFACE detector (or the zoo's `name`) with seeded weights and
+    randomized norm statistics, affines and head Scales (so BN folding is
+    exercised)."""
     from chip_smoke import build_detector
 
-    return build_detector("cpu", seed=seed, size=size)
+    return build_detector("cpu", seed=seed, size=size, **kw)
 
 
 def _engine(det, variant, hw=ENGINE_HW, batch_size=2, **kw):
@@ -473,3 +474,82 @@ def test_timing_inference_on_the_card(cuda):
     r = timing_inference(engine, _frames(12, 1), ENGINE_HW, warmup_loops=3, timing_loops=10)
     assert r["method"] == "cuda_events_per_call" and r["loops"] == 10
     assert 0 < r["ms_min"] <= r["ms_per_image"] <= r["ms_p95"]
+
+
+# ------------------------------------------------------- traffic and LFDv2
+# The TT100K, TrafficLight and LFDv2 paths on the card: K3 at TT100K's
+# 2048x2048 levels, K2 with TL's BGR -> RGB and imagenet constants folded in,
+# K1 behind 45 class offsets, and their captured engines against eager ones.
+
+@pytest.mark.parametrize("n,hw", [(1, (512, 512)), (4, (512, 512)), (4, (256, 256)),
+                                  (4, (128, 128))])
+@pytest.mark.parametrize("residual", [True, False])
+def test_pair_conv_kernel_matches_plain_at_tt100k_shapes(cuda, n, hw, residual):
+    x, w, s, b = _k3_inputs(cuda, n, hw, hw[0] + n)
+    res = x.roll(1, 0).contiguous() if residual else None
+    got = conv_kernels.pair_conv3x3(x, w, s, b, residual=res, relu=True)
+    ref = conv_kernels.pair_conv3x3_plain(x, w, s, b, residual=res, relu=True)
+    torch.cuda.synchronize()
+    assert max_rel(got, ref) < 0.02
+
+
+@pytest.mark.parametrize("n,hw", [(1, (768, 1280)), (4, (768, 1280)), (1, (2048, 2048))])
+def test_stem_kernel_with_tl_folded_constants_matches_plain(cuda, n, hw):
+    from lfdtpu_torch.deploy import compile_inference, make_device_preprocess
+
+    det = _detector(None, name="TL-L")
+    pre = make_device_preprocess((0.485, 0.456, 0.406), (0.229, 0.224, 0.225), bgr2rgb=True)
+    engine = compile_inference(det, (64, 64), "bf16", preprocess=pre, kernel_stem=True,
+                               captured=False)
+    pack = engine.net._backbone.fused_stem.pack
+    frame = _k2_inputs(cuda, n, hw, n)[0]
+    got = conv_kernels.stem_conv(frame, *pack)
+    ref = conv_kernels.stem_conv_plain(frame, *pack)
+    torch.cuda.synchronize()
+    assert max_rel(got, ref) < 0.03
+
+
+def test_batched_nms_kernel_at_45_classes_matches_plain(cuda):
+    from lfdtpu_torch.ops.nms import batched_nms
+
+    rng = np.random.RandomState(45)
+    xy = rng.rand(4, 1000, 2) * 1900
+    boxes = np.concatenate([xy, xy + rng.rand(4, 1000, 2) * 150 + 1], -1)
+    boxes[:, 500:] = boxes[:, :500] + rng.randn(4, 500, 4) * 4
+    labels = rng.randint(0, 45, (4, 1000))
+    labels[:, 500:] = labels[:, :500]
+    args = [torch.as_tensor(a, device=cuda) for a in (
+        np.clip(boxes, 0, 2048).astype(np.float32), rng.rand(4, 1000).astype(np.float32),
+        labels.astype(np.int32))]
+    valid = torch.as_tensor(rng.rand(4, 1000) > 0.1, device=cuda)
+    got = batched_nms(*args, 0.5, valid=valid, use_kernel=True)
+    ref = batched_nms(*args, 0.5, valid=valid, use_kernel=False)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref) and 0 < int(got.sum()) < int(valid.sum())
+
+
+@pytest.mark.parametrize("name", ["TT100K-L", "TL-L", "TL-S", "LFDv2"])
+def test_traffic_and_lfdv2_captured_engines_equal_eager(cuda, name):
+    from chip_smoke import (IMAGENET, VARIANTS, expected_launches, kernel_variant,
+                            lfdv2_detector)
+    from lfdtpu_torch.deploy import compile_inference, make_device_preprocess
+    from lfdtpu_torch.models import LFDv2
+
+    if name == "LFDv2":
+        det, pre, kw = lfdv2_detector(LFDv2, "cpu"), make_device_preprocess((0.5,) * 3,
+                                                                            (0.5,) * 3), {}
+    else:
+        det = _detector(None, name=name, cls_std=0.2)
+        pre = (make_device_preprocess((0.5,) * 3, (0.5,) * 3) if name.startswith("TT")
+               else make_device_preprocess(*IMAGENET, bgr2rgb=True))
+        kw = {} if name.startswith("TT") else dict(class_agnostic=True)
+    variant = kernel_variant(det)
+    engines = [compile_inference(det, ENGINE_HW, preprocess=pre, batch_size=2, captured=c,
+                                 **VARIANTS[variant], **kw) for c in (None, False)]
+    assert engines[0].captured and not engines[1].captured
+    assert engines[0].captured_launches == expected_launches(det, VARIANTS[variant])
+    vhw = np.asarray([[256, 320], [200, 311]], np.float32)
+    for seed in (1, 2):
+        f = _frames(seed)
+        got, ref = engines[0](f, vhw), engines[1](f, vhw)
+        assert int(got["count"].sum()) > 0 and _same(got, ref), (name, seed)

@@ -87,3 +87,26 @@ def test_decode_pads_when_budget_is_below_max_det():
     for b, r in enumerate(ref):
         assert int(got["count"][b]) == int(r["count"])
         np.testing.assert_array_equal(got["scores"][b].numpy(), np.asarray(r["scores"]))
+
+
+@pytest.mark.parametrize("near", [0.0, 1e-3])
+def test_softmax_45_classes_with_tied_and_near_tied_rows(near):
+    # TT100K's head: 45 classes + background. Whole rows repeated (exact ties
+    # in each package, broken by ascending index in both) or repeated with a
+    # small shift of the winning logit (near ties). The softmax sums 46 exps
+    # in another order than XLA: scores within rtol 1e-6, the order and the
+    # labels the same.
+    info, cls, reg, valid_hw = _setup(11, (96, 128), 45, True, False)
+    cls[:, 1::3] = cls[:, 0::3][:, :cls[:, 1::3].shape[1]]
+    cls[:, 1::3, 7] += near
+    jspec = dict(num_classes=45, use_softmax=True, reg_mode="sigmoid", score_thr=0.02,
+                 nms_iou=0.5, pre_nms_points=200, nms_budget=300, max_det=100)
+    ref, got = _both(info, cls, reg, valid_hw, **jspec)
+    for b, r in enumerate(ref):
+        n = int(r["count"])
+        assert int(got["count"][b]) == n and n > 0
+        np.testing.assert_array_equal(got["labels"][b].numpy(), np.asarray(r["labels"]))
+        np.testing.assert_allclose(got["scores"][b].numpy(), np.asarray(r["scores"]),
+                                   rtol=1e-6)
+        np.testing.assert_allclose(got["boxes"][b].numpy(), np.asarray(r["boxes"]),
+                                   rtol=0, atol=1e-4)

@@ -1,6 +1,6 @@
-# The port stands alone: importing lfdtpu_torch (every module, the WIDERFACE
-# workload's _common and its predict, evaluation, timing and pack scripts
-# included) pulls in neither jax, flax, lfdtpu nor cv2,
+# The port stands alone: importing lfdtpu_torch (every module, and every
+# script of the WIDERFACE, TT100K and TrafficLight workloads included) pulls
+# in neither jax, flax, lfdtpu nor cv2,
 # and the kernel modules import and run their plain versions on a machine
 # with no nvcc and no GPU, building nothing. cv2 is imported only inside the
 # functions that need it (JPEG coding, image paths, the pack checker).
@@ -32,12 +32,18 @@ from lfdtpu_torch.ops import (assign, boxes, conv_kernels, decode, kernel_lib, l
                               losses, nms, nms_kernel, points)
 from lfdtpu_torch.parallel import data_parallel, prefetch
 from lfdtpu_torch import device
+from lfdtpu_torch.models import lfdv2
 from lfdtpu_torch.tools import kernel_trace
-for script in ("_common", "predict", "predict_engine", "evaluation",
-               "timing_inference_latency", "pack_widerface", "generate_neg_images"):
-    spec = importlib.util.spec_from_file_location(
-        "widerface_" + script, "lfdtpu_torch/workloads/WIDERFACE_train/" + script + ".py")
-    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+common = ("_common", "predict", "predict_engine", "evaluation", "timing_inference_latency")
+for task, scripts in (
+        ("WIDERFACE_train", common + ("pack_widerface", "generate_neg_images")),
+        ("TT100K_train", common + ("pack_tt100k", "generate_neg_images",
+                                   "TT100K_augmentation_pipeline")),
+        ("TrafficLight_train", common + ("pack_TL", "EDA", "TL_augmentation_pipeline"))):
+    for script in scripts:
+        spec = importlib.util.spec_from_file_location(
+            task + "_" + script, "lfdtpu_torch/workloads/" + task + "/" + script + ".py")
+        spec.loader.exec_module(importlib.util.module_from_spec(spec))
 
 det = zoo.widerface_lfd("L")
 det.init(torch.Generator().manual_seed(0))

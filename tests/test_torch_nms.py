@@ -121,6 +121,32 @@ def test_batched_nms_class_offset_matches():
         np.testing.assert_array_equal(got[b], ref)
 
 
+def test_batched_nms_45_classes_at_2048_matches():
+    # TT100K: 45 classes on 2048x2048 frames shift boxes by up to
+    # 44 x 2049 px, where float32's ulp is about 0.008 px, so the shifted IoU
+    # is not the per-class IoU bit for bit; that is lfdtpu's semantics too,
+    # and the masks must still be EXACT
+    rng = np.random.RandomState(45)
+    K = 1000
+    boxes = random_boxes(rng, 2, K, span=1900.0, size=150.0)
+    boxes[:, 500:] = boxes[:, :500] + rng.randn(2, 500, 4).astype(np.float32) * 4
+    boxes = np.clip(boxes, 0, 2048).astype(np.float32)
+    scores = rng.rand(2, K).astype(np.float32)
+    labels = rng.randint(0, 45, (2, K)).astype(np.int32)
+    labels[:, 500:] = labels[:, :500]
+    labels[:, 500:750] = rng.randint(0, 45, (2, 250))  # near twins of other classes
+    valid = rng.rand(2, K) > 0.1
+    got = batched_nms(torch.from_numpy(boxes), torch.from_numpy(scores),
+                      torch.from_numpy(labels), 0.5,
+                      valid=torch.from_numpy(valid)).numpy()
+    for b in range(2):
+        ref = np.asarray(JN.batched_nms_jax(
+            jnp.asarray(boxes[b]), jnp.asarray(scores[b]), jnp.asarray(labels[b]),
+            0.5, valid=jnp.asarray(valid[b]), use_pallas=False))
+        np.testing.assert_array_equal(got[b], ref)
+        assert 0 < got[b].sum() < valid[b].sum()  # some twins were suppressed
+
+
 def test_cpu_wrapper_runs_plain_version():
     rng = np.random.RandomState(4)
     boxes = torch.from_numpy(random_boxes(rng, 1, 50))
