@@ -7,7 +7,7 @@ head Scales, so the BN folding is exercised), captured into a CUDA graph as
 a user gets it on the card, the WIDERFACE-L training step, the training
 entry point with its val loop, and the evaluation script; then the TT100K
 and TrafficLight workloads (serving, training entry points, evaluation) and
-the LFDv2 family. It checks them:
+the LFDv2 family, and FCOS-R50-FPN. It checks them:
 
   1. card     the GPU's name and power limit (nvidia-smi);
   2. build    the hand-written kernels from lfdtpu_torch/csrc/*.cu (nvcc);
@@ -164,11 +164,39 @@ the LFDv2 family. It checks them:
               K1-K3 built, two frames served, replays counted), the
               candidates K1's wrapper receives (at most nms_budget), the
               captured engine against an eager twin; two fp32 train steps of
-              LFDv2 and of LFDv2Q on the GPU against the CPU (TRAIN_TOL).
+              LFDv2 and of LFDv2Q on the GPU against the CPU (TRAIN_TOL);
+ 12. FCOS     FCOS-R50-FPN (fcos_r50_fpn: mmdetection's
+              fcos_r50_caffe_fpn_gn-head_1x_coco.py at full width, seeded
+              random weights, the classifier scaled so that more than 1000
+              (point, class) pairs pass the 0.05 threshold). Its main path,
+              counters zeroed: 3 800x1333 frames (padded to 896x1408) through
+              predict_for_single_image with the fp32 net and with the net cast
+              to bf16, and get_results on a batch of 2; K1 launched once per
+              call on (B, 1000, 4) class-offset boxes (80 classes, read from
+              its wrapper's input), and held to its plain version on them.
+              FCOS has no engine (lfdtpu's compile_inference takes two
+              outputs), so nothing is replayed. Then decode + NMS with K1
+              against the plain NMS on the same dense outputs (rows
+              identical, fp32 and bf16); the fp32 net on the GPU against the
+              CPU at 256x384 (DENSE_FP32_TOL); two fp32 train steps of FCOS
+              and FCOSv1 at 256x256 on the GPU against the CPU (TRAIN_TOL),
+              and in FCOS's GPU net the frozen stem and stage 1 moved by
+              weight decay alone (F7); steps at
+              896x1408, Nmax 100, batch 2 and 8, fp32 and bf16 (finite, BN
+              statistics untouched: norm_eval; ms/step, images/s, peak
+              memory) and fcos_assign / fcos_v1_assign alone; ms per
+              predicted frame (host), the net's and the decode's ms on the
+              stream (CUDA events: for a host-bound loop the host's pace),
+              a profile of 3 predicted frames per precision (device work
+              per frame, busy share, the busiest kernels), and K1 at the
+              FCOS shape (warm, cold, bound, plain).
 
 The second-to-last line is a JSON object {"kernels": [...]} (each kernel's
 launches on the WIDERFACE-L main path, and on every path in
-launches_by_path; K2's and K3's times at the new shapes in other_shapes);
+launches_by_path: an engine path's launches at build and capture and by its
+replays, the FCOS path's eager launches and replayed null (it has no
+engine); K2's and K3's times at the new shapes and K1's at the FCOS shape in
+other_shapes);
 the last line is {"ok": true, "device": {...}}. Any failed check exits non-zero. Needs a
 CUDA device: without one it exits 1 and prints no result.
 
@@ -258,6 +286,15 @@ TL_PACK_IMAGES = 20         # 16 with lights: 4 iterations at batch 4
 EVAL_IMAGES = 4             # TT100K images scored by evaluation.py
 TRAIN_SERVE_HW = (768, 1280)  # the trained traffic nets' engines
 TT_TRAIN_HW, TT_TRAIN_NMAX = (512, 512), 100  # the TT100K workload's crop and GT rows
+# FCOS-R50-FPN (phase 12): mmdetection's fcos_r50_caffe_fpn_gn-head_1x_coco.py
+FCOS_FRAME = (800, 1333)    # its test scale; predict pads it to 896x1408 (128)
+FCOS_HW = (896, 1408)
+FCOS_SMALL_HW = (256, 384)  # fp32 GPU vs CPU
+FCOS_TRAIN_SMALL_HW = (256, 256)  # fp32 train steps GPU vs CPU, batch 2
+FCOS_FRAMES = 3             # frames predicted per precision on the main path
+FCOS_TRAIN_BATCHES = (2, 8)  # the published per-GPU batch, and 8
+FCOS_STEPS, FCOS_WARMUP = 6, 2
+FCOS_NMAX = 100
 
 
 class SmokeFailure(RuntimeError):
@@ -373,10 +410,8 @@ def build_detector(device, seed=0, size="L", name=None, cls_std=None):
     output conv drawn at that std (a 45-class softmax of the init's N(0,
     0.01) head is near uniform on any frame: every score a near tie)."""
     import torch
-    from torch import nn
 
     from lfdtpu_torch import zoo
-    from lfdtpu_torch.models.layers import Scale
 
     det = zoo.ZOO[name]() if name else zoo.widerface_lfd(size)
     g = torch.Generator().manual_seed(seed)
@@ -385,7 +420,22 @@ def build_detector(device, seed=0, size="L", name=None, cls_std=None):
         if cls_std is not None:
             det.net._head.head0_classification_path[-1].weight.normal_(0.0, cls_std,
                                                                        generator=g)
-        for m in det.net.modules():
+    randomize_norms_(det.net, g)
+    det.net.to(device).eval()
+    return det
+
+
+def randomize_norms_(net, g):
+    """Norm affines, BatchNorm statistics and Scales drawn from `g` (an init
+    has identity norms and unit Scales, which would leave the BN folding and
+    the Scales unexercised)."""
+    import torch
+    from torch import nn
+
+    from lfdtpu_torch.models.layers import Scale
+
+    with torch.no_grad():
+        for m in net.modules():
             if isinstance(m, (nn.BatchNorm2d, nn.GroupNorm)):
                 m.weight.uniform_(0.5, 1.5, generator=g)
                 m.bias.normal_(0.0, 0.1, generator=g)
@@ -394,8 +444,6 @@ def build_detector(device, seed=0, size="L", name=None, cls_std=None):
                 m.running_var.uniform_(0.5, 1.5, generator=g)
             if isinstance(m, Scale):
                 m._scale.uniform_(0.5, 1.5, generator=g)
-    det.net.to(device).eval()
-    return det
 
 
 def frames(rng, n, hw):
@@ -840,19 +888,22 @@ def make_trainer(device, hw, weights, mixed_precision=False, factory=None):
     return det, step
 
 
-def check_train_gpu_vs_cpu(device, factory=None, label="WIDERFACE-L"):
+def check_train_gpu_vs_cpu(device, factory=None, label="WIDERFACE-L", num_classes=1,
+                           hw=TRAIN_SMALL_HW):
     """Two fp32 steps at 128x128, batch 2, on the GPU and on the CPU from
     the same weights and batch. The weights have randomized norm affines and Scales (build_detector): a
     parameter that starts at zero would be held to the relative error of
     its update alone. factory: a detector with such weights (WIDERFACE-L's
-    by default)."""
+    by default); num_classes: the classes the GT labels are drawn over; hw:
+    the input size. Returns the GPU's net, the two steps' learning rates and
+    the starting weights (a CPU state_dict)."""
     weights = (factory() if factory else build_detector("cpu", seed=7)).net.state_dict()
-    batch = train_batch(np.random.RandomState(7), 2, TRAIN_SMALL_HW, TRAIN_NMAX)
-    sched = train_schedule()
+    batch = train_batch(np.random.RandomState(7), 2, hw, TRAIN_NMAX, num_classes=num_classes)
+    lrs = [train_schedule()(0, it) for it in range(2)]
     runs = {}
     for dev in (device, "cpu"):
-        det, step = make_trainer(dev, TRAIN_SMALL_HW, weights, factory=factory)
-        metrics = [step(*batch, sched(0, it), True) for it in range(2)]
+        det, step = make_trainer(dev, hw, weights, factory=factory)
+        metrics = [step(*batch, lr, True) for lr in lrs]
         runs[dev] = (det.net, metrics)
     (gnet, gm), (cnet, cm) = runs[device], runs["cpu"]
     worst = {}
@@ -861,15 +912,17 @@ def check_train_gpu_vs_cpu(device, factory=None, label="WIDERFACE-L"):
             worst[f"step{i + 1} {k}"] = rel_err(g[k].cpu(), c[k])
     csd = cnet.state_dict()
     for kind in ("param", "running"):
-        errs = [rel_err(v.cpu(), csd[k]) for k, v in gnet.state_dict().items()
-                if v.is_floating_point() and ("running" in k) == (kind == "running")]
-        worst[f"{kind} (worst of {len(errs)})"] = max(errs)
-    print(f"train fp32 GPU vs CPU, {label} {TRAIN_SMALL_HW[0]}x{TRAIN_SMALL_HW[1]} "
+        errs = {k: rel_err(v.cpu(), csd[k]) for k, v in gnet.state_dict().items()
+                if v.is_floating_point() and ("running" in k) == (kind == "running")}
+        name = max(errs, key=errs.get)
+        worst[f"{kind} (worst of {len(errs)}: {name})"] = errs[name]
+    print(f"train fp32 GPU vs CPU, {label} {hw[0]}x{hw[1]} "
           "batch 2, 2 steps, "
           "max|err|/max|ref|: " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
           + f" (tol {TRAIN_TOL}, TF32 off)")
     check(gm[0]["num_pos"].item() > 0, "the small training batch has no positives")
     check(max(worst.values()) < TRAIN_TOL, f"{label}: GPU train steps disagree with the CPU")
+    return gnet, lrs, weights
 
 
 def train_full_width(device, card, model="WIDERFACE-L", hw=TRAIN_HW, nmax=TRAIN_NMAX):
@@ -1609,6 +1662,17 @@ def time_k1(boxes, valid, g, card):
                    note=" (inputs of 17 KB: warm = cold)")
 
 
+def device_ms_by_name(prof):
+    """({kernel name: device ms}, {kernel name: launches}, the window) of a
+    profile's device events (device_events)."""
+    by_name, calls = {}, {}
+    events, _, window = device_events(prof)
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        calls[e.name] = calls.get(e.name, 0) + 1
+    return by_name, calls, window
+
+
 def profile_engine(engine, x, vhw, card, label, counters, want, frames_=PROFILED_FRAMES):
     """One frame of a kernel engine launches each kernel as `want` (from
     expected_launches) says: counted by the wrappers for the eager engine, and
@@ -1632,11 +1696,7 @@ def profile_engine(engine, x, vhw, card, label, counters, want, frames_=PROFILED
           f"one {label} frame should launch {want}")
     prof, _ = profiled(lambda: engine(x, vhw),
                        lambda: [engine(x, vhw) for _ in range(frames_)])
-    by_name, calls = {}, {}
-    events, _, window = device_events(prof)
-    for e in events:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-        calls[e.name] = calls.get(e.name, 0) + 1
+    by_name, calls, window = device_ms_by_name(prof)
     per_frame = {}
     for kernel, keys in KERNEL_NAMES.items():
         names = [n for n in by_name if any(k in n for k in keys)]
@@ -2090,20 +2150,22 @@ def train_traffic(device, card, counters, tmp):
 # ------------------------------------------------------------------- LFDv2
 
 def k1_inputs(fn):
-    """(fn(), the shape of the boxes each call of K1's wrapper got while fn
-    ran): what reaches K1, read where ops/nms.py calls the wrapper (a
-    capture calls it on the host, so this reads a captured engine too)."""
+    """(fn(), [(boxes, valid, iou_thr) of each call of K1's wrapper while fn
+    ran]): what reaches K1, read where ops/nms.py calls the wrapper (a
+    capture calls it on the host, so this reads a captured engine too; there
+    the tensors are the graph's buffers, and only their shapes mean
+    anything)."""
     from lfdtpu_torch.ops import nms
 
-    shapes, wrapper = [], nms.nms_mask_sorted
+    calls, wrapper = [], nms.nms_mask_sorted
 
     def recorded(boxes_sorted, valid_sorted, iou_thr):
-        shapes.append(tuple(boxes_sorted.shape))
+        calls.append((boxes_sorted, valid_sorted, iou_thr))
         return wrapper(boxes_sorted, valid_sorted, iou_thr)
 
     nms.nms_mask_sorted = recorded
     try:
-        return fn(), shapes
+        return fn(), calls
     finally:
         nms.nms_mask_sorted = wrapper
 
@@ -2145,7 +2207,8 @@ def serve_and_train_lfdv2(device, card, counters, rng):
     sizes = det.level_sizes(HW)
     for c in counters:
         c.launches = 0
-    engine, k1_shapes = k1_inputs(lambda: compile_engine(det, HW, device, "bf16_kernels"))
+    engine, calls = k1_inputs(lambda: compile_engine(det, HW, device, "bf16_kernels"))
+    k1_shapes = [tuple(b.shape) for b, _, _ in calls]
     print(f"LFDv2 {HW[0]}x{HW[1]}: levels {sizes} points, per-level limit "
           f"{spec.per_level_limit} -> {sum(min(n, spec.per_level_limit) for n in sizes)} "
           f"points to stage 2 (computed); K1's boxes at build and capture (read) "
@@ -2173,6 +2236,310 @@ def serve_and_train_lfdv2(device, card, counters, rng):
         check_train_gpu_vs_cpu(device, lambda cls=cls: lfdv2_detector(cls, "cpu"),
                                cls.__name__)
     return launches, replayed
+
+
+# -------------------------------------------------------------------- FCOS
+
+def fcos_r50_fpn(device, seed=None, v1=False, spiced=True):
+    """FCOS-R50-FPN at full width (Tian et al., ICCV 2019, as mmdetection's
+    configs/fcos/fcos_r50_caffe_fpn_gn-head_1x_coco.py sets it out): a caffe
+    ResNet-50 with stage 1 frozen and norm_eval, tapped at the last block of
+    stages 2-4 (512/1024/2048 channels, strides 8/16/32), an FPN of 256
+    channels and 5 levels (extra convs on its own output, ReLU before them),
+    the FCOSHead (80 classes, 4 convs of 256 per tower, GroupNorm(32)), and
+    FCOS's defaults (ranges up to 1e5, strides 8-128, threshold 0.05, NMS
+    0.5, 1000 pre-NMS points per level, 100 detections). FCOSv1 with `v1`.
+    With a `seed`: lfdtpu's init from it, randomized norms
+    (randomize_norms_) and the conv biases but the classifier's prior drawn
+    from N(0, 0.1) (the init's zero biases would hold a GPU-vs-CPU train
+    check to the relative error of their first updates alone); `spiced`
+    then scales the classification conv by 30
+    and its bias by -2, the regression by 5 and the centerness by 3 and +3
+    (tests/test_reference_parity_v2.py:287-301): random FCOS logits sit at
+    the prior (sigmoid 0.01), and K1 would receive nothing."""
+    import torch
+
+    from lfdtpu_torch.models import FCOS, FPN, FCOSHead, FCOSv1, ResNet
+    from lfdtpu_torch.ops.loss_wrappers import FocalLoss, IoULoss
+
+    bb = ResNet(depth=50, style="caffe", frozen_stages=1, norm_eval=True,
+                out_indices=((2, 3), (3, 5), (4, 2)))
+    neck = FPN(bb.num_output_channels_list, bb.num_output_strides_list, 256, 5,
+               extra_on_input=False, relu_before_extra=True)
+    head = FCOSHead(80, 256, num_heads=5, num_head_channels=256, num_layers=4,
+                    norm_cfg=dict(type="GroupNorm", num_groups=32))
+    det = (FCOSv1 if v1 else FCOS)(bb, neck, head,
+                                   classification_loss_func=FocalLoss(gamma=2.0, alpha=0.25),
+                                   regression_loss_func=IoULoss(eps=1e-6))
+    if seed is not None:
+        g = torch.Generator().manual_seed(seed)
+        det.init(g)
+        randomize_norms_(det.net, g)
+        with torch.no_grad():
+            for m in det.net.modules():
+                if (isinstance(m, torch.nn.Conv2d) and m.bias is not None
+                        and m is not head._classification):
+                    m.bias.normal_(0.0, 0.1, generator=g)
+        if spiced:
+            with torch.no_grad():
+                head._classification.weight.mul_(30.0)
+                head._classification.bias.sub_(2.0)
+                head._regression.weight.mul_(5.0)
+                head._centerness.weight.mul_(3.0)
+                head._centerness.bias.add_(3.0)
+    det.net.to(device).eval()
+    return det
+
+
+def fcos_serve(det, det16, imgs, batch, metas):
+    """FCOS's main path: predict_for_single_image on each frame with the fp32
+    and the bf16 net, then get_results on a batch. Returns the rows and the
+    host ms per predicted frame of each precision."""
+    import torch
+
+    rows, ms = {}, {}
+    for name, d in (("fp32", det), ("bf16", det16)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows[name] = [d.predict_for_single_image(f) for f in imgs]
+        ms[name] = (time.perf_counter() - t0) * 1e3 / len(imgs)
+    rows["batch"] = det.get_results(batch, metas)
+    return rows, ms
+
+
+def fcos_k1_timing(b, v, thr, card):
+    """K1 on the inputs an FCOS frame gave it: warm (CUDA-graph replays of
+    the same launch) and cold (each launch after a COLD_BYTES write that
+    evicts the L2, the write's own graph time taken off), its bound, the
+    plain version. Returns the fields of a kernels-line row."""
+    import torch
+
+    from lfdtpu_torch.ops import nms_kernel
+
+    flush = torch.empty(COLD_BYTES // 4, device=b.device)
+    warm = graph_ms([lambda: nms_kernel.nms_mask_sorted(b, v, thr)])
+    both = graph_ms([lambda: (flush.zero_(), nms_kernel.nms_mask_sorted(b, v, thr))])
+    cold = both - graph_ms([flush.zero_])
+    plain = time_ms(lambda: nms_kernel.nms_mask_sorted_plain(b, v, thr))
+    del flush
+    print("nms_mask_sorted library call at the FCOS shape: none (torchvision's nms is "
+          "not on the card's machine)")
+    return dict(shape=list(b.shape[:2]), path="FCOS-R50-FPN", classes=80,
+                **_timing("nms_mask_sorted", tuple(b.shape[:2]), card, warm, cold, plain,
+                          None, note=f" ({int(v.sum())} valid, 80 class offsets)"))
+
+
+def fcos_frozen_move_by_decay_alone(net, lrs, weights):
+    """F7 on a GPU net after two fp32 steps at learning rates `lrs` from
+    `weights` (check_train_gpu_vs_cpu's return): the frozen stem and stage 1 get zero
+    gradients, so SGD (momentum 0.9, wd 1e-4) moves them by weight decay
+    alone: buf = wd p0, p1 = p0 - lr0 buf, buf' = 0.9 buf + wd p1,
+    p2 = p1 - lr1 buf'."""
+    import torch
+
+    params = {n: p.detach().cpu() for n, p in net._backbone.named_parameters()
+              if n.split(".")[0] in ("conv1", "bn1", "layer1")}
+    worst, moved = 0.0, 0
+    for n, p in params.items():
+        p0 = weights[f"_backbone.{n}"]
+        buf = 1e-4 * p0
+        p1 = p0 - lrs[0] * buf
+        p2 = p1 - lrs[1] * (0.9 * buf + 1e-4 * p1)
+        worst = max(worst, rel_err(p, p2))
+        moved += not torch.equal(p, p0)
+    print(f"F7: {len(params)} frozen parameters (stem, stage 1) after the 2 GPU steps: "
+          f"{moved} moved, max|err|/max|ref| against weight decay alone {worst:.2e}")
+    check(moved == len(params) and worst < 1e-5,
+          "frozen FCOS parameters did not move by weight decay alone")
+
+
+def fcos_train_full_width(device, card):
+    """FCOS-R50-FPN training steps at 896x1408 (800x1333 padded), Nmax 100,
+    at batch 2 and 8, fp32 and bf16 autocast: FCOS_STEPS steps on one fixed
+    batch after FCOS_WARMUP (CUDA events), losses finite, BN statistics
+    untouched (norm_eval); then fcos_assign and fcos_v1_assign alone at
+    batch 8."""
+    import torch
+
+    from lfdtpu_torch.ops import assign as assign_ops
+
+    weights = fcos_r50_fpn("cpu", seed=45, spiced=False).net.state_dict()
+    factory = lambda: fcos_r50_fpn("cpu")  # noqa: E731 (its weights are loaded)
+    sched = train_schedule()
+    for bsz in FCOS_TRAIN_BATCHES:
+        batch = [torch.as_tensor(a, device=device) for a in train_batch(
+            np.random.RandomState(45), bsz, FCOS_HW, FCOS_NMAX, num_classes=80,
+            top=0.8 * min(FCOS_HW))]
+        for name, mp in (("fp32", False), ("bf16", True)):
+            det, step = make_trainer(device, FCOS_HW, weights, mixed_precision=mp,
+                                     factory=factory)
+            stats0 = {k: v.clone() for k, v in det.net.state_dict().items() if "running" in k}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            metrics = [step(*batch, sched(0, it), True) for it in range(FCOS_WARMUP)]
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for it in range(FCOS_WARMUP, FCOS_STEPS):
+                metrics.append(step(*batch, sched(0, it), True))
+            end.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(end) / (FCOS_STEPS - FCOS_WARMUP)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            vals = {k: torch.stack([m[k] for m in metrics]).cpu().numpy() for k in metrics[0]}
+            print(f"train {name} FCOS-R50-FPN batch {bsz} {FCOS_HW[0]}x{FCOS_HW[1]} "
+                  f"({int(batch[3].sum())} GT boxes, Nmax {FCOS_NMAX}): {ms:.2f} ms/step, "
+                  f"{bsz * 1000.0 / ms:.2f} images/s, peak {peak:.2f} GiB allocated [{card}]")
+            print(f"  loss {vals['loss'][0]:.4f} -> {vals['loss'][-1]:.4f}, centerness "
+                  f"{vals['centerness_loss'][0]:.4f}, num_pos {vals['num_pos'][0]:.0f}")
+            check(all(np.isfinite(v).all() for v in vals.values()),
+                  f"non-finite FCOS train metrics ({name}, batch {bsz})")
+            check(all(torch.equal(v, stats0[k]) for k, v in det.net.state_dict().items()
+                      if k in stats0), f"norm_eval: BN statistics moved ({name})")
+            del det, step
+            torch.cuda.empty_cache()
+    info = fcos_r50_fpn("cpu").level_arrays(FCOS_HW, device)
+    for fn in (assign_ops.fcos_assign, assign_ops.fcos_v1_assign):
+        call = lambda: fn(info["points"], info["ranges"], batch[1], batch[2],  # noqa: E731
+                          batch[3].bool(), 80)
+        ms = time_ms(call, iters=5, warmup=1)
+        print(f"{fn.__name__} alone, batch {bsz} {FCOS_HW[0]}x{FCOS_HW[1]}, "
+              f"{info['points'].shape[0]} points x {FCOS_NMAX} GT rows: {ms:.2f} ms [{card}]")
+
+
+def fcos_phase(device, card, counters):
+    """Phase 12: FCOS-R50-FPN (fcos_r50_fpn) on the card. Its main path:
+    one warmup frame per precision, the counters zeroed, FCOS_FRAMES
+    800x1333 frames through predict_for_single_image with the fp32 net and
+    with the net cast to bf16 (the regression's exp stays fp32), and
+    get_results on a batch of 2, the counters read: K1 once per call, and
+    the (1, 1000, 4) class-offset boxes its wrapper received. Then decode +
+    NMS on the same dense outputs with K1 and with the plain NMS (rows
+    identical), the fp32 net on the GPU against the CPU, two fp32 train steps
+    of FCOS and FCOSv1 on the GPU against the CPU and F7, the full-width
+    steps, and the times. Returns (the main path's eager launches, K1's row
+    at the FCOS shape, K1's error)."""
+    import dataclasses
+
+    import torch
+
+    from lfdtpu_torch.models.detector import eval_forward, pad_to_multiple
+    from lfdtpu_torch.ops import nms_kernel
+
+    t0 = time.time()
+    det = fcos_r50_fpn(device, seed=41)
+    det16 = copy.copy(det)
+    det16.net = copy.deepcopy(det.net).to(torch.bfloat16)
+    rng = np.random.RandomState(12)
+    imgs = [frames(rng, 1, FCOS_FRAME)[0] for _ in range(FCOS_FRAMES)]
+    batch = torch.as_tensor(frames(rng, 2, FCOS_HW), device=device, dtype=torch.float32)
+    metas = [dict(resized_height=FCOS_FRAME[0], resized_width=FCOS_FRAME[1]), None]
+    spec = det.decode_spec()
+    sizes = det.level_sizes(FCOS_HW)
+    for d in (det, det16):  # warm the convolutions' algorithm choice
+        d.predict_for_single_image(imgs[0])
+    torch.cuda.synchronize()
+    print(f"FCOS-R50-FPN built in {time.time() - t0:.1f} s: "
+          f"{sum(p.numel() for p in det.net.parameters())} parameters; {FCOS_FRAME[0]}x"
+          f"{FCOS_FRAME[1]} frames pad to {FCOS_HW[0]}x{FCOS_HW[1]}: {sum(sizes)} points "
+          f"{sizes}, {sum(min(n, spec.per_level_limit) for n in sizes)} after the per-level "
+          f"limit {spec.per_level_limit}")
+
+    for c in counters:
+        c.launches = 0
+    (rows, host_ms), calls = k1_inputs(lambda: fcos_serve(det, det16, imgs, batch, metas))
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    shapes = [tuple(b.shape) for b, _, _ in calls]
+    n_valid = [v.sum(-1).tolist() for _, v, _ in calls]  # per image
+    print(f"FCOS main path: {FCOS_FRAMES} fp32 and {FCOS_FRAMES} bf16 frames "
+          f"({[len(r) for r in rows['fp32']]} / {[len(r) for r in rows['bf16']]} rows), "
+          f"get_results batch 2 ({[len(r) for r in rows['batch']]} rows); launches "
+          f"{launches}; K1's boxes (read) {shapes}, valid {n_valid}")
+    want = 2 * FCOS_FRAMES + 1
+    check(launches == {"nms_mask_sorted": want, "stem_conv": 0, "pair_conv3x3": 0},
+          f"the FCOS main path did not launch K1 once per call ({want})")
+    check(shapes == [(1, spec.nms_budget, 4)] * (2 * FCOS_FRAMES) + [(2, spec.nms_budget, 4)]
+          and min(map(min, n_valid)) == spec.nms_budget,
+          "K1 did not receive the FCOS frames' 1000 candidates")
+    for r, img in zip(rows["fp32"] + rows["bf16"], imgs + imgs):
+        check(len(r) > 0, "an FCOS frame gave no detection")
+        check_rows(det, r, img)
+    for r, hw in zip(rows["batch"], (FCOS_FRAME, FCOS_HW)):
+        check_rows(det, r, np.zeros(hw + (3,)))
+    k1_err = 0.0
+    for b, v, thr in calls:
+        bad = int((nms_kernel.nms_mask_sorted(b, v, thr)
+                   != nms_kernel.nms_mask_sorted_plain(b, v, thr)).sum())
+        k1_err = max(k1_err, float(bad > 0))
+    print(f"K1 against its plain version on the main path's {len(calls)} inputs: "
+          f"max|err| {k1_err}")
+    check(k1_err == 0, "K1 disagrees with its plain version on FCOS's boxes")
+
+    # decode + NMS on the same dense outputs, K1 against the plain NMS
+    plain_spec = dataclasses.replace(spec, nms_use_kernel=False)
+    x = torch.as_tensor(pad_to_multiple(imgs[1].astype(np.float32), 128)[None], device=device)
+    for name, d in (("fp32", det), ("bf16", det16)):
+        outs = tuple(o[0] for o in eval_forward(d.net, x))
+        with torch.inference_mode():
+            a = d.decode_single(outs, FCOS_HW, FCOS_FRAME, spec)
+            b = d.decode_single(outs, FCOS_HW, FCOS_FRAME, plain_spec)
+        same = all(torch.equal(a[k], b[k]) for k in a)
+        print(f"FCOS {name} decode + NMS, K1 against plain: {int(a['count'])} rows, "
+              f"identical={same}")
+        check(same, f"FCOS {name} rows with K1 differ from the plain NMS")
+
+    # the fp32 net on the GPU against the CPU, TF32 off
+    small = torch.as_tensor(frames(rng, 1, FCOS_SMALL_HW), dtype=torch.float32)
+    got = eval_forward(det.net, small.to(device))
+    ref = eval_forward(copy.deepcopy(det.net).cpu(), small)
+    errs = [rel_err(g.cpu(), r) for g, r in zip(got, ref)]
+    print(f"FCOS fp32 {FCOS_SMALL_HW} dense GPU vs CPU (cls, reg, ctr): "
+          + ", ".join(f"{e:.3e}" for e in errs) + f" max|err|/max|ref| (tol {DENSE_FP32_TOL})")
+    check(max(errs) < DENSE_FP32_TOL, "FCOS fp32 GPU net disagrees with the CPU")
+
+    # at 256x256: at 128x128 the stride-128 level is one pixel, and its
+    # GroupNorm over 8 values a group amplifies float32 rounding (as F8's BN)
+    for v1, label in ((False, "FCOS-R50-FPN"), (True, "FCOSv1-R50-FPN")):
+        trained = check_train_gpu_vs_cpu(
+            device, lambda v1=v1: fcos_r50_fpn("cpu", 43, v1, False), label,
+            num_classes=80, hw=FCOS_TRAIN_SMALL_HW)
+        if not v1:
+            fcos_frozen_move_by_decay_alone(*trained)
+        del trained
+    fcos_train_full_width(device, card)
+
+    # times
+    print(f"FCOS predict_for_single_image, host ms per {FCOS_FRAME[0]}x{FCOS_FRAME[1]} "
+          f"frame: fp32 {host_ms['fp32']:.3f}, bf16 {host_ms['bf16']:.3f} [{card}]")
+    for name, d in (("fp32", det), ("bf16", det16)):
+        net_ms = time_ms(lambda d=d: eval_forward(d.net, x), iters=10, warmup=2)
+        outs = tuple(o[0] for o in eval_forward(d.net, x))
+
+        def decode(d=d, outs=outs):
+            with torch.inference_mode():
+                d.decode_single(outs, FCOS_HW, FCOS_FRAME, spec)
+        dec_ms = time_ms(decode, iters=10, warmup=2)
+        print(f"FCOS {name} {FCOS_HW[0]}x{FCOS_HW[1]}, ms on the stream (CUDA events; "
+              f"the host's pace where it is host bound): net {net_ms:.3f}, decode + NMS "
+              f"{dec_ms:.3f} [{card}]")
+        # where a predicted frame's time goes: device work against the host
+        prof, _ = profiled(lambda d=d: d.predict_for_single_image(imgs[0]),
+                           lambda d=d: [d.predict_for_single_image(f) for f in imgs])
+        by_name, n_calls, window = device_ms_by_name(prof)
+        share = busy_share(prof)
+        print(f"profile, {len(imgs)} FCOS {name} frames through predict_for_single_image: "
+              f"device work {sum(by_name.values()) / len(imgs):.3f} ms per frame, "
+              f"{sum(n_calls.values()) / len(imgs):.0f} device events, busy share "
+              + ("not measured" if share is None else f"{share:.3f}") + f" ({window}) [{card}]")
+        for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+            print(f"  {ms / len(imgs):8.4f} ms/frame  {n_calls[kname] / len(imgs):5.1f}x  "
+                  f"{kname[:110]}")
+    b, v, thr = calls[0]
+    k1_row = fcos_k1_timing(b, v, thr, card)
+    del det, det16
+    torch.cuda.empty_cache()
+    return launches, k1_row, k1_err
 
 
 # ------------------------------------------------------------------ main
@@ -2281,14 +2648,15 @@ def main():
     print(f"workload phase {time.time() - t0:.1f} s")
 
     # each further path is driven with the counters zeroed just before it
-    # and read just after (its launches at build and capture, and its
-    # replays counted from a profile)
-    paths = {"WIDERFACE-L": (launches, replayed)}
+    # and read just after (an engine path's launches at build and capture,
+    # and its replays counted from a profile; FCOS's eager launches, and no
+    # replays since it has no engine)
+    paths = {"WIDERFACE-L": dict(build_and_capture=launches, replayed=replayed)}
     print(f"[9 traffic serve] {card}")
     t0 = time.time()
     for name in TRAFFIC:
         launches_n, replayed_n, k2_err = serve_traffic(name, device, card, counters, rng)
-        paths[name] = (launches_n, replayed_n)
+        paths[name] = dict(build_and_capture=launches_n, replayed=replayed_n)
         errs["stem_conv"] = max(errs["stem_conv"], k2_err)
     new_errs, new_rows = check_k3_new_shapes(device, card)
     for k, v in new_errs.items():
@@ -2310,8 +2678,17 @@ def main():
     print(f"traffic train phase {time.time() - t0:.1f} s")
     print(f"[11 LFDv2] {card}")
     t0 = time.time()
-    paths["LFDv2 (WIDERFACE-L parts)"] = serve_and_train_lfdv2(device, card, counters, rng)
+    launches_v2, replayed_v2 = serve_and_train_lfdv2(device, card, counters, rng)
+    paths["LFDv2 (WIDERFACE-L parts)"] = dict(build_and_capture=launches_v2,
+                                              replayed=replayed_v2)
     print(f"LFDv2 phase {time.time() - t0:.1f} s")
+    print(f"[12 FCOS] {card}")
+    t0 = time.time()
+    launches_f, fcos_k1, fcos_err = fcos_phase(device, card, counters)
+    paths["FCOS-R50-FPN (no engine: predict and get_results)"] = dict(eager=launches_f,
+                                                                      replayed=None)
+    err1 = max(err1, fcos_err)
+    print(f"FCOS phase {time.time() - t0:.1f} s")
 
     sources = {
         "nms_mask_sorted": ("lfdtpu_torch/csrc/nms.cu", "lfdtpu/ops/nms_pallas.py:49", err1),
@@ -2320,15 +2697,17 @@ def main():
         "pair_conv3x3": ("lfdtpu_torch/csrc/pair_conv.cu", "lfdtpu/ops/conv_pallas.py:171",
                          errs["pair_conv3x3"]),
     }
+    other = {"nms_mask_sorted": [fcos_k1],
+             "stem_conv": [r for r in new_rows if "residual" not in r],
+             "pair_conv3x3": [r for r in new_rows if "residual" in r]}
     kernels = [dict(name=name, route="cuda", source=src, replaces=tpu,
                     launches=launches[name], replayed_launches=replayed[name],
                     max_abs_err=err, **timings[name],
-                    launches_by_path={p: dict(build_and_capture=ln[name], replayed=rp[name])
-                                      for p, (ln, rp) in paths.items()},
+                    launches_by_path={p: {k: None if n is None else n[name]
+                                          for k, n in counts.items()}
+                                      for p, counts in paths.items()},
                     other_shapes=[{k: v for k, v in r.items() if k != "library_call"}
-                                  for r in new_rows
-                                  if (name == "pair_conv3x3") == ("residual" in r)
-                                  and name != "nms_mask_sorted"])
+                                  for r in other[name]])
                for name, (src, tpu, err) in sources.items()]
 
     print(f"total {time.time() - t_start:.1f} s")

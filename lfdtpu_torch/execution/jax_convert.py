@@ -5,7 +5,7 @@
 # convert_reference_state_dict`, which reads a port state_dict because the
 # port uses the upstream reference's module names.
 #
-# Mapping (JAX path -> port module):
+# Mapping (JAX path -> port module), LFD parts:
 #   backbone/stem{n}/...                 -> _backbone._stem.{i} (n-th conv/norm)
 #   backbone/stage{i}_block{j}/ConvNormAct_{k}/... -> _backbone.stage{i}.{j}._conv{k+1}/_norm{k+1}
 #   backbone/stage{i}_block{j}/_Shortcut_0/...     -> ..._downsample.{0,1}
@@ -13,6 +13,14 @@
 #   head/{shared|head{k}}_merge/conv{m}  -> _head.head{k}_merge_path (m-th conv/norm)
 #   head/..._cls|_reg/conv{m}, final     -> _head.head{k}_{classification,regression}_path
 #   head/scale{i}/scale                  -> _head._scales.{i}._scale
+# ResNet, FPN / SimpleFPN, LFDHeadV1 and FCOSHead:
+#   backbone/stem0 (stem{n} deep)        -> _backbone.conv1/bn1 (_backbone.stem.{i})
+#   backbone/stage{s}_block{j}/ConvNormAct_{k}/... -> _backbone.layer{s}.{j}.conv{k+1}/bn{k+1},
+#                                           the last ConvNormAct the downsample.{0,1}
+#   neck/lateral{i}/..., neck/fpn_out{i} -> _neck.lateral{i}.{0,1}, _neck.fpn_out{i}
+#   head/{cls,reg}_trunk/conv{m}, head/{cls,reg}_final{i} -> LFDHeadV1's same names
+#   head/{cls,reg}_tower/conv{m}         -> _head._{classification,regression}_path
+#   head/{classification,centerness,regression} -> _head._classification, ...
 # Conv kernels go HWIO -> OIHW; BatchNorm scale/bias/mean/var -> weight/
 # bias/running_mean/running_var; GroupNorm scale/bias -> weight/bias. A
 # shared head fills every head{k}_* duplicate from the one JAX copy.
@@ -101,41 +109,15 @@ def jax_variables_to_state_dict(variables, net):
     Returns {key: torch.Tensor (float32)} covering every float entry of
     net.state_dict() (BatchNorm's num_batches_tracked keeps the template's
     value); load it with net.load_state_dict(sd, strict=True)."""
+    from ..models.heads import FCOSHead, LFDHeadV1
+    from ..models.necks import FPN
+    from ..models.resnet import ResNet
+
     r = _Reader(variables)
     bb, neck, head = net._backbone, net._neck, net._head
-
-    for n, (ck, nk) in enumerate(_conv_norm_units(bb._stem, "_backbone._stem")):
-        r.conv_norm(net, ck, nk, ("backbone", f"stem{n}"))
-    for i, stage in enumerate(bb.stages()):
-        for j, block in enumerate(stage):
-            tp = f"_backbone.stage{i}.{j}"
-            jp = ("backbone", f"stage{i}_block{j}")
-            for k in range(1, block._num_convs + 1):
-                r.conv_norm(net, f"{tp}._conv{k}",
-                            f"{tp}._norm{k}" if hasattr(block, f"_norm{k}") else None,
-                            jp + (f"ConvNormAct_{k - 1}",))
-            if block.use_downsample:
-                (ck, nk), = _conv_norm_units(block._downsample, f"{tp}._downsample")
-                r.conv_norm(net, ck, nk, jp + ("_Shortcut_0",))
-    for i in range(neck.num_levels):
-        (ck, nk), = _conv_norm_units(getattr(neck, f"neck{i}"), f"_neck.neck{i}")
-        r.conv_norm(net, ck, nk, ("neck", f"neck{i}"))
-
-    for k in range(head.num_heads):
-        name = "shared" if head.share_head_flag else f"head{k}"
-        if head.merge_path_flag:
-            units = _conv_norm_units(getattr(head, f"head{k}_merge_path"),
-                                     f"_head.head{k}_merge_path")
-            for m, (ck, nk) in enumerate(units):
-                r.conv_norm(net, ck, nk, ("head", f"{name}_merge", f"conv{m}"))
-        for branch, fb in (("classification", "cls"), ("regression", "reg")):
-            units = _conv_norm_units(getattr(head, f"head{k}_{branch}_path"),
-                                     f"_head.head{k}_{branch}_path")
-            for m, (ck, nk) in enumerate(units):
-                if m == len(units) - 1:
-                    r.conv(ck, ("head", f"{name}_{fb}"), name="final")
-                else:
-                    r.conv_norm(net, ck, nk, ("head", f"{name}_{fb}", f"conv{m}"))
+    (_resnet if isinstance(bb, ResNet) else _lfd_resnet)(r, net, bb)
+    (_fpn if isinstance(neck, FPN) else _simple_neck)(r, net, neck)
+    {FCOSHead: _fcos_head, LFDHeadV1: _lfd_head_v1}.get(type(head), _lfd_head)(r, net, head)
     if head.with_scale:
         for i in range(head.num_heads):
             r.out[f"_head._scales.{i}._scale"] = r.get(
@@ -163,6 +145,91 @@ def jax_variables_to_state_dict(variables, net):
             raise ValueError(f"{k}: shape {a.shape} != port {tuple(v.shape)}")
         sd[k] = torch.from_numpy(np.array(a, np.float32))
     return sd
+
+
+def _lfd_resnet(r, net, bb):
+    for n, (ck, nk) in enumerate(_conv_norm_units(bb._stem, "_backbone._stem")):
+        r.conv_norm(net, ck, nk, ("backbone", f"stem{n}"))
+    for i, stage in enumerate(bb.stages()):
+        for j, block in enumerate(stage):
+            tp = f"_backbone.stage{i}.{j}"
+            jp = ("backbone", f"stage{i}_block{j}")
+            for k in range(1, block._num_convs + 1):
+                r.conv_norm(net, f"{tp}._conv{k}",
+                            f"{tp}._norm{k}" if hasattr(block, f"_norm{k}") else None,
+                            jp + (f"ConvNormAct_{k - 1}",))
+            if block.use_downsample:
+                (ck, nk), = _conv_norm_units(block._downsample, f"{tp}._downsample")
+                r.conv_norm(net, ck, nk, jp + ("_Shortcut_0",))
+
+
+def _resnet(r, net, bb):
+    if bb.deep_stem:
+        for n, (ck, nk) in enumerate(_conv_norm_units(bb.stem, "_backbone.stem")):
+            r.conv_norm(net, ck, nk, ("backbone", f"stem{n}"))
+    else:
+        r.conv_norm(net, "_backbone.conv1", "_backbone.bn1", ("backbone", "stem0"))
+    for s, stage in enumerate(bb.stages(), start=1):
+        for j, block in enumerate(stage):
+            tp = f"_backbone.layer{s}.{j}"
+            jp = ("backbone", f"stage{s}_block{j}")
+            for k in range(1, block.num_convs + 1):
+                r.conv_norm(net, f"{tp}.conv{k}", f"{tp}.bn{k}", jp + (f"ConvNormAct_{k - 1}",))
+            if block.downsample is not None:
+                (ck, nk), = _conv_norm_units(block.downsample, f"{tp}.downsample")
+                r.conv_norm(net, ck, nk, jp + (f"ConvNormAct_{block.num_convs}",))
+
+
+def _simple_neck(r, net, neck):
+    for i in range(neck.num_levels):
+        (ck, nk), = _conv_norm_units(getattr(neck, f"neck{i}"), f"_neck.neck{i}")
+        r.conv_norm(net, ck, nk, ("neck", f"neck{i}"))
+
+
+def _fpn(r, net, neck):
+    for i in range(neck.num_inputs):
+        (ck, nk), = _conv_norm_units(getattr(neck, f"lateral{i}"), f"_neck.lateral{i}")
+        r.conv_norm(net, ck, nk, ("neck", f"lateral{i}"))
+    for i in range(neck.num_outputs):
+        if hasattr(neck, f"fpn_out{i}"):
+            r.conv(f"_neck.fpn_out{i}", ("neck",), name=f"fpn_out{i}")
+
+
+def _lfd_head(r, net, head):
+    for k in range(head.num_heads):
+        name = "shared" if head.share_head_flag else f"head{k}"
+        if head.merge_path_flag:
+            units = _conv_norm_units(getattr(head, f"head{k}_merge_path"),
+                                     f"_head.head{k}_merge_path")
+            for m, (ck, nk) in enumerate(units):
+                r.conv_norm(net, ck, nk, ("head", f"{name}_merge", f"conv{m}"))
+        for branch, fb in (("classification", "cls"), ("regression", "reg")):
+            units = _conv_norm_units(getattr(head, f"head{k}_{branch}_path"),
+                                     f"_head.head{k}_{branch}_path")
+            for m, (ck, nk) in enumerate(units):
+                if m == len(units) - 1:
+                    r.conv(ck, ("head", f"{name}_{fb}"), name="final")
+                else:
+                    r.conv_norm(net, ck, nk, ("head", f"{name}_{fb}", f"conv{m}"))
+
+
+def _head_trunk(r, net, seq, prefix, jname):
+    for m, (ck, nk) in enumerate(_conv_norm_units(seq, prefix)):
+        r.conv_norm(net, ck, nk, ("head", jname, f"conv{m}"))
+
+
+def _lfd_head_v1(r, net, head):
+    for fb in ("cls", "reg"):
+        _head_trunk(r, net, getattr(head, f"{fb}_trunk"), f"_head.{fb}_trunk", f"{fb}_trunk")
+        for i in range(head.num_heads):
+            r.conv(f"_head.{fb}_final{i}", ("head",), name=f"{fb}_final{i}")
+
+
+def _fcos_head(r, net, head):
+    _head_trunk(r, net, head._classification_path, "_head._classification_path", "cls_tower")
+    _head_trunk(r, net, head._regression_path, "_head._regression_path", "reg_tower")
+    for final in ("classification", "centerness", "regression"):
+        r.conv(f"_head._{final}", ("head",), name=final)
 
 
 def jax_train_state_to_port(state, train_state):

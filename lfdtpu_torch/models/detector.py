@@ -19,7 +19,8 @@ from ..ops import points as point_ops
 from ..ops.decode import DecodeSpec, decode_predictions, detections_to_lists
 from ..ops.loss_wrappers import (CLASSIFICATION_LOSSES, INDEPENDENT_REGRESSION_LOSSES,
                                  UNION_REGRESSION_LOSSES)
-from .layers import Scale, kaiming_out_
+from .heads import FCOS_PRIOR_BIAS, FCOSHead
+from .layers import Scale, kaiming_out_, xavier_uniform_
 
 
 class DetectionNet(nn.Module):
@@ -88,7 +89,182 @@ def eval_forward(net, images):
         net.train(was_training)
 
 
-class LFD:
+def init_net_(net, generator):
+    """(Re)initialize every weight of a DetectionNet from `generator` with
+    lfdtpu's initializers: kaiming fan-out normal convs (backbone, neck),
+    xavier-uniform convs in an FPN neck (`xavier_init`), N(0, 0.01) head
+    convs, zero biases but FCOSHead's classification prior, identity norms
+    and unit Scales."""
+    xavier_neck = getattr(net._neck, "xavier_init", False)
+    with torch.no_grad():
+        for name, m in net.named_modules():
+            if isinstance(m, nn.Conv2d):
+                if name.startswith("_head."):
+                    m.weight.normal_(0.0, 0.01, generator=generator)
+                elif xavier_neck and name.startswith("_neck."):
+                    xavier_uniform_(m.weight, generator)
+                else:
+                    kaiming_out_(m.weight, generator)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, (nn.BatchNorm2d, nn.GroupNorm)):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                if isinstance(m, nn.BatchNorm2d):
+                    m.reset_running_stats()
+            elif isinstance(m, Scale):
+                m._scale.fill_(1.0)
+        for m in net.modules():  # after the loop has zeroed every bias
+            if isinstance(m, FCOSHead):
+                m._classification.bias.fill_(FCOS_PRIOR_BIAS)
+
+
+class DenseDetector:
+    """What LFD and FCOS share: the net's init, the point grids and the
+    reference-API paths over dense outputs. A subclass sets net,
+    point_strides, regression_ranges, post_nms_bbox_limit and the level-info
+    caches, and defines decode_spec (and, with a third output,
+    _score_factors)."""
+
+    gray_ranges = None  # LFD's gray bands ride the level info
+
+    def init(self, generator, device=None):
+        """(Re)initialize every weight from `generator` (init_net_). Returns
+        the net, in eval mode, on `device` if given."""
+        init_net_(self.net, generator)
+        if device is not None:
+            self.net.to(device)
+        return self.net.eval()
+
+    # --------------------------------------------------------- level info
+    def level_info(self, input_hw):
+        key = (int(input_hw[0]), int(input_hw[1]))
+        if key not in self._level_info_cache:
+            sizes = point_ops.feature_map_sizes_for_input(key, self.point_strides)
+            self._level_info_cache[key] = point_ops.concat_level_info(
+                sizes, self.point_strides, self.regression_ranges, self.gray_ranges)
+        return self._level_info_cache[key]
+
+    def level_sizes(self, input_hw):
+        """Per-level point counts (h*w per level) for an input size."""
+        sizes = point_ops.feature_map_sizes_for_input(
+            (int(input_hw[0]), int(input_hw[1])), self.point_strides)
+        return tuple(h * w for h, w in sizes)
+
+    def level_arrays(self, input_hw, device="cpu"):
+        """Per-point constants as tensors on `device`, made once per
+        (resolution, device) and reused by every call."""
+        key = (int(input_hw[0]), int(input_hw[1]), str(torch.device(device)))
+        if key not in self._level_array_cache:
+            self._level_array_cache[key] = {
+                k: torch.as_tensor(v, device=device)
+                for k, v in self.level_info(key[:2]).items()
+            }
+        return self._level_array_cache[key]
+
+    def num_points(self, input_hw):
+        return self.level_info(input_hw)["points"].shape[0]
+
+    # ------------------------------------------------------------ decode
+    def _score_factors(self, outputs):
+        """(B, P) multiplier of every class score of a point (FCOS's
+        centerness), or None."""
+        return None
+
+    def decode_batch(self, outputs, input_hw, valid_hw, spec, level_arrays=None):
+        """Decode a batch of dense outputs ((B, P, Cc), (B, P, 4), ...);
+        valid_hw (B, 2) holds each image's unpadded (h, w) extent inside the
+        input."""
+        cls_o, reg_o = outputs[:2]
+        info = (level_arrays if level_arrays is not None
+                else self.level_arrays(input_hw, cls_o.device))
+        points, ranges = info["points"], info["ranges"]
+        valid_hw = valid_hw.float()
+        point_valid = ((points[None, :, 0] < valid_hw[:, 1:2])
+                       & (points[None, :, 1] < valid_hw[:, 0:1]))
+        level_sizes = self.level_sizes(input_hw) if spec.per_level_limit > 0 else None
+        return decode_predictions(cls_o, reg_o, points, ranges, spec, valid_hw,
+                                  point_valid=point_valid,
+                                  score_factors=self._score_factors(outputs),
+                                  level_sizes=level_sizes)
+
+    # ------------------------------------------------- reference-API paths
+    def decode_single(self, outputs_single, input_hw, valid_hw, spec,
+                      level_arrays=None):
+        """Decode one image's dense outputs ((P, Cc), (P, 4), ...: lfdtpu's
+        decode_single); valid_hw is its unpadded (h, w)."""
+        device = outputs_single[0].device
+        if isinstance(valid_hw, torch.Tensor):  # stays on its device: no host data
+            vhw = valid_hw.to(device, torch.float32).reshape(1, 2)
+        else:
+            vhw = torch.as_tensor(valid_hw, dtype=torch.float32, device=device).reshape(1, 2)
+        out = self.decode_batch(tuple(o[None] for o in outputs_single), input_hw, vhw, spec,
+                                level_arrays)
+        return {k: v[0] for k, v in out.items()}
+
+    def results_from_outputs(self, outputs, input_hw, meta_batch, spec=None):
+        """Batch of dense outputs -> reference result rows
+        (`lfdtpu/models/detector.py:411-443`), shared by get_results and the
+        Executor's val loop: one batched decode on the outputs' device, one
+        copy of the decoded dict to the host, then per image its rows with
+        its own `resize_scale`. Each image's valid extent
+        (`resized_height`, `resized_width`) comes from the loader meta."""
+        spec = spec or self.decode_spec()
+        input_hw = (int(input_hw[0]), int(input_hw[1]))
+        B = outputs[0].shape[0]
+        metas = [m or {} for m in meta_batch]
+        valid_hws = np.asarray(
+            [[m.get("resized_height", input_hw[0]), m.get("resized_width", input_hw[1])]
+             for m in metas[:B]], np.float32)
+        with torch.inference_mode():
+            decoded = self.decode_batch(
+                tuple(o.float() for o in outputs), input_hw,
+                torch.as_tensor(valid_hws).to(outputs[0].device), spec)
+        decoded = {k: v.cpu().numpy() for k, v in decoded.items()}
+        return [detections_to_lists({k: v[i] for k, v in decoded.items()},
+                                    resize_scale=metas[i].get("resize_scale", 1.0))
+                for i in range(B)]
+
+    def get_results(self, images, meta_batch, classification_threshold=None,
+                    nms_threshold=None):
+        """Batched eval decode (`lfd/model/lfd.py:397-430`): images
+        (B, H, W, 3), already normalized, through the net on its own device;
+        one result list per image."""
+        spec = self.decode_spec(classification_threshold, nms_threshold)
+        input_hw = (int(images.shape[1]), int(images.shape[2]))
+        return self.results_from_outputs(eval_forward(self.net, images), input_hw,
+                                         meta_batch, spec)
+
+    def predict_for_single_image(self, image, aug_pipeline=None,
+                                 classification_threshold=None,
+                                 nms_threshold=None, class_agnostic=False,
+                                 size_divisor=None):
+        """Single-image prediction (`lfd/model/lfd.py:544-655`) through the
+        net on its own device and dtype, the frame zero-padded to a multiple
+        of `size_divisor` (default: the largest stride).
+
+        image: path or HWC numpy array (BGR, like the reference's cv2 flow);
+        aug_pipeline: optional callable on a {"image": ...} sample.
+        Returns [[class_label, score, x1, y1, w, h], ...].
+        """
+        image = _read_image(image)
+        if aug_pipeline is not None:
+            image = _read_image(aug_pipeline({"image": image})["image"])
+        image = image.astype(np.float32)
+        h, w = image.shape[:2]
+        padded = pad_to_multiple(image, size_divisor or max(self.point_strides))
+        input_hw = tuple(int(v) for v in padded.shape[:2])
+        spec = self.decode_spec(classification_threshold, nms_threshold,
+                                class_agnostic=class_agnostic)
+        # eval mode, as lfdtpu's train=False: a net left in train() would
+        # predict with batch statistics and write into its running stats
+        outs = eval_forward(self.net, padded[None])
+        with torch.inference_mode():
+            decoded = self.decode_single(tuple(o[0] for o in outs), input_hw, (h, w), spec)
+        return detections_to_lists(decoded)
+
+
+class LFD(DenseDetector):
     """Anchor-free multi-scale detector with soft center-score targets: owns
     the net (an nn.Module holding the weights), the point grids, the loss
     and the decode."""
@@ -152,60 +328,6 @@ class LFD:
         return (self.num_classes + 1
                 if self.classification_loss_type == "CrossEntropyLoss"
                 else self.num_classes)
-
-    def init(self, generator, device=None):
-        """(Re)initialize every weight from `generator` with lfdtpu's
-        initializers (kaiming fan-out normal convs, N(0, 0.01) head convs,
-        zero biases, identity norms, unit Scales). Returns the net, in eval
-        mode, on `device` if given."""
-        with torch.no_grad():
-            for name, m in self.net.named_modules():
-                if isinstance(m, nn.Conv2d):
-                    if name.startswith("_head."):
-                        m.weight.normal_(0.0, 0.01, generator=generator)
-                    else:
-                        kaiming_out_(m.weight, generator)
-                    if m.bias is not None:
-                        m.bias.zero_()
-                elif isinstance(m, (nn.BatchNorm2d, nn.GroupNorm)):
-                    m.weight.fill_(1.0)
-                    m.bias.zero_()
-                    if isinstance(m, nn.BatchNorm2d):
-                        m.reset_running_stats()
-                elif isinstance(m, Scale):
-                    m._scale.fill_(1.0)
-        if device is not None:
-            self.net.to(device)
-        return self.net.eval()
-
-    # --------------------------------------------------------- level info
-    def level_info(self, input_hw):
-        key = (int(input_hw[0]), int(input_hw[1]))
-        if key not in self._level_info_cache:
-            sizes = point_ops.feature_map_sizes_for_input(key, self.point_strides)
-            self._level_info_cache[key] = point_ops.concat_level_info(
-                sizes, self.point_strides, self.regression_ranges, self.gray_ranges)
-        return self._level_info_cache[key]
-
-    def level_sizes(self, input_hw):
-        """Per-level point counts (h*w per level) for an input size."""
-        sizes = point_ops.feature_map_sizes_for_input(
-            (int(input_hw[0]), int(input_hw[1])), self.point_strides)
-        return tuple(h * w for h, w in sizes)
-
-    def level_arrays(self, input_hw, device="cpu"):
-        """Per-point constants as tensors on `device`, made once per
-        (resolution, device) and reused by every call."""
-        key = (int(input_hw[0]), int(input_hw[1]), str(torch.device(device)))
-        if key not in self._level_array_cache:
-            self._level_array_cache[key] = {
-                k: torch.as_tensor(v, device=device)
-                for k, v in self.level_info(key[:2]).items()
-            }
-        return self._level_array_cache[key]
-
-    def num_points(self, input_hw):
-        return self.level_info(input_hw)["points"].shape[0]
 
     # -------------------------------------------------------------- loss
     def _assign(self, info, gt_bboxes, gt_labels, gt_mask):
@@ -316,95 +438,6 @@ class LFD:
             max_det=self.post_nms_bbox_limit if max_det is None else max_det,
             class_agnostic=class_agnostic,
         )
-
-    def decode_batch(self, outputs, input_hw, valid_hw, spec, level_arrays=None):
-        """Decode a batch of (B, P, Cc) / (B, P, 4) outputs; valid_hw (B, 2)
-        holds each image's unpadded (h, w) extent inside the input."""
-        cls_o, reg_o = outputs
-        info = (level_arrays if level_arrays is not None
-                else self.level_arrays(input_hw, cls_o.device))
-        points, ranges = info["points"], info["ranges"]
-        valid_hw = valid_hw.float()
-        point_valid = ((points[None, :, 0] < valid_hw[:, 1:2])
-                       & (points[None, :, 1] < valid_hw[:, 0:1]))
-        level_sizes = self.level_sizes(input_hw) if spec.per_level_limit > 0 else None
-        return decode_predictions(cls_o, reg_o, points, ranges, spec, valid_hw,
-                                  point_valid=point_valid, level_sizes=level_sizes)
-
-    def decode_single(self, outputs_single, input_hw, valid_hw, spec,
-                      level_arrays=None):
-        """Decode one image's (P, Cc) / (P, 4) outputs (`lfdtpu`'s
-        decode_single); valid_hw is its unpadded (h, w)."""
-        cls_o, reg_o = outputs_single
-        if isinstance(valid_hw, torch.Tensor):  # stays on its device: no host data
-            vhw = valid_hw.to(cls_o.device, torch.float32).reshape(1, 2)
-        else:
-            vhw = torch.as_tensor(valid_hw, dtype=torch.float32,
-                                  device=cls_o.device).reshape(1, 2)
-        out = self.decode_batch((cls_o[None], reg_o[None]), input_hw, vhw, spec,
-                                level_arrays)
-        return {k: v[0] for k, v in out.items()}
-
-    # ------------------------------------------------- reference-API paths
-    def results_from_outputs(self, outputs, input_hw, meta_batch, spec=None):
-        """Batch of dense outputs -> reference result rows
-        (`lfdtpu/models/detector.py:411-443`), shared by get_results and the
-        Executor's val loop: one batched decode on the outputs' device, one
-        copy of the decoded dict to the host, then per image its rows with
-        its own `resize_scale`. Each image's valid extent
-        (`resized_height`, `resized_width`) comes from the loader meta."""
-        spec = spec or self.decode_spec()
-        input_hw = (int(input_hw[0]), int(input_hw[1]))
-        cls_o, reg_o = outputs
-        metas = [m or {} for m in meta_batch]
-        valid_hws = np.asarray(
-            [[m.get("resized_height", input_hw[0]), m.get("resized_width", input_hw[1])]
-             for m in metas[:cls_o.shape[0]]], np.float32)
-        with torch.inference_mode():
-            decoded = self.decode_batch(
-                (cls_o.float(), reg_o.float()), input_hw,
-                torch.as_tensor(valid_hws).to(cls_o.device), spec)
-        decoded = {k: v.cpu().numpy() for k, v in decoded.items()}
-        return [detections_to_lists({k: v[i] for k, v in decoded.items()},
-                                    resize_scale=metas[i].get("resize_scale", 1.0))
-                for i in range(cls_o.shape[0])]
-
-    def get_results(self, images, meta_batch, classification_threshold=None,
-                    nms_threshold=None):
-        """Batched eval decode (`lfd/model/lfd.py:397-430`): images
-        (B, H, W, 3), already normalized, through the net on its own device;
-        one result list per image."""
-        spec = self.decode_spec(classification_threshold, nms_threshold)
-        input_hw = (int(images.shape[1]), int(images.shape[2]))
-        return self.results_from_outputs(eval_forward(self.net, images), input_hw,
-                                         meta_batch, spec)
-
-    def predict_for_single_image(self, image, aug_pipeline=None,
-                                 classification_threshold=None,
-                                 nms_threshold=None, class_agnostic=False,
-                                 size_divisor=None):
-        """Single-image prediction (`lfd/model/lfd.py:544-655`) through the
-        net on its own device and dtype.
-
-        image: path or HWC numpy array (BGR, like the reference's cv2 flow);
-        aug_pipeline: optional callable on a {"image": ...} sample.
-        Returns [[class_label, score, x1, y1, w, h], ...].
-        """
-        image = _read_image(image)
-        if aug_pipeline is not None:
-            image = _read_image(aug_pipeline({"image": image})["image"])
-        image = image.astype(np.float32)
-        h, w = image.shape[:2]
-        padded = pad_to_multiple(image, size_divisor or max(self.point_strides))
-        input_hw = tuple(int(v) for v in padded.shape[:2])
-        spec = self.decode_spec(classification_threshold, nms_threshold,
-                                class_agnostic=class_agnostic)
-        # eval mode, as lfdtpu's train=False: a net left in train() would
-        # predict with batch statistics and write into its running stats
-        cls_o, reg_o = eval_forward(self.net, padded[None])
-        with torch.inference_mode():
-            decoded = self.decode_single((cls_o[0], reg_o[0]), input_hw, (h, w), spec)
-        return detections_to_lists(decoded)
 
     def predict_for_single_image_with_engine(self, engine, image, aug_pipeline=None):
         """Predict through a compiled deployment engine (the analogue of the

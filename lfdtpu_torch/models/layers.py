@@ -107,3 +107,13 @@ def kaiming_out_(weight, generator):
     fan_out = weight.shape[0] * weight.shape[2] * weight.shape[3]
     with torch.no_grad():
         weight.normal_(0.0, math.sqrt(2.0 / fan_out), generator=generator)
+
+
+def xavier_uniform_(weight, generator):
+    """flax's xavier_uniform (variance_scaling(1.0, 'fan_avg', 'uniform')),
+    the lfdtpu FPN conv init."""
+    receptive = weight.shape[2] * weight.shape[3]
+    fan_in, fan_out = weight.shape[1] * receptive, weight.shape[0] * receptive
+    bound = math.sqrt(6.0 / (fan_in + fan_out))
+    with torch.no_grad():
+        weight.uniform_(-bound, bound, generator=generator)

@@ -18,14 +18,16 @@
 # _PAIR_BUDGET elements, and the four (l, t, r, b) deltas stay separate
 # (P, N) planes, gathered only at the selected GT.
 #
-# fcos_assign, fcos_v1_assign and centerness_target come with the FCOS
-# detectors.
+# fcos_assign, fcos_v1_assign and centerness_target (`:235-311`) serve the
+# FCOS detectors: hard labels with min-area disambiguation (argmin over
+# INF-masked areas, first index on ties as jnp.argmin).
 
 from __future__ import annotations
 
 import torch
 
 _PAIR_BUDGET = 1 << 25  # (chunk, P, N) elements per pass
+INF = 1e8
 
 
 def _point_gt_geometry(points, gt_bboxes):
@@ -136,20 +138,20 @@ def lfd_assign(points, strides, regression_ranges, gray_ranges, gt_bboxes,
       cls_targets: (B, P, C) float soft scores; -1 marks gray-ignored entries.
       reg_targets: (B, P, 4) float (l, t, r, b) deltas of the selected GT.
     """
-    return _in_chunks(_lfd_assign_chunk, points, strides, regression_ranges, gray_ranges,
+    return _in_chunks(_lfd_assign_chunk, (points, strides, regression_ranges, gray_ranges),
                       gt_bboxes, gt_labels, gt_mask, num_classes, range_assign_mode,
                       normalize_by_range)
 
 
-def _in_chunks(chunk_fn, points, strides, regression_ranges, gray_ranges, gt_bboxes,
-               gt_labels, gt_mask, *args):
-    """chunk_fn over batch chunks of at most _PAIR_BUDGET (b, P, N) pairs."""
+def _in_chunks(chunk_fn, per_point, gt_bboxes, gt_labels, gt_mask, *args):
+    """chunk_fn(*per_point, gt chunk, *args) over batch chunks of at most
+    _PAIR_BUDGET (b, P, N) pairs; per_point[0] is the (P, 2) points."""
     B, N = gt_bboxes.shape[:2]
-    P = points.shape[0]
+    P = per_point[0].shape[0]
     chunk = max(1, _PAIR_BUDGET // max(P * N, 1))
     outs = [
-        chunk_fn(points, strides, regression_ranges, gray_ranges, gt_bboxes[b:b + chunk],
-                 gt_labels[b:b + chunk], gt_mask[b:b + chunk], *args)
+        chunk_fn(*per_point, gt_bboxes[b:b + chunk], gt_labels[b:b + chunk],
+                 gt_mask[b:b + chunk], *args)
         for b in range(0, B, chunk)
     ]
     if len(outs) == 1:
@@ -221,6 +223,77 @@ def lfdv2_assign(points, strides, regression_ranges, gray_ranges, gt_bboxes,
     score, a stride-sized core zone around the GT center forced to 1.0, and a
     linear gray-zone relaxation multiplier instead of hard -1 ignores, so no
     target is -1."""
-    return _in_chunks(_lfdv2_assign_chunk, points, strides, regression_ranges, gray_ranges,
+    return _in_chunks(_lfdv2_assign_chunk, (points, strides, regression_ranges, gray_ranges),
                       gt_bboxes, gt_labels, gt_mask, num_classes, range_assign_mode,
                       normalize_by_range)
+
+
+def _fcos_valid_and_min_area(points, regression_ranges, gt_bboxes, gt_mask):
+    """(B, P, N) deltas, the valid (point, GT) pairs (strictly inside
+    (`fcos.py:163`), max distance within the level's inclusive range, a real
+    GT row) and per point the smallest valid GT's area and index (INF and 0
+    where none is valid)."""
+    delta, _, _ = _point_gt_geometry(points, gt_bboxes)
+    d_l, d_t, d_r, d_b = delta
+    inside = torch.minimum(torch.minimum(d_l, d_t), torch.minimum(d_r, d_b)) > 0
+    max_dist = torch.maximum(torch.maximum(d_l, d_t), torch.maximum(d_r, d_b))
+    in_range = ((max_dist >= regression_ranges[None, :, 0, None])
+                & (max_dist <= regression_ranges[None, :, 1, None]))
+    valid = inside & in_range & gt_mask[:, None, :]
+    areas = (gt_bboxes[..., 2] * gt_bboxes[..., 3])[:, None, :]
+    min_areas, min_idx = torch.where(valid, areas, torch.full_like(areas, INF)).min(dim=2)
+    return delta, valid, min_areas, min_idx
+
+
+def _gather_delta(delta, idx):
+    """(B, P, 4) deltas of GT `idx` (B, P) per point."""
+    return torch.stack([d.gather(2, idx[..., None])[..., 0] for d in delta], dim=-1)
+
+
+def _fcos_assign_chunk(points, regression_ranges, gt_bboxes, gt_labels, gt_mask,
+                       num_classes):
+    delta, _, min_areas, min_idx = _fcos_valid_and_min_area(
+        points, regression_ranges, gt_bboxes, gt_mask)
+    labels = torch.where(min_areas >= INF, torch.full_like(min_idx, num_classes),
+                         gt_labels.long().gather(1, min_idx))
+    # a point with no valid GT regresses GT 0, as lfdtpu's argmin over INFs
+    return labels.to(torch.int32), _gather_delta(delta, min_idx)
+
+
+@torch.no_grad()
+def fcos_assign(points, regression_ranges, gt_bboxes, gt_labels, gt_mask, num_classes):
+    """FCOS target assignment (`lfd/model/fcos.py:116-186`), batched.
+
+    Args as lfd_assign's, without strides and gray ranges. Returns labels
+    (B, P) int32, `num_classes` for background, and reg_targets (B, P, 4),
+    the (l, t, r, b) deltas of the smallest valid GT."""
+    return _in_chunks(_fcos_assign_chunk, (points, regression_ranges), gt_bboxes,
+                      gt_labels, gt_mask, num_classes)
+
+
+def _fcos_v1_assign_chunk(points, regression_ranges, gt_bboxes, gt_labels, gt_mask,
+                          num_classes):
+    delta, valid, _, min_idx = _fcos_valid_and_min_area(
+        points, regression_ranges, gt_bboxes, gt_mask)
+    # each valid pair marks its GT's class at the point: a max over the GTs
+    # of each class, never lfdtpu's (P, N, C) one-hot product
+    fg = _class_max(valid.to(delta[0].dtype), gt_labels, num_classes) > 0
+    return fg, _gather_delta(delta, min_idx)
+
+
+@torch.no_grad()
+def fcos_v1_assign(points, regression_ranges, gt_bboxes, gt_labels, gt_mask, num_classes):
+    """FCOSv1 multi-class-per-point assignment (`lfd/model/fcos.py:575-640`),
+    batched: fg (B, P, C) bool, every class with a valid GT at the point;
+    reg_targets (B, P, 4) of the smallest valid GT, as fcos_assign."""
+    return _in_chunks(_fcos_v1_assign_chunk, (points, regression_ranges), gt_bboxes,
+                      gt_labels, gt_mask, num_classes)
+
+
+def centerness_target(reg_targets, eps=0.0):
+    """FCOS centerness sqrt((min/max of l, r) * (min/max of t, b))
+    (`fcos.py:211-215`) of (..., 4) deltas."""
+    l, t, r, b = reg_targets.unbind(-1)
+    ratio = ((torch.minimum(l, r) / torch.maximum(l, r).clamp(min=1e-12))
+             * (torch.minimum(t, b) / torch.maximum(t, b).clamp(min=1e-12)))
+    return torch.sqrt(ratio.clamp(min=0.0) + eps)

@@ -28,7 +28,7 @@ class DecodeSpec:
 
     num_classes: int
     use_softmax: bool = False  # CrossEntropyLoss head: C+1 channels, softmax
-    reg_mode: str = "exp"  # 'exp' | 'sigmoid' | 'independent'
+    reg_mode: str = "exp"  # 'exp' | 'sigmoid' | 'independent' | 'direct'
     score_thr: float = 0.05
     nms_iou: float = 0.4
     pre_nms_points: int = 1000  # stage-1 top-k over points
@@ -68,17 +68,22 @@ def _decode_distances(reg, ranges, mode):
         return torch.sigmoid(reg.float()) * range_max
     if mode == "independent":
         return reg * ranges[..., 1, None]
+    if mode == "direct":
+        # distances already in pixels (the FCOS head applies exp itself)
+        return reg.float()
     raise ValueError(f"unknown reg mode {mode}")
 
 
 def decode_predictions(cls_logits, reg, points, ranges, spec: DecodeSpec,
-                       image_hw, point_valid=None, level_sizes=None):
+                       image_hw, point_valid=None, score_factors=None, level_sizes=None):
     """Decode a batch of dense predictions into final detections.
 
     cls_logits (B, P, C) logits, or (B, P, C+1) when spec.use_softmax;
     reg (B, P, 4); points, ranges (P, 2); image_hw (B, 2) float [h, w], the
     valid extent of each image inside its padded input (boxes clamp to it);
     point_valid optional (B, P) bool masking points inside the padding;
+    score_factors optional (B, P) non-negative multiplier of every class
+    score of a point (FCOS's sigmoid centerness, `fcos.py:403-410`);
     level_sizes: the per-level point counts (Python ints summing to P),
     needed when spec.per_level_limit > 0.
 
@@ -98,6 +103,10 @@ def decode_predictions(cls_logits, reg, points, ranges, spec: DecodeSpec,
         point_max = torch.exp(cls_logits[..., :C].max(dim=-1).values - m) / z
     else:
         point_max = torch.sigmoid(cls_logits.max(dim=-1).values)
+    if score_factors is not None:
+        # non-negative factors commute with the per-point max
+        score_factors = score_factors.float()
+        point_max = point_max * score_factors
     if point_valid is not None:
         point_max = torch.where(point_valid, point_max, torch.zeros_like(point_max))
     if spec.per_level_limit > 0:
@@ -124,6 +133,8 @@ def decode_predictions(cls_logits, reg, points, ranges, spec: DecodeSpec,
         sel_probs = torch.softmax(sel_logits, dim=-1)[..., :C]
     else:
         sel_probs = torch.sigmoid(sel_logits)
+    if score_factors is not None:
+        sel_probs = sel_probs * torch.gather(score_factors, 1, top_idx)[..., None]
     if point_valid is not None:
         sel_valid = torch.gather(point_valid, 1, top_idx)
         sel_probs = torch.where(sel_valid[..., None], sel_probs,

@@ -553,3 +553,24 @@ def test_traffic_and_lfdv2_captured_engines_equal_eager(cuda, name):
         f = _frames(seed)
         got, ref = engines[0](f, vhw), engines[1](f, vhw)
         assert int(got["count"].sum()) > 0 and _same(got, ref), (name, seed)
+
+
+def test_fcos_decode_with_k1_equals_plain_at_80_classes(cuda):
+    # FCOS-R50-FPN (chip_smoke.fcos_r50_fpn) at 256x384: K1 behind 80 class
+    # offsets with the centerness factors, rows identical to the plain NMS
+    import dataclasses
+
+    from chip_smoke import fcos_r50_fpn
+    from lfdtpu_torch.models.detector import eval_forward
+
+    det = fcos_r50_fpn(cuda, seed=3)
+    spec = det.decode_spec()
+    x = torch.as_tensor(_frames(3, 1, (256, 384)), dtype=torch.float32, device=cuda)
+    outs = tuple(o[0] for o in eval_forward(det.net, x))
+    before = nms_kernel.nms_mask_sorted.launches
+    with torch.inference_mode():
+        got = det.decode_single(outs, (256, 384), (250, 380), spec)
+        ref = det.decode_single(outs, (256, 384), (250, 380),
+                                dataclasses.replace(spec, nms_use_kernel=False))
+    assert nms_kernel.nms_mask_sorted.launches == before + 1
+    assert int(got["count"]) > 0 and all(torch.equal(got[k], ref[k]) for k in got)

@@ -1,6 +1,7 @@
-# The port stands alone: importing lfdtpu_torch (every module, and every
-# script of the WIDERFACE, TT100K and TrafficLight workloads included) pulls
-# in neither jax, flax, lfdtpu nor cv2,
+# The port stands alone: importing lfdtpu_torch (every module, the FCOS
+# family's included, and every script of the WIDERFACE, TT100K and
+# TrafficLight workloads) and predicting with an LFD and an FCOS pulls in
+# neither jax, flax, lfdtpu nor cv2,
 # and the kernel modules import and run their plain versions on a machine
 # with no nvcc and no GPU, building nothing. cv2 is imported only inside the
 # functions that need it (JPEG coding, image paths, the pack checker).
@@ -27,12 +28,12 @@ from lfdtpu_torch.data import (augmentation, dataset, dataset_samplers, device_a
 from lfdtpu_torch.deploy import compile, kernel_net, latency
 from lfdtpu_torch.evaluation import base, coco_eval, tt100k, widerface
 from lfdtpu_torch.execution import (executor, hooks, jax_convert, optim, schedules,
-                                    utils)
+                                    torch_convert, utils)
 from lfdtpu_torch.ops import (assign, boxes, conv_kernels, decode, kernel_lib, loss_wrappers,
                               losses, nms, nms_kernel, points)
 from lfdtpu_torch.parallel import data_parallel, prefetch
 from lfdtpu_torch import device
-from lfdtpu_torch.models import lfdv2
+from lfdtpu_torch.models import fcos, heads, lfdv2, necks, resnet
 from lfdtpu_torch.tools import kernel_trace
 common = ("_common", "predict", "predict_engine", "evaluation", "timing_inference_latency")
 for task, scripts in (
@@ -54,6 +55,11 @@ out = eng(torch.zeros(1, 64, 64, 3, dtype=torch.uint8), [64, 64])
 timing = latency.timing_inference(eng, torch.zeros(1, 64, 64, 3, dtype=torch.uint8).numpy(),
                                   [64, 64], warmup_loops=1, timing_loops=2, distinct_inputs=2)
 rows = det.get_results(torch.zeros(1, 64, 64, 3), [None])
+rn = resnet.ResNet(depth=18, base_channels=8, out_indices=((2, 1), (3, 1), (4, 1)))
+fdet = fcos.FCOS(rn, necks.FPN(rn.num_output_channels_list, rn.num_output_strides_list, 16, 5),
+                 heads.FCOSHead(2, 16, 5, 16, 1), num_classes=2)
+fdet.init(torch.Generator().manual_seed(0))
+fcos_rows = fdet.predict_for_single_image(torch.zeros(60, 70, 3).numpy())
 print(json.dumps({
     "foreign": sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "flax", "lfdtpu", "cv2")),
@@ -64,6 +70,8 @@ print(json.dumps({
     "captured": eng.captured,
     "method": timing["method"],
     "result_lists": len(rows),
+    "fcos_rows": isinstance(fcos_rows, list),
+    "fcos_launches": nms_kernel.nms_mask_sorted.launches,
 }))
 """
 
@@ -84,6 +92,7 @@ def test_port_imports_without_jax_and_builds_nothing_on_cpu():
     assert res["count"] >= 0
     assert res["captured"] is False and res["method"] == "perf_counter_per_call"
     assert res["result_lists"] == 1
+    assert res["fcos_rows"] and res["fcos_launches"] == 0
 
 
 def test_no_source_file_imports_jax():
