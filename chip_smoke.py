@@ -7,7 +7,7 @@ head Scales, so the BN folding is exercised), captured into a CUDA graph as
 a user gets it on the card, the WIDERFACE-L training step, the training
 entry point with its val loop, and the evaluation script; then the TT100K
 and TrafficLight workloads (serving, training entry points, evaluation) and
-the LFDv2 family, and FCOS-R50-FPN. It checks them:
+the LFDv2 family, FCOS-R50-FPN, and the int8 engine. It checks them:
 
   1. card     the GPU's name and power limit (nvidia-smi);
   2. build    the hand-written kernels from lfdtpu_torch/csrc/*.cu (nvcc);
@@ -189,24 +189,60 @@ the LFDv2 family, and FCOS-R50-FPN. It checks them:
               stream (CUDA events: for a host-bound loop the host's pace),
               a profile of 3 predicted frames per precision (device work
               per frame, busy share, the busiest kernels), and K1 at the
-              FCOS shape (warm, cold, bound, plain).
+              FCOS shape (warm, cold, bound, plain);
+ 13. int8     the int8 engine (compile_inference(precision="int8"): the fused
+              int8 chain, every conv of the backbone and neck one K4 launch,
+              then the float remainder, decode and K1) of WIDERFACE-L at
+              1088x1920. K4 against its plain version, EXACT, at every
+              (shape, mode) one eager call hands its wrapper (read from its
+              inputs, as phase 12 reads K1's), at batch 1 and 4. The main
+              path, counters zeroed: the captured int8 engines with a float32
+              and a bf16 head, each calibrated by default, 3 frames each
+              through predict_for_single_image_with_engine (the replays
+              counted from a profile), and one JPEG through the port's
+              WIDERFACE_train/predict_engine.py with precision="int8"; K4
+              and K1 launches against expected_launches, which counts K4
+              from the chain's plan. Then each captured engine against an
+              eager twin (bit-equal on two frames in a row), the int8 dense
+              outputs against the fp32 engine's by lfdtpu's criteria
+              (correlation > 0.95, mean-magnitude ratio in 0.8-1.25), decode
+              + NMS with K1 against the plain NMS on the int8 outputs (rows
+              identical), the int8 chain on the GPU against the CPU at
+              256x256 with one amax dict (every int8 edge equal, dense within
+              DENSE_FP32_TOL). TL-L at 768x1280 in int8, whose norm-free
+              head runs int8 too (F15's path): its main path, captured
+              against eager, K4 at its shapes. Times beside the card: the
+              captured int8 engines against bf16_kernels (A B C C B A), a
+              profile of each int8 engine (device work per frame, the
+              busiest kernels), K4 at the main shapes (stage 0's 3x3 in mode
+              a and with its int8 residual, stem0, stem1, the neck's 1x1;
+              warm, cold, bound, plain and cuDNN's bf16 fused conv as a
+              yardstick: PyTorch has no CUDA int8 conv), and the latency
+              sweep of WIDERFACE-L in int8 at the script's four
+              resolutions.
 
-The second-to-last line is a JSON object {"kernels": [...]} (each kernel's
-launches on the WIDERFACE-L main path, and on every path in
+The second-to-last line is a JSON object {"kernels": [...]} (K1-K4; each
+kernel's launches on its main path: WIDERFACE-L's bf16 engines for K1-K3,
+its int8 engines for K4; and on every path in
 launches_by_path: an engine path's launches at build and capture and by its
 replays, the FCOS path's eager launches and replayed null (it has no
-engine); K2's and K3's times at the new shapes and K1's at the FCOS shape in
-other_shapes);
+engine); K2's and K3's times at the new shapes, K1's at the FCOS shape and
+K4's at its other main shapes in other_shapes);
 the last line is {"ok": true, "device": {...}}. Any failed check exits non-zero. Needs a
-CUDA device: without one it exits 1 and prints no result.
+CUDA device: without one it exits 1 and prints no result. No CUDA graph
+is replayed under two torch.profiler sessions: profile_engine takes a
+freshly captured engine (see there).
 
 Run from the root of a checkout:  python3 chip_smoke.py
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import faulthandler
 import importlib.util
+import io
 import json
 import os
 import re
@@ -233,7 +269,7 @@ DENSE_FP32_TOL = 1e-3       # GPU vs CPU fp32 engine, max|err| / max|ref|
 TIMED_ITERS, WARMUP = 20, 3
 # kernel bounds: NVIDIA's H100 SXM data sheet, dense rates (see kernel_bound_ms)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12}
 IOU_FLOPS = 14              # per box pair: 4 min/max, 2 sub, 2 clamp, mul, 2 add/sub,
 #                             max, div, compare (K1's IoU test)
 GRAPH_LAUNCHES = 20         # kernel timing: launches per CUDA graph
@@ -242,7 +278,8 @@ PROFILED_FRAMES = 5
 NMS_KERNEL_NAME = re.compile(r"nms_\w+(<[^>]*>)?")  # K1's kernels in a profile
 # the hand-written kernels' names in a profile, per wrapper (K1 launches two)
 KERNEL_NAMES = {"pair_conv3x3": ("pair_conv_kernel",), "stem_conv": ("stem_conv_kernel",),
-                "nms_mask_sorted": ("nms_iou_kernel", "nms_walk_kernel")}
+                "nms_mask_sorted": ("nms_iou_kernel", "nms_walk_kernel"),
+                "int8_conv": ("int8_conv_kernel",)}
 # engine variants: compile_inference's switches (lfdtpu's defaults: K1 on, K2
 # and K3 off); expected_launches counts what one capture of a net launches
 VARIANTS = {
@@ -252,6 +289,9 @@ VARIANTS = {
     "bf16_plain": dict(precision="bf16", nms_use_kernel=False),
     # a net whose stem K2 does not take (TL-S: 48 channels) serves K1 and K3
     "bf16_k1_k3": dict(precision="bf16", kernel_convs=True),
+    # the fused int8 chain (K4 for every int8 conv) and K1; float32 or bf16 head
+    "int8": dict(precision="int8"),
+    "int8_bf16": dict(precision="int8", int8_head_dtype="bf16"),
 }
 SWEEP_LOOPS = 30            # timed calls per cell of the latency sweep (the script's: 50)
 VAL_IMAGES, VAL_BATCH = 24, 8  # the val loader: the pack's first images
@@ -295,6 +335,20 @@ FCOS_FRAMES = 3             # frames predicted per precision on the main path
 FCOS_TRAIN_BATCHES = (2, 8)  # the published per-GPU batch, and 8
 FCOS_STEPS, FCOS_WARMUP = 6, 2
 FCOS_NMAX = 100
+# the int8 engine (phase 13)
+INT8_FRAMES = 3             # frames each int8 engine serves on the main path
+INT8_CORR, INT8_RATIO = 0.95, (0.8, 1.25)  # lfdtpu's criteria against fp32
+# K4's timed shapes: the first of the main path's calls (the largest level)
+# with these (Cin, Cout, k, stride, mode); the first is the kernels line's.
+# At 1088x1920: 272x480 (stage 0, the neck's first level), 1088x1920 (stem0)
+# and 544x960 (stem1)
+K4_TIMED = (
+    ("stage 0 3x3 64->64, mode a", (64, 64, 3, 1, "a")),
+    ("stage 0 3x3 64->64, int8 residual", (64, 64, 3, 1, "c8")),
+    ("stem0 3x3/s2 3->64", (3, 64, 3, 2, "a")),
+    ("stem1 1x1 64->64", (64, 64, 1, 1, "a")),
+    ("neck 1x1 64->128", (64, 128, 1, 1, "a")),
+)
 
 
 class SmokeFailure(RuntimeError):
@@ -369,7 +423,8 @@ def graph_ms(calls, launches=GRAPH_LAUNCHES, reps=5):
 def kernel_work(name, shape, residual=False):
     """(bytes, operations, their type) of one launch: each input read once
     and each output written once, the operations its inputs need.
-    shape: (N, H, W) of K3's activations or K2's frame; (B, K) for K1."""
+    shape: (N, H, W) of K3's activations or K2's frame; (B, K) for K1;
+    (N, H, W, Cin, Cout, k, stride, mode) for K4."""
     if name == "pair_conv3x3":
         n, h, w = shape
         act = n * h * w * 64 * 2  # bf16 NHWC
@@ -383,14 +438,26 @@ def kernel_work(name, shape, residual=False):
     if name == "nms_mask_sorted":
         b, k = shape  # fp32 xyxy boxes and a bool mask in, a bool mask out
         return b * k * (16 + 1 + 1), b * k * (k - 1) // 2 * IOU_FLOPS, "fp32"
+    if name == "int8_conv":
+        # shape (N, H, W, Cin, Cout, k, stride, mode): mode "a" int8 out, "b"
+        # f32 out, "c8" int8 out with an int8 residual, "cf" with an f32 one
+        n, h, w, cin, cout, k, stride, mode = shape
+        p = k // 2
+        ho, wo = (h + 2 * p - k) // stride + 1, (w + 2 * p - k) // stride + 1
+        outs = n * ho * wo * cout
+        consts = cout * k * k * cin + 2 * cout * 4  # int8 weights, fp32 mult and bias
+        nbytes = (n * h * w * cin + consts + outs * (4 if mode == "b" else 1)
+                  + outs * {"a": 0, "b": 0, "c8": 1, "cf": 4}[mode])
+        return nbytes, 2 * outs * k * k * cin, "int8"
     raise ValueError(f"unknown kernel {name}")
 
 
 def kernel_bound_ms(name, shape, residual=False):
     """The least time the card could take for one launch: the larger of its
     bytes over the memory rate and its operations over the peak rate of
-    their type (H100 SXM: 3.35 TB/s, 989 TFLOP/s bf16 tensor, 67 TFLOP/s
-    fp32). Returns (ms, "bytes" or "operations"), whichever binds."""
+    their type (H100 SXM: 3.35 TB/s, 989 TFLOP/s bf16 tensor, 1,979 TOP/s
+    int8 tensor, 67 TFLOP/s fp32). Returns (ms, "bytes" or "operations"),
+    whichever binds."""
     nbytes, ops, kind = kernel_work(name, shape, residual)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[kind]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -451,18 +518,24 @@ def frames(rng, n, hw):
 
 
 def expected_launches(det, switches):
-    """K1/K2/K3 launches of one captured frame of an engine of `det` with
+    """K1/K2/K3/K4 launches of one captured frame of an engine of `det` with
     compile_inference's `switches`, counted from the net: K1 once unless
     the NMS kernel is off, K2 once with the stem kernel, K3 twice for each
     FasterBlock that deploy/kernel_net.py::eligible_faster_block routes
-    (bf16 kernel_convs engines). A batch launches each as often as a frame."""
+    (bf16 kernel_convs engines), K4 once for each unit of the int8 chain's
+    plan (deploy/int8_net.py::planned_launches; int8 engines). A batch
+    launches each as often as a frame."""
     from lfdtpu_torch.deploy.kernel_net import eligible_faster_block
+
+    from lfdtpu_torch.deploy.int8_net import planned_launches
 
     blocks = sum(map(eligible_faster_block, det.net.modules()))
     convs = switches.get("kernel_convs", False) and switches.get("precision") == "bf16"
+    int8 = switches.get("precision") == "int8"
     return {"nms_mask_sorted": int(switches.get("nms_use_kernel", True)),
             "stem_conv": int(switches.get("kernel_stem", False)),
-            "pair_conv3x3": 2 * blocks if convs else 0}
+            "pair_conv3x3": 2 * blocks if convs else 0,
+            "int8_conv": planned_launches(det.net) if int8 else 0}
 
 
 def kernel_variant(det):
@@ -1680,7 +1753,13 @@ def profile_engine(engine, x, vhw, card, label, counters, want, frames_=PROFILED
     kernel name. Then torch.profiler over PROFILED_FRAMES frames: each
     kernel's device ms per frame, all device work per frame, the device-busy
     share and the busiest kernels. Returns the busy share and all device ms
-    per frame."""
+    per frame.
+
+    A captured `engine` must be a fresh capture that no earlier profiler
+    session replayed: replaying a graph under a second session has crashed
+    CUPTI (a segfault in libcuda under libcupti's cuGraphLaunch callback,
+    torch 2.11, CUDA 12.8, in phase 13 once phase 11 had run; ROADMAP F16),
+    and a fresh graph never did."""
     import torch
 
     for c in counters:
@@ -1910,7 +1989,8 @@ def serve_traffic(name, device, card, counters, rng):
     check_fp32_reference(det, device, rng, preprocess=pre, **extra)
     x = torch.as_tensor(frames(rng, 1, hw), device=device)
     vhw = torch.tensor([h - 8, w], dtype=torch.float32, device=device)
-    profile_engine(engines[1], x, vhw, card, name, counters, want, frames_=3)
+    profile_engine(compile_engine(det, hw, device, kv, preprocess=pre, **extra), x, vhw, card,
+                   name, counters, want, frames_=3)
     ms = {}
     for b in batches:
         for variant in ("fp32", "bf16", kv):
@@ -2225,7 +2305,8 @@ def serve_and_train_lfdv2(device, card, counters, rng):
     print(f"LFDv2 main path: 2 replays served {[len(r) for r in rows]} rows; launches at "
           f"build and capture {launches}; by the replays (profile) {replayed} ({window})")
     for k, v in want.items():
-        check(launches[k] > 0, f"LFDv2's main path never launched {k}")
+        check((launches[k] > 0) == (v > 0), f"LFDv2's main path launched {k} {launches[k]} "
+              f"times, the net takes it {v} times a frame")
     check(replayed == {k: 2 * v for k, v in want.items()},
           "LFDv2's replays did not launch each kernel as captured")
     for r, img in zip(rows, imgs):
@@ -2457,7 +2538,8 @@ def fcos_phase(device, card, counters):
           f"get_results batch 2 ({[len(r) for r in rows['batch']]} rows); launches "
           f"{launches}; K1's boxes (read) {shapes}, valid {n_valid}")
     want = 2 * FCOS_FRAMES + 1
-    check(launches == {"nms_mask_sorted": want, "stem_conv": 0, "pair_conv3x3": 0},
+    check(launches == {"nms_mask_sorted": want, "stem_conv": 0, "pair_conv3x3": 0,
+                       "int8_conv": 0},
           f"the FCOS main path did not launch K1 once per call ({want})")
     check(shapes == [(1, spec.nms_budget, 4)] * (2 * FCOS_FRAMES) + [(2, spec.nms_budget, 4)]
           and min(map(min, n_valid)) == spec.nms_budget,
@@ -2542,16 +2624,390 @@ def fcos_phase(device, card, counters):
     return launches, k1_row, k1_err
 
 
+# ------------------------------------------------------------------- int8
+
+def k4_inputs(fn):
+    """(fn(), [the keyword arguments of each call of K4's wrapper while fn
+    ran]), read where the int8 chain calls it (deploy/int8_net.py)."""
+    from lfdtpu_torch.deploy import int8_net
+
+    calls, wrapper = [], int8_net.int8_conv
+
+    def recorded(x8, wpack, mult, bias, kernel_size, stride, relu=False, out_scale=None,
+                 residual=None, residual_scale=None):
+        kw = dict(x=x8, wpack=wpack, mult=mult, bias=bias, kernel_size=kernel_size,
+                  stride=stride, relu=relu, out_scale=out_scale, residual=residual,
+                  residual_scale=residual_scale)
+        calls.append(kw)
+        return wrapper(**kw)
+
+    int8_net.int8_conv = recorded
+    try:
+        return fn(), calls
+    finally:
+        int8_net.int8_conv = wrapper
+
+
+def k4_mode(call):
+    """K4's output mode of one call: a (int8), b (f32), c8 / cf (an int8 /
+    f32 residual fused)."""
+    if call["out_scale"] is None:
+        return "b"
+    if call["residual"] is None:
+        return "a"
+    return "cf" if call["residual"].is_floating_point() else "c8"
+
+
+def k4_shape(call):
+    n, h, w, cin = call["x"].shape
+    return (n, h, w, cin, call["wpack"].shape[0], call["kernel_size"], call["stride"],
+            k4_mode(call))
+
+
+def check_k4(calls, label):
+    """K4 against its plain version on each recorded call: EXACT (int8 and
+    float32 outputs bit-equal). Returns (max|err|, the distinct (shape,
+    mode)s)."""
+    import torch
+
+    from lfdtpu_torch.ops import int8_conv as k4
+
+    err, seen = 0.0, {}
+    for c in calls:
+        got = k4.int8_conv(**c)
+        ref = k4.int8_conv_plain(**c)
+        torch.cuda.synchronize()
+        check(got.dtype == ref.dtype and got.shape == ref.shape, f"{label}: K4 output form")
+        e = float((got.float() - ref.float()).abs().max()) if got.numel() else 0.0
+        err = max(err, e)
+        seen[k4_shape(c)] = seen.get(k4_shape(c), 0) + 1
+        check(e == 0.0, f"{label}: K4 disagrees with its plain version at {k4_shape(c)} "
+              f"(max|err| {e})")
+    print(f"K4 against its plain version, {label}: {len(calls)} calls, {len(seen)} distinct "
+          f"(N, H, W, Cin, Cout, k, stride, mode), max|err| {err} (exact)")
+    for shape, n in seen.items():
+        print(f"  {shape} x{n}")
+    return err, seen
+
+
+def predict_engine_jpeg(det, hw, rng, tmp):
+    """One JPEG through the port's WIDERFACE_train/predict_engine.py with
+    precision="int8": `det`'s weights as a checkpoint, a seeded frame of
+    `hw` as a JPEG, the script's own engine (fake-quantized weights,
+    calibrated on noise, captured). Returns its rows."""
+    from lfdtpu_torch.execution import save_checkpoint
+
+    ckpt, jpg = os.path.join(tmp, "int8.pth"), os.path.join(tmp, "frame.jpg")
+    save_checkpoint(ckpt, det.net)
+    write_frame(jpg, hw, rng)
+    script = load_script("WIDERFACE_train", "predict_engine.py")
+    with contextlib.redirect_stdout(io.StringIO()):  # the script prints every row
+        return script.predict_with_engine("L", ckpt, jpg, precision="int8",
+                                          classification_threshold=SERVE_THRESHOLD,
+                                          out_path=os.path.join(tmp, "out.jpg"))
+
+
+def corr_and_ratio(got, ref):
+    """lfdtpu's closeness criteria of an int8 output against fp32
+    (tests/test_deploy.py:126-160): correlation, mean-magnitude ratio."""
+    g, r = got.float().cpu().numpy().ravel(), ref.float().cpu().numpy().ravel()
+    return float(np.corrcoef(g, r)[0, 1]), float(np.abs(g).mean() / np.abs(r).mean())
+
+
+def check_int8_close_to_fp32(engine, fp32, x, label):
+    for out8, out32, what in zip(engine.dense(x), fp32.dense(x), ("cls", "reg")):
+        cc, ratio = corr_and_ratio(out8, out32)
+        print(f"{label} {what} against fp32: correlation {cc:.4f} (> {INT8_CORR}), "
+              f"mean-magnitude ratio {ratio:.4f} (in {INT8_RATIO})")
+        check(cc > INT8_CORR and INT8_RATIO[0] < ratio < INT8_RATIO[1],
+              f"{label} {what} is not close to fp32 by lfdtpu's criteria")
+
+
+def check_int8_gpu_vs_cpu(det, device, rng):
+    """The int8 chain on the GPU against the port's int8 chain on the CPU
+    at SMALL_HW with one amax dict: every int8 edge equal (K4 against the
+    plain version, constants folded on the CPU for both), the dense outputs
+    within DENSE_FP32_TOL (the float head)."""
+    import torch
+
+    from lfdtpu_torch.deploy import calibrate_module_amax, make_device_preprocess
+    from lfdtpu_torch.deploy.int8_net import Int8Chain
+
+    pre = make_device_preprocess(MEAN, STD)
+    f = frames(rng, 1, SMALL_HW)
+    amax = calibrate_module_amax(det.net, [f], pre.to(device))
+    x = pre.cpu()(torch.as_tensor(f)).float()
+    keys = {k[:-4]: None for k in amax if k.endswith("#out") and k != "__input__#out"}
+    cap_gpu, cap_cpu = dict(keys), dict(keys)
+    with torch.inference_mode():
+        cg, rg = Int8Chain(det.net, amax)(x.to(device), capture=cap_gpu)
+        net_cpu = copy.deepcopy(det.net).cpu()
+        cc, rc = Int8Chain(net_cpu, amax)(x, capture=cap_cpu)
+    edges = [k for k, v in cap_cpu.items() if isinstance(v, tuple)]
+    same = all(torch.equal(cap_gpu[k][0].cpu(), cap_cpu[k][0]) for k in edges)
+    ec, er = rel_err(cg.cpu(), cc), rel_err(rg.cpu(), rc)
+    print(f"int8 {SMALL_HW} GPU vs CPU, one amax dict: {len(edges)} int8 edges equal={same}; "
+          f"dense cls {ec:.3e}, reg {er:.3e} max|err|/max|ref| (tol {DENSE_FP32_TOL})")
+    check(same and len(edges) > 0, "an int8 edge differs between the GPU and the CPU")
+    check(ec < DENSE_FP32_TOL and er < DENSE_FP32_TOL, "int8 dense GPU disagrees with CPU")
+
+
+def k4_yardstick_ms(call, card):
+    """cuDNN in bf16 of K4's conv shape with its epilogue fused where cuDNN
+    has the call (cudnn_convolution_relu, or _add_relu with the residual; a
+    yardstick only: a bf16 conv, not K4's function). Returns (ms, call)."""
+    import torch
+    import torch.nn.functional as F
+
+    n, h, w, cin, cout, k, stride, mode = k4_shape(call)
+    g = torch.Generator(device="cuda").manual_seed(k * 100 + cin)
+    x = torch.randn(n, cin, h, w, generator=g, device="cuda").bfloat16().contiguous(
+        memory_format=torch.channels_last)
+    wt = (torch.randn(cout, cin, k, k, generator=g, device="cuda") * 0.05).bfloat16() \
+        .contiguous(memory_format=torch.channels_last)
+    b = torch.zeros(cout, device="cuda").bfloat16()
+    ho, wo = (h + 2 * (k // 2) - k) // stride + 1, (w + 2 * (k // 2) - k) // stride + 1
+    z = torch.randn(n, cout, ho, wo, generator=g, device="cuda").bfloat16().contiguous(
+        memory_format=torch.channels_last)
+    st, pad, one = [stride] * 2, [k // 2] * 2, [1, 1]
+
+    def fused():
+        if mode in ("c8", "cf"):
+            return torch.cudnn_convolution_add_relu(x, wt, z, 1.0, b, st, pad, one, 1)
+        return torch.cudnn_convolution_relu(x, wt, b, st, pad, one, 1)
+
+    try:
+        fused()
+        torch.cuda.synchronize()
+        name = ("cudnn_convolution_add_relu" if mode in ("c8", "cf")
+                else "cudnn_convolution_relu")
+        return graph_ms([fused]), f"cuDNN bf16 {name} (yardstick, not int8)"
+    except RuntimeError:
+        return (graph_ms([lambda: F.conv2d(x, wt, None, stride, k // 2)]),
+                "cuDNN bf16 conv2d alone (yardstick, not int8)")
+
+
+def time_k4(calls, card, device):
+    """K4 at the main path's shapes (K4_TIMED: stage 0's 3x3 in mode a and
+    with its int8 residual, stem0, stem1, the neck's 1x1 at 272x480), each on
+    the inputs the chain gave it: warm and cold CUDA-graph ms, bound, plain
+    (eager), and the bf16 cuDNN yardstick. Returns the rows, the first the
+    kernels line's."""
+    import torch
+
+    from lfdtpu_torch.ops import int8_conv as k4
+
+    rows = []
+    for label, pick in K4_TIMED:
+        call = next(c for c in calls if k4_shape(c)[3:] == pick)
+        shape = k4_shape(call)
+        sets = COLD_BYTES // kernel_work("int8_conv", shape)[0] + 2
+        g = torch.Generator(device=device).manual_seed(len(rows))
+        xs = [call["x"]] + [torch.randint(-127, 128, tuple(call["x"].shape), generator=g,
+                                          device=device, dtype=torch.int8)
+                            for _ in range(sets - 1)]
+        warm = graph_ms([lambda: k4.int8_conv(**call)])
+        cold = graph_ms([lambda xi=xi: k4.int8_conv(**dict(call, x=xi)) for xi in xs])
+        plain = time_ms(lambda: k4.int8_conv_plain(**call), iters=5, warmup=1)
+        yard, yard_call = k4_yardstick_ms(call, card)
+        row = _timing("int8_conv", shape, card, warm, cold, plain, None,
+                      note=f" ({label}); {yard_call} {yard:.4f} ms",
+                      library_call="none: PyTorch has no int8 convolution on CUDA")
+        rows.append(dict(shape=list(shape), what=label, yardstick_ms=yard,
+                         yardstick_call=yard_call, **row))
+        del xs
+    return rows
+
+
+def int8_phase(device, card, counters, tmp):
+    """Phase 13: the int8 engine (the fused int8 chain with K4, then the float
+    remainder, decode and K1) of WIDERFACE-L at 1088x1920. K4 against its
+    plain version at every (shape, mode) one eager call hands it, at batch 1
+    and 4. The main path, counters zeroed: the captured int8 engines (float32
+    and bf16 head), each calibrated by default (compile_inference's noise
+    frames), INT8_FRAMES frames each through
+    predict_for_single_image_with_engine (the replays counted from a
+    profile), and one JPEG through the port's predict_engine.py with
+    precision="int8". Then the captured engines against eager twins, int8
+    against fp32 (lfdtpu's criteria), decode + NMS with K1 against the plain
+    NMS, the GPU against the CPU at SMALL_HW; TL-L at 768x1280 (its
+    norm-free head runs int8: F15's path), the same checks and K4 at its
+    shapes; then the times. Returns (main path launches, replays, K4's
+    max|err|, K4's timing rows, TL-L's launches and replays)."""
+    import torch
+
+    from lfdtpu_torch.deploy import inference_latency_evaluation, make_device_preprocess
+    from lfdtpu_torch.ops import int8_conv as k4
+
+    t0 = time.time()
+    det = build_detector(device)
+    rng = np.random.RandomState(13)
+    want = expected_launches(det, VARIANTS["int8"])
+    print(f"WIDERFACE-L int8 chain plan: {want['int8_conv']} K4 launches a frame "
+          "(deploy/int8_net.py::planned_launches)")
+
+    # K4 against its plain version at the shapes the main path gives it
+    k4_err, calls_b1 = 0.0, None
+    for batch in (1, 4):
+        eager = compile_engine(det, HW, device, "int8", batch_size=batch, captured=False)
+        _, calls = k4_inputs(lambda: eager.dense(frames(rng, batch, HW)))
+        check(len(calls) == want["int8_conv"],
+              f"one eager int8 call gave K4 {len(calls)} calls, not {want['int8_conv']}")
+        k4_err = max(k4_err, check_k4(calls, f"WIDERFACE-L int8 batch {batch}")[0])
+        if batch == 1:
+            calls_b1 = calls
+        del eager, calls
+    torch.cuda.empty_cache()
+
+    # the main path
+    for c in counters:
+        c.launches = 0
+    engines = {v: compile_engine(det, HW, device, v) for v in ("int8", "int8_bf16")}
+    imgs = [frames(rng, 1, (HW[0] - 8 - 24 * i, HW[1] - 40 * i))[0] for i in range(INT8_FRAMES)]
+
+    def work():
+        return {v: [det.predict_for_single_image_with_engine(e, f) for f in imgs]
+                for v, e in engines.items()}
+
+    prof, rows = profiled(lambda: engines["int8"](frames(rng, 1, HW), HW), work)
+    replayed, window = kernel_launches_in(prof)
+    script_rows = predict_engine_jpeg(det, (HW[0] - 8, HW[1]), rng, tmp)
+    launches = {c.__name__: c.launches for c in counters}
+    print(f"WIDERFACE-L int8 main path: {2 * INT8_FRAMES} replays served "
+          f"{ {v: [len(r) for r in rr] for v, rr in rows.items()} } rows, predict_engine.py "
+          f"(int8) {len(script_rows)} rows; launches at build and capture {launches}; by the "
+          f"replays (profile) {replayed} ({window}); per capture "
+          f"{ {v: e.captured_launches for v, e in engines.items()} } (counted from the net "
+          f"{want})")
+    for k, v in want.items():
+        check((launches[k] > 0) == (v > 0), f"the int8 main path launched {k} "
+              f"{launches[k]} times, the net takes it {v} times a frame")
+    check(all(e.captured and e.captured_launches == want for e in engines.values()),
+          f"an int8 capture did not record {want}")
+    check(replayed == {k: 2 * INT8_FRAMES * v for k, v in want.items()},
+          "the int8 replays did not launch each kernel as captured")
+    for v, rr in rows.items():
+        for r, img in zip(rr, imgs):
+            check_rows(det, r, img)
+    check_rows(det, script_rows, np.zeros((HW[0] - 8, HW[1], 3)))
+
+    # captured against eager twins (the same scales), int8 against fp32, K1
+    for v, e in engines.items():
+        captured_vs_eager(det, HW, device, rng, v, 1, "WIDERFACE-L", captured=e,
+                          act_scales=e.int8_chain.amax)
+    x = frames(rng, 1, HW)
+    fp32 = compile_engine(det, HW, device, "fp32", captured=False)
+    for v, e in engines.items():
+        check_int8_close_to_fp32(e, fp32, x, f"WIDERFACE-L {v}")
+    del fp32
+    amax = engines["int8"].int8_chain.amax
+    plain_nms = compile_engine(det, HW, device, "int8", captured=False, nms_use_kernel=False,
+                               act_scales=amax)
+    c8, r8 = engines["int8"].dense(x)
+    vhw = np.asarray([HW[0] - 8, HW[1]], np.float32)
+    dk, dp = engines["int8"].decode(c8, r8, vhw), plain_nms.decode(c8, r8, vhw)
+    same = all(torch.equal(dk[k], dp[k]) for k in dk)
+    print(f"WIDERFACE-L int8 decode + NMS on the same dense outputs, K1 vs plain: "
+          f"{int(dk['count'][0])} rows, identical={same}")
+    check(same and int(dk["count"][0]) > 0, "int8 decode with K1 differs from the plain NMS")
+    del plain_nms
+    check_int8_gpu_vs_cpu(det, device, rng)
+    torch.cuda.empty_cache()
+    print(f"int8 WIDERFACE-L checks {time.time() - t0:.1f} s")
+
+    # TL-L: its norm-free head runs int8 too (F15's path)
+    tl = build_detector(device, seed=3, name="TL-L", cls_std=CLS_STD)
+    pre = traffic_preprocess("TL-L")
+    want_tl = expected_launches(tl, VARIANTS["int8"])
+    for c in counters:
+        c.launches = 0
+    tl_engine = compile_engine(tl, TL_HW, device, "int8", preprocess=pre, class_agnostic=True)
+    tl_imgs = [frames(rng, 1, (TL_HW[0] - 48, TL_HW[1]))[0]  # 720p in its bucket
+               for _ in range(SERVED_FRAMES)]
+    prof, tl_rows = profiled(lambda: tl_engine(frames(rng, 1, TL_HW), TL_HW),
+                             lambda: [tl.predict_for_single_image_with_engine(tl_engine, f)
+                                      for f in tl_imgs])
+    tl_launches = {c.__name__: c.launches for c in counters}
+    tl_replayed, window = kernel_launches_in(prof)
+    print(f"TL-L int8 main path: {SERVED_FRAMES} replays served {[len(r) for r in tl_rows]} "
+          f"rows; launches at build and capture {tl_launches}; by the replays (profile) "
+          f"{tl_replayed} ({window}); per capture {tl_engine.captured_launches} (counted "
+          f"from the net {want_tl})")
+    for k, v in want_tl.items():
+        check((tl_launches[k] > 0) == (v > 0), f"TL-L int8: {k} launched {tl_launches[k]}")
+    check(tl_engine.captured_launches == want_tl, f"TL-L int8: a capture did not record {want_tl}")
+    check(tl_replayed == {k: SERVED_FRAMES * v for k, v in want_tl.items()},
+          "TL-L int8 replays did not launch each kernel as captured")
+    for r, img in zip(tl_rows, tl_imgs):
+        check_rows(tl, r, img)
+    captured_vs_eager(tl, TL_HW, device, rng, "int8", 1, "TL-L", captured=tl_engine,
+                      preprocess=pre, act_scales=tl_engine.int8_chain.amax, class_agnostic=True)
+    eager = compile_engine(tl, TL_HW, device, "int8", captured=False, preprocess=pre,
+                           act_scales=tl_engine.int8_chain.amax, class_agnostic=True)
+    _, calls = k4_inputs(lambda: eager.dense(frames(rng, 1, TL_HW)))
+    err, seen = check_k4(calls, "TL-L int8 (its head's merge units included)")
+    k4_err = max(k4_err, err)
+    check(any(s[3] == 128 and s[4] == 128 and s[5] == 1 for s in seen),
+          "TL-L's int8 head convs did not reach K4")
+    del eager, calls, tl_engine
+    torch.cuda.empty_cache()
+
+    # times, beside the card
+    print(f"[13 int8 timings] {card}")
+    xc = torch.as_tensor(x, device=device)
+    vhw_c = torch.as_tensor(vhw, device=device)
+    pair = {"int8": engines["int8"], "int8_bf16": engines["int8_bf16"],
+            "bf16_kernels": compile_engine(det, HW, device, "bf16_kernels")}
+    ms = {k: [] for k in pair}
+    for k in ("int8", "int8_bf16", "bf16_kernels", "bf16_kernels", "int8_bf16", "int8"):
+        ms[k].append(time_ms(lambda e=pair[k]: e(xc, vhw_c), iters=30, warmup=10))
+    print(f"captured engines {HW[0]}x{HW[1]} batch 1, frame on the card, ms/frame (A B C C B A): "
+          + "; ".join(f"{k} " + ", ".join(f"{t:.3f}" for t in v) for k, v in ms.items())
+          + f" [{card}]")
+    share = {}
+    for v in ("int8", "int8_bf16"):
+        fresh = compile_engine(det, HW, device, v, act_scales=engines[v].int8_chain.amax)
+        share[v] = profile_engine(fresh, xc, vhw_c, card, f"captured WIDERFACE-L {v}",
+                                  counters, want)
+    del pair, engines, fresh
+    torch.cuda.empty_cache()
+    k4_rows = time_k4(calls_b1, card, device)
+    del calls_b1
+    torch.cuda.empty_cache()
+    from lfdtpu_torch import zoo
+
+    sweep_det = zoo.widerface_lfd("L")
+    sweep_det.init(torch.Generator().manual_seed(0))
+    res = inference_latency_evaluation(
+        sweep_det, precisions=("int8",), preprocess=make_device_preprocess(MEAN, STD),
+        timing_loops=SWEEP_LOOPS, verbose=False, device=device)
+    check(len(res) == 4, "the int8 sweep should give four cells")
+    for (precision, (h, w)), r in res.items():
+        print(f"sweep WIDERFACE-L {precision} {w}x{h}: median {r['ms_per_image']:.3f} ms/image, "
+              f"p25 {r['ms_p25']:.3f}, p75 {r['ms_p75']:.3f}, p95 {r['ms_p95']:.3f}, min "
+              f"{r['ms_min']:.3f}, {r['fps']:.1f} FPS, {r['loops']} calls, {r['method']} "
+              f"[{card}]")
+        check(r["method"] == "cuda_events_per_call" and r["loops"] == SWEEP_LOOPS
+              and 0 < r["ms_min"] <= r["ms_per_image"] <= r["ms_p95"],
+              f"bad int8 latency cell {w}x{h}")
+    del sweep_det
+    torch.cuda.empty_cache()
+    return launches, replayed, k4_err, k4_rows, tl_launches, tl_replayed
+
+
 # ------------------------------------------------------------------ main
 
 def main():
     import torch
 
+    # a crash in native code prints the crashing thread's Python stack (the
+    # loaders' idle worker threads would crowd it out of an all-threads dump)
+    faulthandler.enable(all_threads=False)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
-    from lfdtpu_torch.ops import conv_kernels, kernel_lib, nms_kernel
+    from lfdtpu_torch.ops import conv_kernels, int8_conv, kernel_lib, nms_kernel
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2580,7 +3036,7 @@ def main():
     det = build_detector(device)
     rng = np.random.RandomState(5)
     counters = (nms_kernel.nms_mask_sorted, conv_kernels.stem_conv,
-                conv_kernels.pair_conv3x3)
+                conv_kernels.pair_conv3x3, int8_conv.int8_conv)
     # The main path: compile_inference (the wrappers launch their kernels in
     # the warmup calls and while the graph is captured; that is where the
     # host counters tick), then the predict entry points, whose calls replay
@@ -2601,9 +3057,9 @@ def main():
           f"of 4 ({[len(r) for r in rows_batch]} rows); launches at build and capture "
           f"{launches}; launches by the 9 replays (profile, by kernel name) {replayed} "
           f"({window})")
-    for name, n in launches.items():
-        check(n > 0, f"the main path never launched {name}")
     want = expected_launches(det, VARIANTS["bf16_kernels"])
+    for name, n in launches.items():
+        check((n > 0) == (want[name] > 0), f"the main path launched {name} {n} times")
     check(replayed == {k: 9 * v for k, v in want.items()},
           "the served replays did not launch each kernel as captured")
     imgs = check_engine_parity(det, engines, HW, rng)
@@ -2635,8 +3091,8 @@ def main():
     eager = compile_engine(det, HW, device, "bf16_kernels", captured=False)
     share = {"eager": profile_engine(eager, x, vhw, card, "eager WIDERFACE-L", counters,
                                      want)[0],
-             "captured": profile_engine(engines["bf16_kernels"], x, vhw, card,
-                                        "captured WIDERFACE-L", counters, want)[0]}
+             "captured": profile_engine(compile_engine(det, HW, device, "bf16_kernels"), x,
+                                        vhw, card, "captured WIDERFACE-L", counters, want)[0]}
     del eager
     check(share["captured"] is not None, "the profiler saw no device time")
     print(f"device-busy share, bf16_kernels engine, frame on the card: eager "
@@ -2689,6 +3145,20 @@ def main():
                                                                       replayed=None)
     err1 = max(err1, fcos_err)
     print(f"FCOS phase {time.time() - t0:.1f} s")
+    print(f"[13 int8] {card}")
+    t0 = time.time()
+    tmp = tempfile.mkdtemp(prefix="lfd_int8_")
+    try:
+        launches8, replayed8, k4_err, k4_rows, tl_launches8, tl_replayed8 = int8_phase(
+            device, card, counters, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    paths["WIDERFACE-L int8 (float32 and bf16 heads, predict_engine.py)"] = dict(
+        build_and_capture=launches8, replayed=replayed8)
+    paths["TL-L int8"] = dict(build_and_capture=tl_launches8, replayed=tl_replayed8)
+    timings["int8_conv"] = {k: v for k, v in k4_rows[0].items()
+                            if k not in ("shape", "what")}
+    print(f"int8 phase {time.time() - t0:.1f} s")
 
     sources = {
         "nms_mask_sorted": ("lfdtpu_torch/csrc/nms.cu", "lfdtpu/ops/nms_pallas.py:49", err1),
@@ -2696,12 +3166,20 @@ def main():
                       errs["stem_conv"]),
         "pair_conv3x3": ("lfdtpu_torch/csrc/pair_conv.cu", "lfdtpu/ops/conv_pallas.py:171",
                          errs["pair_conv3x3"]),
+        # not a Pallas kernel: XLA's int8 conv of lfdtpu's fused int8 chain
+        "int8_conv": ("lfdtpu_torch/csrc/int8_conv.cu", "lfdtpu/deploy/int8_net.py:276",
+                      k4_err),
     }
     other = {"nms_mask_sorted": [fcos_k1],
              "stem_conv": [r for r in new_rows if "residual" not in r],
-             "pair_conv3x3": [r for r in new_rows if "residual" in r]}
+             "pair_conv3x3": [r for r in new_rows if "residual" in r],
+             "int8_conv": k4_rows[1:]}
+    # each kernel's launches on its main path: WIDERFACE-L's bf16 engines for
+    # K1-K3 (phase 5), its int8 engines for K4 (phase 13)
+    main = {name: (launches8, replayed8) if name == "int8_conv" else (launches, replayed)
+            for name in sources}
     kernels = [dict(name=name, route="cuda", source=src, replaces=tpu,
-                    launches=launches[name], replayed_launches=replayed[name],
+                    launches=main[name][0][name], replayed_launches=main[name][1][name],
                     max_abs_err=err, **timings[name],
                     launches_by_path={p: {k: None if n is None else n[name]
                                           for k, n in counts.items()}

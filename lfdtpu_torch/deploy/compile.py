@@ -4,6 +4,9 @@
 # input resolution and precision:
 #   fp32 -> float32 weights and math   (reference TRT fp32 engine)
 #   bf16 -> bfloat16 weights and math  (reference TRT fp16 engine)
+#   int8 -> the calibrated fused int8 chain (reference TRT int8 engine;
+#           deploy/int8_net.py, K4), then the float remainder in float32
+#           (or bfloat16 with int8_head_dtype="bf16")
 # It takes raw uint8 NHWC frames (padded to the resolution bucket) and
 # returns fixed-shape detections, decode and NMS included.
 #
@@ -17,8 +20,8 @@
 # host data, or a CUDA allocation outside torch's allocator, anywhere in
 # Engine._forward.
 #
-# The int8, split, s2d_stem, mesh, approx_topk, int8_head_dtype and
-# output_dtype options of the JAX engine are not ported yet.
+# The split, s2d_stem, mesh, approx_topk and output_dtype options of the JAX
+# engine are not ported yet.
 
 from __future__ import annotations
 
@@ -31,10 +34,15 @@ from torch import nn
 
 from ..device import resolve_device
 from ..ops.conv_kernels import pair_conv3x3, stem_conv
+from ..ops.int8_conv import int8_conv
 from ..ops.nms_kernel import nms_mask_sorted
+from .int8_net import Int8Chain, calibrate_module_amax
 from .kernel_net import attach_kernels, prepack_stem
 
-_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+# the float dtype of each precision's net (int8: its float remainder's default)
+_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16, "int8": torch.float32}
+_HEAD_DTYPES = {None: torch.float32, "bf16": torch.bfloat16}  # int8_head_dtype
+CALIBRATION_FRAMES = 2  # noise frames of the default int8 calibration (lfdtpu's)
 _WARMUP_CALLS = 3  # eager calls before a capture
 
 
@@ -91,7 +99,7 @@ def unpack_detections(packed):
     )
 
 
-_COUNTED = (nms_mask_sorted, stem_conv, pair_conv3x3)  # the kernel wrappers
+_COUNTED = (nms_mask_sorted, stem_conv, pair_conv3x3, int8_conv)  # the kernel wrappers
 
 
 def _launch_counts():
@@ -120,7 +128,8 @@ class Engine:
     counters tick while the graph is captured, not when it replays)."""
 
     def __init__(self, detector, net, preprocess, spec, input_hw, precision,
-                 batch_size, device, pack_output, kernel_stem, captured=False):
+                 batch_size, device, pack_output, kernel_stem, captured=False,
+                 int8_chain=None):
         self.detector = detector
         self.net = net
         self.preprocess = preprocess
@@ -132,6 +141,7 @@ class Engine:
         self.pack_output = pack_output
         self.kernel_stem = kernel_stem
         self.compute_dtype = _DTYPES[precision]
+        self.int8_chain = int8_chain
         self.level_arrays = detector.level_arrays(input_hw, device)
         self.captured = False
         self.captured_launches = None
@@ -162,6 +172,12 @@ class Engine:
     # host data, makes no host sync and has no data-dependent shape: it is
     # what a captured engine records.
     def _dense(self, x):
+        if self.int8_chain is not None:
+            # preprocess in float32, quantize with __input__#out, the chain,
+            # the float remainder in the chain's dequant dtype
+            if self.preprocess is not None:
+                x = self.preprocess(x)
+            return self.int8_chain(x.float())
         if self.kernel_stem:
             if x.dtype != torch.uint8:
                 raise ValueError("the stem kernel consumes raw uint8 frames")
@@ -296,6 +312,8 @@ def compile_inference(
     nms_budget=None,
     device=None,
     captured=None,
+    act_scales=None,
+    int8_head_dtype=None,
 ):
     """Build one inference engine from `detector` (its net's current
     weights) on `device`: the card ("cuda") unless the caller asks for
@@ -316,6 +334,20 @@ def compile_inference(
         ReLU as one K2 launch on the raw uint8 frame; needs precision "bf16",
         a make_device_preprocess preprocess, and a 3 -> 64 BatchNorm stem0.
     On CPU tensors every switch runs the kernels' plain versions.
+
+    int8 (`lfdtpu/deploy/compile.py:162-167,216-247`): the fused int8 chain
+      of deploy/int8_net.py, every conv of the backbone and the neck (and of
+      a norm-free head) a K4 launch, then the float remainder (the GroupNorm
+      head, the output convs, the Scales). LFD nets only.
+      act_scales: calibrate_module_amax's dict (the port's keys; lfdtpu's map
+        through execution.jax_amax_to_port); None calibrates on lfdtpu's two
+        noise frames, np.random.RandomState(0).randint(0, 255, (batch_size,
+        H, W, 3), uint8) drawn twice.
+      int8_head_dtype: None runs the float remainder in float32; "bf16" casts
+        the weights to bfloat16 first, so the chain quantizes from the bf16
+        weights and the remainder runs in bf16, as lfdtpu.
+      kernel_convs is ignored and kernel_stem raises, as lfdtpu's int8 branch
+      runs no conv pack and its pallas_stem needs bf16.
     """
     input_hw = (int(input_hw[0]), int(input_hw[1]))
     if precision not in _DTYPES:
@@ -328,11 +360,27 @@ def compile_inference(
     if nms_budget is not None:
         spec = dataclasses.replace(spec, nms_budget=int(nms_budget))
     device = resolve_device(device)
+    if int8_head_dtype not in _HEAD_DTYPES:
+        raise ValueError(f"unknown int8_head_dtype {int8_head_dtype}")
 
     net = cast_variables(detector.net, _DTYPES[precision])
     net = net.to(device=device, memory_format=torch.channels_last).eval()
     if preprocess is not None:
         preprocess = copy.deepcopy(preprocess).to(device)
+
+    int8_chain = None
+    if precision == "int8":
+        if kernel_stem:
+            raise ValueError("kernel_stem requires precision='bf16'")
+        if act_scales is None:
+            rng = np.random.RandomState(0)
+            calib = [rng.randint(0, 255, (batch_size,) + input_hw + (3,), dtype=np.uint8)
+                     for _ in range(CALIBRATION_FRAMES)]
+            act_scales = calibrate_module_amax(net, calib, preprocess=preprocess)
+        head_dtype = _HEAD_DTYPES[int8_head_dtype]
+        net = net.to(head_dtype)  # the chain quantizes from these weights
+        int8_chain = Int8Chain(net, act_scales, dequant_dtype=head_dtype, device=device)
+        kernel_convs = False
 
     stem_pack = None
     if kernel_stem:
@@ -352,4 +400,4 @@ def compile_inference(
         captured = device.type == "cuda"
     return Engine(detector, net, preprocess, spec, input_hw, precision,
                   batch_size, device, pack_output, stem_pack is not None,
-                  captured=bool(captured))
+                  captured=bool(captured), int8_chain=int8_chain)

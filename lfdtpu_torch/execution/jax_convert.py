@@ -257,3 +257,69 @@ def jax_train_state_to_port(state, train_state):
             # empty_like keeps the parameter's memory format (channels_last)
             state.optimizer.state[p]["momentum_buffer"] = torch.empty_like(p).copy_(
                 buf_sd[owner[id(p)]])
+
+
+def jax_amax_to_port(amax, net):
+    """lfdtpu's calibrate_module_amax dict -> the port's keys for `net` (an
+    LFD DetectionNet), the state bridge of the int8 chain
+    (deploy/int8_net.py). lfdtpu's keys, each with `#in` or `#out`:
+      backbone/stem{n}                          -> _backbone._stem.{i} (n-th conv)
+      backbone/stage{s}_block{j}                -> _backbone.stage{s}.{j}
+      backbone/stage{s}_block{j}/ConvNormAct_{k} -> _backbone.stage{s}.{j}._conv{k+1}
+      backbone/stage{s}_block{j}/_Shortcut_0    -> _backbone.stage{s}.{j}._downsample.0
+      neck/neck{i}                              -> _neck.neck{i}.0
+      head/{shared|head{k}}_{merge|cls|reg}/conv{m} -> _head.head{k}_{merge,
+                                                   classification,regression}_path (m-th conv)
+    plus __input__#out. A key that cannot be placed raises."""
+    import re
+
+    out = {}
+    bb = net._backbone
+    stem = [u[0] for u in _conv_norm_units(bb._stem, "_backbone._stem")]
+    paths = {"merge": "merge", "cls": "classification", "reg": "regression"}
+    for key, value in amax.items():
+        if key == "__input__#out":
+            out[key] = value
+            continue
+        path, _, end = key.rpartition("#")
+        if end not in ("in", "out"):
+            raise KeyError(f"amax key {key!r}: no #in / #out")
+        parts = path.split("/")
+        name = None
+        if parts[0] == "backbone" and len(parts) == 2 and re.fullmatch(r"stem\d+", parts[1]):
+            n = int(parts[1][4:])
+            name = stem[n] if n < len(stem) else None
+        elif parts[0] == "backbone" and re.fullmatch(r"stage\d+_block\d+", parts[1]):
+            s, j = map(int, re.findall(r"\d+", parts[1]))
+            block = f"_backbone.stage{s}.{j}"
+            if len(parts) == 2:
+                name = block
+            elif len(parts) == 3 and re.fullmatch(r"ConvNormAct_\d+", parts[2]):
+                name = f"{block}._conv{int(parts[2][12:]) + 1}"
+            elif len(parts) == 3 and parts[2] == "_Shortcut_0":
+                name = f"{block}._downsample.0"
+        elif parts[0] == "neck" and len(parts) == 2 and re.fullmatch(r"neck\d+", parts[1]):
+            name = f"_neck.{parts[1]}.0"
+        elif parts[0] == "head" and len(parts) == 3:
+            m = re.fullmatch(r"(shared|head(\d+))_(merge|cls|reg)", parts[1])
+            c = re.fullmatch(r"conv(\d+)", parts[2])
+            if m and c:
+                seq_name = f"head{m.group(2) or 0}_{paths[m.group(3)]}_path"
+                seq = getattr(net._head, seq_name, None)
+                convs = ([u[0] for u in _conv_norm_units(seq, f"_head.{seq_name}")]
+                         if seq is not None else [])
+                if int(c.group(1)) < len(convs):
+                    name = convs[int(c.group(1))]
+        if name is None or (name.count(".") and _module_at(net, name) is None):
+            raise KeyError(f"lfdtpu amax key {key!r} has no place in {type(net).__name__}")
+        out[f"{name}#{end}"] = value
+    return out
+
+
+def _module_at(net, name):
+    m = net
+    for part in name.split("."):
+        m = getattr(m, part, None)
+        if m is None:
+            return None
+    return m

@@ -35,6 +35,10 @@ _SIGNATURES = {
     "lfd_stem_conv": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # x, w, scale, bias, residual, out, N, H, W, relu, stream
     "lfd_pair_conv3x3": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, w, mult, bias, residual, res_kind, res_scale, out, out_int8, inv_out,
+    # relu, N, H, W, Cin, Cout, ksize, stride, stream
+    "lfd_int8_conv": (_P, _P, _P, _P, _P, _I, ctypes.c_float, _P, _I, ctypes.c_float,
+                      _I, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

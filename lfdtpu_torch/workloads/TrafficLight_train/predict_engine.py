@@ -4,7 +4,7 @@
 # mirroring `workloads/TrafficLight_train/predict_engine.py`): one
 # end-to-end engine (BGR -> RGB and the imagenet normalize on the device,
 # class-agnostic decode and NMS included) at the image's resolution bucket,
-# in fp32 or bf16, on the device LFD_DEVICE (default cuda, where the engine
+# in fp32, bf16 or int8, on the device LFD_DEVICE (default cuda, where the engine
 # is one captured CUDA graph).
 import os
 import sys
@@ -14,7 +14,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 import numpy as np  # noqa: E402
 
 from lfdtpu_torch import zoo  # noqa: E402
-from lfdtpu_torch.deploy import compile_inference, make_device_preprocess  # noqa: E402
+from lfdtpu_torch.deploy import (compile_inference, make_device_preprocess,  # noqa: E402
+                                 quantize_net_int8)
 from lfdtpu_torch.execution import load_checkpoint  # noqa: E402
 from lfdtpu_torch.models import pad_to_multiple  # noqa: E402
 from lfdtpu_torch.ops.decode import detections_to_lists  # noqa: E402
@@ -30,13 +31,13 @@ def predict_with_engine(
     out_path=None,
     engine_file=None,
 ):
-    """engine_file (lfdtpu: serialize the built engine on first use, load it
-    on later runs) and precision="int8" are not ported yet."""
+    """precision "fp32", "bf16" or "int8" (the calibrated fused int8 chain on
+    fake-quantized weights, as lfdtpu's script builds it). engine_file
+    (lfdtpu: serialize the built engine on first use, load it on later runs)
+    is not ported yet."""
     if engine_file is not None:
         raise NotImplementedError("engine files (deploy/engine_io.py) are not ported yet "
                                   "(ROADMAP queue 1, item 7)")
-    if precision == "int8":
-        raise NotImplementedError("int8 engines are not ported yet (ROADMAP queue 1, item 6)")
     import cv2
 
     image = cv2.imread(image_path, cv2.IMREAD_UNCHANGED)
@@ -44,6 +45,8 @@ def predict_with_engine(
 
     det = zoo.trafficlight_lfd(model_size)
     det.net.load_state_dict(load_checkpoint(param_file_path)["state_dict"], strict=True)
+    if precision == "int8":
+        det.net = quantize_net_int8(det.net)
     padded = pad_to_multiple(image, max(det.point_strides))
     preprocess = make_device_preprocess(
         (0.485, 0.456, 0.406), (0.229, 0.224, 0.225), bgr2rgb=True

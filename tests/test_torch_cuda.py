@@ -360,7 +360,8 @@ def test_captured_engine_rows_equal_eager(cuda, size, variant):
     assert captured.captured_launches == {
         "nms_mask_sorted": int(variant != "bf16_plain"),
         "stem_conv": int(variant == "bf16_kernels"),
-        "pair_conv3x3": k3 * int(variant == "bf16_kernels")}
+        "pair_conv3x3": k3 * int(variant == "bf16_kernels"),
+        "int8_conv": 0}
     vhw = np.asarray([[256, 320], [200, 311]], np.float32)
     before = nms_kernel.nms_mask_sorted.launches
     for seed in (1, 2):
@@ -574,3 +575,119 @@ def test_fcos_decode_with_k1_equals_plain_at_80_classes(cuda):
                                 dataclasses.replace(spec, nms_use_kernel=False))
     assert nms_kernel.nms_mask_sorted.launches == before + 1
     assert int(got["count"]) > 0 and all(torch.equal(got[k], ref[k]) for k in got)
+
+
+# ---------------------------------------------------------------- K4 (int8)
+
+# (Cin, Cout, kernel, stride, hw): every kernel size, stride, Cin and Cout of
+# the zoo's int8 chain, at odd sizes too
+K4_SHAPES = [(3, 64, 3, 2, (67, 93)), (3, 48, 3, 2, (40, 64)), (3, 32, 3, 2, (33, 31)),
+             (64, 64, 1, 1, (34, 60)), (64, 64, 3, 1, (68, 120)), (64, 64, 3, 2, (37, 50)),
+             (64, 64, 1, 2, (37, 50)), (64, 128, 1, 1, (17, 30)), (128, 128, 3, 1, (17, 30)),
+             (128, 128, 1, 1, (9, 15)), (48, 48, 3, 1, (20, 33)), (48, 64, 3, 2, (20, 33)),
+             (32, 32, 3, 1, (16, 16)), (32, 64, 1, 2, (16, 16)), (64, 32, 3, 1, (8, 8)),
+             # the smallest LFDs' 8 / 16 channels, and a flat layout over 9 K steps
+             (3, 8, 3, 2, (33, 31)), (8, 16, 3, 2, (17, 16)), (16, 8, 3, 2, (17, 16)),
+             (16, 24, 1, 1, (9, 9)), (24, 96, 3, 1, (9, 9))]
+
+
+def _k4_inputs(cuda, cin, cout, k, stride, hw, seed, batch=2):
+    from lfdtpu_torch.ops import int8_conv as k4
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randint(-127, 128, (batch, *hw, cin), device=cuda, generator=g).to(torch.int8)
+    w = torch.randn(cout, cin, k, k, device=cuda, generator=g)
+    q, w_scale = k4.quantize_weights(w)
+    mult = (w_scale * 0.02 / (cin * k * k) ** 0.5).float().contiguous()
+    bias = (torch.randn(cout, device=cuda, generator=g) * 0.1).contiguous()
+    return x, k4.pack_int8_weight(q), mult, bias
+
+
+@pytest.mark.parametrize("cin,cout,k,stride,hw", K4_SHAPES)
+@pytest.mark.parametrize("mode", ["a", "a relu", "b", "c int8", "c f32"])
+def test_int8_conv_kernel_matches_plain_exactly(cuda, cin, cout, k, stride, hw, mode):
+    from lfdtpu_torch.ops import int8_conv as k4
+
+    x, wp, mult, bias = _k4_inputs(cuda, cin, cout, k, stride, hw, seed=cin + cout + k)
+    ho, wo = k4.out_hw(*hw, k, stride)
+    kw = dict(relu="relu" in mode)
+    if mode != "b":
+        kw["out_scale"] = 0.02
+    if mode == "c int8":
+        g = torch.Generator(device=cuda).manual_seed(1)
+        kw["residual"] = torch.randint(-127, 128, (2, ho, wo, cout), device=cuda,
+                                       generator=g).to(torch.int8)
+        kw["residual_scale"] = 0.013
+    elif mode == "c f32":
+        kw["residual"] = torch.randn(2, ho, wo, cout, device=cuda)
+    before = k4.int8_conv.launches
+    got = k4.int8_conv(x, wp, mult, bias, k, stride, **kw)
+    ref = k4.int8_conv_plain(x, wp, mult, bias, k, stride, **kw)
+    torch.cuda.synchronize()
+    assert k4.int8_conv.launches == before + 1
+    assert got.shape == ref.shape == (2, ho, wo, cout) and got.dtype == ref.dtype
+    assert torch.equal(got, ref), (mode, (got.float() - ref.float()).abs().max())
+    if got.dtype == torch.int8:  # the requant spans the range, not one value
+        assert int(got.max()) == 127 and len(torch.unique(got)) > 100
+
+
+def test_int8_conv_kernel_rejects_bad_input(cuda):
+    from lfdtpu_torch.ops import int8_conv as k4
+
+    x, wp, mult, bias = _k4_inputs(cuda, 64, 64, 3, 1, (8, 8), seed=0)
+    with pytest.raises(ValueError, match="int8"):
+        k4.int8_conv(x.float(), wp, mult, bias, 3, 1, out_scale=0.1)
+    with pytest.raises(ValueError, match="shape"):
+        k4.int8_conv(x, wp[:, :64].contiguous(), mult, bias, 3, 1, out_scale=0.1)
+    with pytest.raises(ValueError, match="shape"):
+        k4.int8_conv(x, wp, mult, bias, 3, 1, out_scale=0.1,
+                     residual=torch.zeros(2, 4, 4, 64, dtype=torch.int8, device=cuda))
+
+
+@pytest.mark.parametrize("size,head", [("S", None), ("L", "bf16")])
+def test_captured_int8_engine_equals_eager(cuda, size, head):
+    from lfdtpu_torch.deploy.int8_net import planned_launches
+
+    from lfdtpu_torch.deploy import compile_inference, make_device_preprocess
+
+    det = _detector(size)
+    engines = [compile_inference(det, ENGINE_HW, "int8", batch_size=2, int8_head_dtype=head,
+                                 preprocess=make_device_preprocess((0.5,) * 3, (0.5,) * 3),
+                                 captured=c) for c in (None, False)]
+    assert engines[0].captured and not engines[1].captured
+    assert engines[0].captured_launches == {
+        "nms_mask_sorted": 1, "stem_conv": 0, "pair_conv3x3": 0,
+        "int8_conv": planned_launches(det.net)}
+    vhw = np.asarray([[256, 320], [200, 311]], np.float32)
+    for seed in (1, 2):
+        f = _frames(seed)
+        got, ref = engines[0](f, vhw), engines[1](f, vhw)
+        assert int(got["count"].sum()) > 0 and _same(got, ref), (size, head, seed)
+
+
+def test_int8_engine_on_the_card_matches_the_cpu(cuda):
+    """One amax dict, the same weights: every int8 edge of the chain equal on
+    the card and on the CPU (K4 against the plain version, constants folded on
+    the CPU for both), the dense outputs within 1e-3 (the float head)."""
+    from lfdtpu_torch.deploy import calibrate_module_amax, make_device_preprocess
+    from lfdtpu_torch.deploy.int8_net import Int8Chain
+
+    det = _detector("L")
+    pre = make_device_preprocess((0.5,) * 3, (0.5,) * 3)
+    f = _frames(3, 1)
+    amax = calibrate_module_amax(det.net, [f], pre)
+    x = pre(torch.as_tensor(f)).float()
+    keys = {k[:-4]: None for k in amax if k.endswith("#out") and k != "__input__#out"}
+    cap_cpu, cap_gpu = dict(keys), dict(keys)
+    with torch.inference_mode():
+        c_cpu, r_cpu = Int8Chain(det.net, amax)(x, capture=cap_cpu)
+        gpu_net = det.net.to(cuda)
+        c_gpu, r_gpu = Int8Chain(gpu_net, amax)(x.to(cuda), capture=cap_gpu)
+        det.net.cpu()
+    n8 = 0
+    for k, v in cap_cpu.items():
+        if isinstance(v, tuple):
+            assert torch.equal(cap_gpu[k][0].cpu(), v[0]), k
+            n8 += 1
+    assert n8 == 17  # stem 2, blocks 10, neck 5: the GroupNorm head runs in float
+    assert max_rel(c_gpu, c_cpu) < 1e-3 and max_rel(r_gpu, r_cpu) < 1e-3

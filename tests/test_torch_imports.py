@@ -1,6 +1,7 @@
 # The port stands alone: importing lfdtpu_torch (every module, the FCOS
-# family's included, and every script of the WIDERFACE, TT100K and
-# TrafficLight workloads) and predicting with an LFD and an FCOS pulls in
+# family's and the int8 engine's included, and every script of the
+# WIDERFACE, TT100K and TrafficLight workloads) and predicting with an LFD
+# (bf16 and int8 engines) and an FCOS pulls in
 # neither jax, flax, lfdtpu nor cv2,
 # and the kernel modules import and run their plain versions on a machine
 # with no nvcc and no GPU, building nothing. cv2 is imported only inside the
@@ -25,12 +26,12 @@ import lfdtpu_torch
 from lfdtpu_torch import zoo
 from lfdtpu_torch.data import (augmentation, dataset, dataset_samplers, device_aug, jpeg,
                                loader, pack, parsers, region_samplers, resize, sample)
-from lfdtpu_torch.deploy import compile, kernel_net, latency
+from lfdtpu_torch.deploy import compile, int8_net, kernel_net, latency, quantize
 from lfdtpu_torch.evaluation import base, coco_eval, tt100k, widerface
 from lfdtpu_torch.execution import (executor, hooks, jax_convert, optim, schedules,
                                     torch_convert, utils)
-from lfdtpu_torch.ops import (assign, boxes, conv_kernels, decode, kernel_lib, loss_wrappers,
-                              losses, nms, nms_kernel, points)
+from lfdtpu_torch.ops import (assign, boxes, conv_kernels, decode, int8_conv, kernel_lib,
+                              loss_wrappers, losses, nms, nms_kernel, points)
 from lfdtpu_torch.parallel import data_parallel, prefetch
 from lfdtpu_torch import device
 from lfdtpu_torch.models import fcos, heads, lfdv2, necks, resnet
@@ -54,6 +55,10 @@ eng = compile.compile_inference(
 out = eng(torch.zeros(1, 64, 64, 3, dtype=torch.uint8), [64, 64])
 timing = latency.timing_inference(eng, torch.zeros(1, 64, 64, 3, dtype=torch.uint8).numpy(),
                                   [64, 64], warmup_loops=1, timing_loops=2, distinct_inputs=2)
+eng8 = compile.compile_inference(
+    det, (64, 64), "int8", preprocess=compile.make_device_preprocess((0.5,) * 3, (0.5,) * 3),
+    device="cpu")
+out8 = eng8(torch.zeros(1, 64, 64, 3, dtype=torch.uint8), [64, 64])
 rows = det.get_results(torch.zeros(1, 64, 64, 3), [None])
 rn = resnet.ResNet(depth=18, base_channels=8, out_indices=((2, 1), (3, 1), (4, 1)))
 fdet = fcos.FCOS(rn, necks.FPN(rn.num_output_channels_list, rn.num_output_strides_list, 16, 5),
@@ -65,7 +70,9 @@ print(json.dumps({
                       if m.split(".")[0] in ("jax", "jaxlib", "flax", "lfdtpu", "cv2")),
     "built": kernel_lib.library.cache_info().currsize,
     "launches": [conv_kernels.stem_conv.launches, conv_kernels.pair_conv3x3.launches,
-                 nms_kernel.nms_mask_sorted.launches],
+                 nms_kernel.nms_mask_sorted.launches, int8_conv.int8_conv.launches],
+    "int8_units": len(eng8.int8_chain.units),
+    "count8": int(out8["count"][0]),
     "count": int(out["count"][0]),
     "captured": eng.captured,
     "method": timing["method"],
@@ -88,7 +95,8 @@ def test_port_imports_without_jax_and_builds_nothing_on_cpu():
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     assert res["foreign"] == [], res["foreign"]
     assert res["built"] == 0
-    assert res["launches"] == [0, 0, 0]
+    assert res["launches"] == [0, 0, 0, 0]
+    assert res["int8_units"] == 32 and res["count8"] >= 0
     assert res["count"] >= 0
     assert res["captured"] is False and res["method"] == "perf_counter_per_call"
     assert res["result_lists"] == 1

@@ -1,8 +1,8 @@
 # chip_smoke.kernel_bound_ms against bounds worked out by hand from the
 # engine's shapes (NVIDIA's H100 SXM data sheet: 3.35 TB/s, 989 TFLOP/s
-# dense bf16, 67 TFLOP/s fp32), and the entry points' device default: an
-# omitted device is the card, and without one they raise instead of quietly
-# running on the CPU.
+# dense bf16, 1,979 TOP/s dense int8, 67 TFLOP/s fp32), and the entry points'
+# device default: an omitted device is the card, and without one they raise
+# instead of quietly running on the CPU.
 import pytest
 import torch
 
@@ -45,6 +45,31 @@ def test_kernel_bound_counts_operations_where_they_bind():
     assert ms < 1e-3
     with pytest.raises(ValueError, match="unknown kernel"):
         chip_smoke.kernel_bound_ms("conv", (1, 2, 3))
+
+
+def test_int8_conv_bound_by_hand():
+    # K4, stage 0's 3x3 64 -> 64 at 272x480: 8.36 MB of int8 in and out, 36.9
+    # KB of int8 weights, 512 B of fp32 mult and bias: 5.00 us at 3.35 TB/s,
+    # over its 9.63 G int8 operations at 1,979 TOP/s (4.86 us)
+    shape = (1, 272, 480, 64, 64, 3, 1, "a")
+    act = 272 * 480 * 64
+    nbytes, ops, kind = chip_smoke.kernel_work("int8_conv", shape)
+    assert nbytes == 2 * act + 9 * 64 * 64 + 2 * 64 * 4
+    assert (ops, kind) == (2 * 272 * 480 * 64 * 576, "int8")
+    ms, by = chip_smoke.kernel_bound_ms("int8_conv", shape)
+    assert by == "bytes"
+    assert ms == pytest.approx(nbytes / 3.35e12 * 1e3, rel=1e-12)
+    assert ms * 1e3 == pytest.approx(5.00, abs=0.01)
+    assert ops / 1979e12 * 1e6 == pytest.approx(4.86, abs=0.01)
+    # its int8 residual adds one more int8 activation, the shortcut's f32
+    # output (mode b) four bytes an element: a 1x1/s2 64 -> 128 at 272x480
+    res = chip_smoke.kernel_work("int8_conv", (1, 272, 480, 64, 64, 3, 1, "c8"))[0]
+    assert res == nbytes + act
+    sc = chip_smoke.kernel_work("int8_conv", (1, 272, 480, 64, 128, 1, 2, "b"))[0]
+    assert sc == act + 128 * 64 + 2 * 128 * 4 + 136 * 240 * 128 * 4
+    # stem0 at 1088x1920: 6.3 MB in, 33.4 MB out
+    stem = chip_smoke.kernel_work("int8_conv", (1, 1088, 1920, 3, 64, 3, 2, "a"))[0]
+    assert stem == 1088 * 1920 * 3 + 64 * 27 + 512 + 544 * 960 * 64
 
 
 def test_k3_shapes_are_the_engine_levels():

@@ -10,7 +10,8 @@
 #     device augmentation agrees with lfdtpu's within 1e-3 pixel units;
 #   - predict and predict_engine (fp32) on the same weights (an lfdtpu .ckpt
 #     and the port's .pth of one bridged init) and the same JPEG: the same
-#     number of rows, each within rtol 1e-4 and atol 1e-3
+#     number of rows, each within rtol 1e-4 and atol 1e-3 (TT100K's int8
+#     engine: the same number of rows, sorted scores within INT8_SCORE_ATOL)
 #     (test_torch_widerface_scripts' ROW_TOL; TT100K's 45-class softmax; TL
 #     class-agnostic after BGR -> RGB, a file and a folder);
 #   - evaluation: TT100K's official-eval summary (accuracy, recall and the
@@ -217,7 +218,8 @@ def checkpoints(tmp_path, monkeypatch):
     return out
 
 
-THR = {TT: 0.02, TL: 0.05}  # random weights: 45-class softmax scores sit near 1/46
+THR = {TT: 0.02, TL: 0.05}
+INT8_SCORE_ATOL = 0.005  # TT100K-S int8 rows, see test_tt100k_predict_scripts_match_lfdtpus  # random weights: 45-class softmax scores sit near 1/46
 
 
 def test_tt100k_predict_scripts_match_lfdtpus(tmp_path, checkpoints, capsys):
@@ -243,8 +245,21 @@ def test_tt100k_predict_scripts_match_lfdtpus(tmp_path, checkpoints, capsys):
     assert os.path.getsize(tmp_path / "te.jpg") > 0
     with pytest.raises(NotImplementedError, match="queue 1, item 7"):
         port.predict_with_engine("S", tpath, image, engine_file=str(tmp_path / "e.lfde"))
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        port.predict_with_engine("S", tpath, image, precision="int8")
+    # int8: both scripts fake-quantize the weights and calibrate on lfdtpu's
+    # noise frames. The scales differ by the two float32 nets' rounding (rel
+    # 1e-6) and the folded BN scales by XLA's rsqrt (1 ulp): one requant moved
+    # by one step spreads through the chain, and the random 45-way softmax
+    # sits in near ties, so rows reorder. The same number of rows, and the
+    # sorted scores within INT8_SCORE_ATOL (int8 against fp32 here: 0.0015).
+    int8_ref = _load(JAX[TT], "predict_engine.py").predict_with_engine(
+        "S", jpath, image, precision="int8", classification_threshold=THR[TT],
+        out_path=str(tmp_path / "j8.jpg"))
+    int8 = port.predict_with_engine("S", tpath, image, precision="int8",
+                                    classification_threshold=THR[TT],
+                                    out_path=str(tmp_path / "t8.jpg"))
+    assert len(int8) == len(int8_ref) > 0
+    np.testing.assert_allclose(np.sort(np.asarray(int8)[:, 1]),
+                               np.sort(np.asarray(int8_ref)[:, 1]), atol=INT8_SCORE_ATOL)
 
 
 def test_tl_predict_scripts_match_lfdtpus(tmp_path, checkpoints):
@@ -439,3 +454,15 @@ def test_timing_scripts_keep_lfdtpus_defaults(task, defaults):
     names = ("model_size", "precision_mode", "resolutions", "timing_loops")
     assert tuple(getattr(port, n) for n in names) == tuple(getattr(ref, n) for n in names) \
         == defaults
+
+
+@pytest.mark.parametrize("task", [TT, TL])
+def test_timing_scripts_run_int8_on_the_cpu(task, monkeypatch):
+    """The timing script's int8 path (calibrator, fake-quantized weights, the
+    int8 engine) through one small cell on the CPU."""
+    monkeypatch.setenv("LFD_DEVICE", "cpu")
+    res = _load(PORT[task], "timing_inference_latency.py").run(
+        "int8", sweep=((64, 64),), loops=2)
+    (key, r), = res.items()
+    assert key == ("int8", (64, 64))
+    assert r["loops"] == 2 and r["method"] == "perf_counter_per_call" and r["ms_per_image"] > 0

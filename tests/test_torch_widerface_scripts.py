@@ -7,13 +7,15 @@
 #     tests/test_workloads.py::test_all_workload_scripts_compile);
 #   - predict and predict_engine (fp32) on the same weights (an lfdtpu .ckpt
 #     and the port's .pth of one bridged init) and the same JPEG: the same
-#     number of rows, each within ROW_TOL; engine files and int8 refuse;
+#     number of rows, each within ROW_TOL, in fp32 and in int8 (both
+#     scripts fake-quantize the weights and calibrate on lfdtpu's noise
+#     frames); engine files refuse;
 #   - evaluation: the same txt files, row for row (integers within 1: floor
 #     and ceil of coordinates that differ in the fifth digit; scores within
 #     0.002 of the %.03f print);
 #   - pack_widerface: the same pack (indexes, boxes, labels, image bytes);
 #     generate_neg_images: the same files, byte for byte;
-#   - timing_inference_latency keeps lfdtpu's defaults.
+#   - timing_inference_latency keeps lfdtpu's defaults, and its int8 path runs.
 import importlib.util
 import os
 import py_compile
@@ -118,8 +120,26 @@ def test_predict_engine_script_matches_lfdtpus(tmp_path, checkpoints):
     assert abs(len(bf16) - len(ref)) <= max(2, len(ref) // 10)
     with pytest.raises(NotImplementedError, match="queue 1, item 7"):
         port.predict_with_engine("XS", tpath, image, engine_file=str(tmp_path / "e.lfde"))
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        port.predict_with_engine("XS", tpath, image, precision="int8")
+    # int8: both scripts fake-quantize the weights and calibrate on lfdtpu's
+    # noise frames (the scales differ by the two float32 nets' rounding)
+    int8_ref = _load(JAX_DIR, "predict_engine.py").predict_with_engine(
+        "XS", jpath, image, precision="int8", classification_threshold=0.05,
+        out_path=str(tmp_path / "j8.jpg"))
+    int8 = port.predict_with_engine("XS", tpath, image, precision="int8",
+                                    classification_threshold=0.05,
+                                    out_path=str(tmp_path / "t8.jpg"))
+    _assert_rows(int8, int8_ref)
+
+
+def test_timing_script_runs_int8_on_the_cpu(monkeypatch):
+    """The timing script's int8 path (calibrator, fake-quantized weights, the
+    int8 engine) through one small cell on the CPU."""
+    monkeypatch.setenv("LFD_DEVICE", "cpu")
+    res = _load(PORT_DIR, "timing_inference_latency.py").run("int8", sweep=((64, 64),),
+                                                              loops=2)
+    (key, r), = res.items()
+    assert key == ("int8", (64, 64))
+    assert r["loops"] == 2 and r["method"] == "perf_counter_per_call" and r["ms_per_image"] > 0
 
 
 def test_evaluation_script_writes_lfdtpus_files(tmp_path, checkpoints):
