@@ -195,14 +195,17 @@ the LFDv2 family, FCOS-R50-FPN, and the int8 engine. It checks them:
               then the float remainder, decode and K1) of WIDERFACE-L at
               1088x1920. K4 against its plain version, EXACT, at every
               (shape, mode) one eager call hands its wrapper (read from its
-              inputs, as phase 12 reads K1's), at batch 1 and 4. The main
-              path, counters zeroed: the captured int8 engines with a float32
+              inputs, as phase 12 reads K1's), at batch 1 and 4, each
+              launch on the route ops.int8_conv.route_of names (wgmma or
+              stem, none on the mma.sync route). The main path, counters
+              zeroed: the captured int8 engines with a float32
               and a bf16 head, each calibrated by default, 3 frames each
               through predict_for_single_image_with_engine (the replays
               counted from a profile), and one JPEG through the port's
               WIDERFACE_train/predict_engine.py with precision="int8"; K4
               and K1 launches against expected_launches, which counts K4
-              from the chain's plan. Then each captured engine against an
+              from the chain's plan, K4's by route. Then each captured
+              engine against an
               eager twin (bit-equal on two frames in a row), the int8 dense
               outputs against the fp32 engine's by lfdtpu's criteria
               (correlation > 0.95, mean-magnitude ratio in 0.8-1.25), decode
@@ -211,13 +214,20 @@ the LFDv2 family, FCOS-R50-FPN, and the int8 engine. It checks them:
               256x256 with one amax dict (every int8 edge equal, dense within
               DENSE_FP32_TOL). TL-L at 768x1280 in int8, whose norm-free
               head runs int8 too (F15's path): its main path, captured
-              against eager, K4 at its shapes. Times beside the card: the
+              against eager, K4 at its shapes. K4's mma.sync route (the
+              widths the other routes do not take) on one eager TL-S int8
+              frame at 768x1280: 14 of its launches on that route, each
+              call against the plain version, EXACT. Times beside the card: the
               captured int8 engines against bf16_kernels (A B C C B A), a
               profile of each int8 engine (device work per frame, the
-              busiest kernels), K4 at the main shapes (stage 0's 3x3 in mode
-              a and with its int8 residual, stem0, stem1, the neck's 1x1;
-              warm, cold, bound, plain and cuDNN's bf16 fused conv as a
-              yardstick: PyTorch has no CUDA int8 conv), and the latency
+              busiest kernels, K4's ms per frame by route and without the
+              overlap of its programmatic dependent launches), K4 at every
+              distinct (shape, mode) of a frame (launches, warm, cold
+              (rotating inputs, or after an L2-evicting write where the
+              inputs are too small), bound, gap; the plain version and cuDNN's bf16 fused conv as a
+              yardstick at five of them, torch._int_mm beside the stride-1
+              1x1s: PyTorch has no CUDA int8 conv), ranked by gap, with the
+              frame's sum of bounds, and the latency
               sweep of WIDERFACE-L in int8 at the script's four
               resolutions.
 
@@ -227,7 +237,9 @@ its int8 engines for K4; and on every path in
 launches_by_path: an engine path's launches at build and capture and by its
 replays, the FCOS path's eager launches and replayed null (it has no
 engine); K2's and K3's times at the new shapes, K1's at the FCOS shape and
-K4's at its other main shapes in other_shapes);
+K4's at its other shapes of a frame and its mma.sync route's TL-S frame
+(error, launches, ms) in other_shapes; K4's main-path
+launches by route in launches_by_route);
 the last line is {"ok": true, "device": {...}}. Any failed check exits non-zero. Needs a
 CUDA device: without one it exits 1 and prints no result. No CUDA graph
 is replayed under two torch.profiler sessions: profile_engine takes a
@@ -277,9 +289,11 @@ COLD_BYTES = 100 * 2 ** 20  # cold timing rotates over more inputs than the L2 h
 PROFILED_FRAMES = 5
 NMS_KERNEL_NAME = re.compile(r"nms_\w+(<[^>]*>)?")  # K1's kernels in a profile
 # the hand-written kernels' names in a profile, per wrapper (K1 launches two)
+K4_KERNELS = {"wgmma": "int8_conv_wgmma_kernel", "stem": "int8_conv_stem_kernel",
+              "mma": "int8_conv_kernel"}  # K4's kernel per route
 KERNEL_NAMES = {"pair_conv3x3": ("pair_conv_kernel",), "stem_conv": ("stem_conv_kernel",),
                 "nms_mask_sorted": ("nms_iou_kernel", "nms_walk_kernel"),
-                "int8_conv": ("int8_conv_kernel",)}
+                "int8_conv": ("int8_conv_",)}  # K4's three routes' kernels
 # engine variants: compile_inference's switches (lfdtpu's defaults: K1 on, K2
 # and K3 off); expected_launches counts what one capture of a net launches
 VARIANTS = {
@@ -338,6 +352,7 @@ FCOS_NMAX = 100
 # the int8 engine (phase 13)
 INT8_FRAMES = 3             # frames each int8 engine serves on the main path
 INT8_CORR, INT8_RATIO = 0.95, (0.8, 1.25)  # lfdtpu's criteria against fp32
+TL_S_MMA = 14               # TL-S's K4 launches a frame on the mma.sync route
 # K4's timed shapes: the first of the main path's calls (the largest level)
 # with these (Cin, Cout, k, stride, mode); the first is the kernels line's.
 # At 1088x1920: 272x480 (stage 0, the neck's first level), 1088x1920 (stem0)
@@ -353,6 +368,14 @@ K4_TIMED = (
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+def zero_counts(counters):
+    """Every wrapper's launch count to 0 (K4's per-route counts too)."""
+    for c in counters:
+        c.launches = 0
+        if hasattr(c, "routes"):
+            c.routes = dict.fromkeys(c.routes, 0)
 
 
 def check(cond, msg):
@@ -446,7 +469,9 @@ def kernel_work(name, shape, residual=False):
         ho, wo = (h + 2 * p - k) // stride + 1, (w + 2 * p - k) // stride + 1
         outs = n * ho * wo * cout
         consts = cout * k * k * cin + 2 * cout * 4  # int8 weights, fp32 mult and bias
-        nbytes = (n * h * w * cin + consts + outs * (4 if mode == "b" else 1)
+        # a strided 1x1 conv reads only the pixels it samples
+        ins = n * ho * wo * cin if k == 1 else n * h * w * cin
+        nbytes = (ins + consts + outs * (4 if mode == "b" else 1)
                   + outs * {"a": 0, "b": 0, "c8": 1, "cf": 4}[mode])
         return nbytes, 2 * outs * k * k * cin, "int8"
     raise ValueError(f"unknown kernel {name}")
@@ -1069,8 +1094,7 @@ def train_to_serve(det, device, counters, classification_threshold=None, preproc
 
     preprocess = preprocess or make_device_preprocess(MEAN, STD)
     variant = kernel_variant(det)
-    for c in counters:  # they tick while the engine is built and captured
-        c.launches = 0
+    zero_counts(counters)  # they tick while the engine is built and captured
     engine = compile_engine(det, hw, device, variant, preprocess=preprocess,
                             classification_threshold=classification_threshold, **engine_kw)
     frame = frames(np.random.RandomState(13), 1, (hw[0] - 24, hw[1] - 8))[0]
@@ -1476,8 +1500,7 @@ def workload_phase(device, card, counters):
     from lfdtpu_torch.parallel import BATCH_KEYS
 
     task, script = "WIDERFACE_train", "WIDERFACE_LFD_L.py"
-    for c in counters:
-        c.launches = 0
+    zero_counts(counters)
     tmp = tempfile.mkdtemp(prefix="lfd_workload_")
     cwd, hook, env = os.getcwd(), sys.excepthook, dict(os.environ)
     try:
@@ -1746,14 +1769,28 @@ def device_ms_by_name(prof):
     return by_name, calls, window
 
 
+def exclusive_ms(events, key):
+    """Device ms of the events whose name holds `key`, each counted from the
+    end of every event that started before it: a programmatic dependent
+    launch (K4's wgmma route, K1's walk) starts while the kernel before it
+    runs, and waits; that wait is not its work."""
+    total, last_end = 0.0, float("-inf")
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        start, end = e.time_range.start, e.time_range.end
+        if key in e.name:
+            total += max(0.0, end - max(start, last_end))
+        last_end = max(last_end, end)
+    return total / 1e3
+
+
 def profile_engine(engine, x, vhw, card, label, counters, want, frames_=PROFILED_FRAMES):
     """One frame of a kernel engine launches each kernel as `want` (from
     expected_launches) says: counted by the wrappers for the eager engine, and
     for the captured one at its capture and, over the profiled replays, by
     kernel name. Then torch.profiler over PROFILED_FRAMES frames: each
     kernel's device ms per frame, all device work per frame, the device-busy
-    share and the busiest kernels. Returns the busy share and all device ms
-    per frame.
+    share and the busiest kernels. Returns the busy share, all device ms per
+    frame and {wrapper: (device ms, launches) per frame}.
 
     A captured `engine` must be a fresh capture that no earlier profiler
     session replayed: replaying a graph under a second session has crashed
@@ -1762,8 +1799,7 @@ def profile_engine(engine, x, vhw, card, label, counters, want, frames_=PROFILED
     and a fresh graph never did."""
     import torch
 
-    for c in counters:
-        c.launches = 0
+    zero_counts(counters)
     engine(x, vhw)
     torch.cuda.synchronize()
     launches = {c.__name__: c.launches for c in counters}
@@ -1792,13 +1828,22 @@ def profile_engine(engine, x, vhw, card, label, counters, want, frames_=PROFILED
     k1_names = {n: NMS_KERNEL_NAME.search(n).group(0) for n in by_name if "nms_" in n}
     print("  K1's kernels, ms per frame: " + ", ".join(
         f"{kname} {by_name[n] / frames_:.4f}" for n, kname in k1_names.items()))
+    if want.get("int8_conv"):
+        k4_excl = exclusive_ms(device_events(prof)[0], "int8_conv_") / frames_
+        per_frame["int8_conv_exclusive"] = (k4_excl, per_frame["int8_conv"][1])
+        print(f"  K4 ms per frame without the overlap with the kernel before each launch: "
+              f"{k4_excl:.4f}")
+        print("  K4's routes, ms (launches) per frame: " + ", ".join(
+            f"{route} {sum(by_name[n] for n in by_name if kname in n) / frames_:.4f} "
+            f"({sum(calls[n] for n in by_name if kname in n) / frames_:.0f})"
+            for route, kname in K4_KERNELS.items()))
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         print(f"  {ms / frames_:8.4f} ms/frame  {calls[name] / frames_:5.1f}x  "
               f"{name[:110]}")
     counted, _ = kernel_launches_in(prof)  # a replay's launches are visible only here
     check(counted == {k: frames_ * v for k, v in want.items()},
           f"{frames_} {label} frames launched {counted}, not {want} each")
-    return share, total
+    return share, total, per_frame
 
 
 def time_engines(det, det_s, engines, imgs, device, card):
@@ -1936,8 +1981,7 @@ def serve_traffic(name, device, card, counters, rng):
         check(refusal is not None and "stem0" in refusal,
               f"{name}: a kernel_stem engine of a 48-channel stem should raise")
 
-    for c in counters:
-        c.launches = 0
+    zero_counts(counters)
     engines = {b: compile_engine(det, hw, device, kv, batch_size=b, preprocess=pre, **extra)
                for b in batches}
     h, w = hw
@@ -2182,8 +2226,7 @@ def train_traffic(device, card, counters, tmp):
     t0 = time.time()
     tt_pack, tt_root = build_tt100k_pack(tmp)
     print(f"TT100K data written and packed in {time.time() - t0:.1f} s")
-    for c in counters:
-        c.launches = 0
+    zero_counts(counters)
     final = train_entry_point("TT100K_train", "TT100K_LFD_L.py", "L", tt_pack, card)
     print("hand-written kernel launches during TT100K training (its path runs none): "
           f"{ {c.__name__: c.launches for c in counters} }")
@@ -2285,8 +2328,7 @@ def serve_and_train_lfdv2(device, card, counters, rng):
     want = expected_launches(det, VARIANTS["bf16_kernels"])
     spec = det.decode_spec()
     sizes = det.level_sizes(HW)
-    for c in counters:
-        c.launches = 0
+    zero_counts(counters)
     engine, calls = k1_inputs(lambda: compile_engine(det, HW, device, "bf16_kernels"))
     k1_shapes = [tuple(b.shape) for b, _, _ in calls]
     print(f"LFDv2 {HW[0]}x{HW[1]}: levels {sizes} points, per-level limit "
@@ -2526,8 +2568,7 @@ def fcos_phase(device, card, counters):
           f"{sizes}, {sum(min(n, spec.per_level_limit) for n in sizes)} after the per-level "
           f"limit {spec.per_level_limit}")
 
-    for c in counters:
-        c.launches = 0
+    zero_counts(counters)
     (rows, host_ms), calls = k1_inputs(lambda: fcos_serve(det, det16, imgs, batch, metas))
     torch.cuda.synchronize()
     launches = {c.__name__: c.launches for c in counters}
@@ -2664,6 +2705,24 @@ def k4_shape(call):
             k4_mode(call))
 
 
+def check_k4_routes(fn, label, mma=0):
+    """fn() (k4_inputs of one eager int8 call), checking that each of its K4
+    launches went to the route ops.int8_conv.route_of names for its shape and
+    `mma` of them to the mma.sync route. Returns fn()'s value."""
+    from lfdtpu_torch.ops import int8_conv as k4
+
+    before = dict(k4.int8_conv.routes)
+    out, calls = fn()
+    got = {r: k4.int8_conv.routes[r] - before[r] for r in before}
+    want = dict.fromkeys(before, 0)
+    for c in calls:
+        want[k4.route_of(*k4_shape(c)[3:7])] += 1
+    print(f"{label}: K4's {len(calls)} launches by route {got}")
+    check(got == want and got["mma"] == mma,
+          f"{label}: K4's routes {got}, not {want} with {mma} on mma")
+    return out, calls
+
+
 def check_k4(calls, label):
     """K4 against its plain version on each recorded call: EXACT (int8 and
     float32 outputs bit-equal). Returns (max|err|, the distinct (shape,
@@ -2787,36 +2846,120 @@ def k4_yardstick_ms(call, card):
                 "cuDNN bf16 conv2d alone (yardstick, not int8)")
 
 
+def k4_int_mm_ms(call):
+    """torch._int_mm (cuBLASLt's int8 GEMM) of a stride-1 1x1 conv's product:
+    a yardstick only, not K4's function (int32 out, no epilogue)."""
+    import torch
+
+    x = call["x"].reshape(-1, call["x"].shape[-1])
+    w = call["wpack"].t()  # (Cin, Cout), column-major
+    return graph_ms([lambda: torch._int_mm(x, w)])
+
+
 def time_k4(calls, card, device):
-    """K4 at the main path's shapes (K4_TIMED: stage 0's 3x3 in mode a and
-    with its int8 residual, stem0, stem1, the neck's 1x1 at 272x480), each on
-    the inputs the chain gave it: warm and cold CUDA-graph ms, bound, plain
-    (eager), and the bf16 cuDNN yardstick. Returns the rows, the first the
-    kernels line's."""
+    """K4 at every distinct (shape, mode) of one frame's calls (WIDERFACE-L:
+    28 of 32 launches), each on the inputs the chain gave it: launches a
+    frame, warm and cold CUDA-graph ms, bound, % of bound and the gap,
+    launches x (warm - bound). Cold rotates over more than COLD_BYTES of
+    inputs where GRAPH_LAUNCHES inputs hold that much, else each launch
+    follows a COLD_BYTES write (its own time taken off). The K4_TIMED shapes also get the plain
+    version (eager) and the bf16 cuDNN yardstick, the stride-1 1x1s
+    torch._int_mm. Prints the table ranked by gap and the frame's sum of
+    bounds. Returns the rows, K4_TIMED's first (the kernels line's first is
+    stage 0's 3x3) and the sum of bounds a frame."""
     import torch
 
     from lfdtpu_torch.ops import int8_conv as k4
 
-    rows = []
-    for label, pick in K4_TIMED:
-        call = next(c for c in calls if k4_shape(c)[3:] == pick)
-        shape = k4_shape(call)
-        sets = COLD_BYTES // kernel_work("int8_conv", shape)[0] + 2
-        g = torch.Generator(device=device).manual_seed(len(rows))
-        xs = [call["x"]] + [torch.randint(-127, 128, tuple(call["x"].shape), generator=g,
-                                          device=device, dtype=torch.int8)
-                            for _ in range(sets - 1)]
+    distinct = {}
+    for c in calls:
+        distinct.setdefault(k4_shape(c), [c, 0])[1] += 1
+    picks = {pick: label for label, pick in K4_TIMED}
+    order = [next(sh for sh in distinct if sh[3:] == pick) for _, pick in K4_TIMED]
+    order += [sh for sh in distinct if sh not in order]
+    rows, bound_sum = [], 0.0
+    flush = torch.empty(COLD_BYTES // 4, device=device)
+    flush_ms = graph_ms([flush.zero_])
+    for shape in order:
+        call, n = distinct[shape]
+        bound, by = kernel_bound_ms("int8_conv", shape)
+        bound_sum += n * bound
         warm = graph_ms([lambda: k4.int8_conv(**call)])
-        cold = graph_ms([lambda xi=xi: k4.int8_conv(**dict(call, x=xi)) for xi in xs])
-        plain = time_ms(lambda: k4.int8_conv_plain(**call), iters=5, warmup=1)
-        yard, yard_call = k4_yardstick_ms(call, card)
-        row = _timing("int8_conv", shape, card, warm, cold, plain, None,
-                      note=f" ({label}); {yard_call} {yard:.4f} ms",
-                      library_call="none: PyTorch has no int8 convolution on CUDA")
-        rows.append(dict(shape=list(shape), what=label, yardstick_ms=yard,
-                         yardstick_call=yard_call, **row))
-        del xs
-    return rows
+        sets = COLD_BYTES // kernel_work("int8_conv", shape)[0] + 2
+        if sets <= GRAPH_LAUNCHES:  # one graph rotates over more inputs than the L2 holds
+            g = torch.Generator(device=device).manual_seed(len(rows))
+            xs = [call["x"]] + [torch.randint(-127, 128, tuple(call["x"].shape), generator=g,
+                                              device=device, dtype=torch.int8)
+                                for _ in range(sets - 1)]
+            cold = graph_ms([lambda xi=xi: k4.int8_conv(**dict(call, x=xi)) for xi in xs])
+            cold_by = f"rotation over {sets} inputs"
+            del xs
+        else:  # too small for that: each launch after a write that evicts the L2
+            cold = graph_ms([lambda: (flush.zero_(), k4.int8_conv(**call))]) - flush_ms
+            cold_by = "after a COLD_BYTES write, its time taken off"
+        route = k4.route_of(*shape[3:7])
+        row = dict(shape=list(shape), k4_route=route, launches_per_frame=n, ms=warm,
+                   cold_ms=cold, cold_by=cold_by, bound_ms=bound, bound_by=by,
+                   pct_of_bound=100.0 * bound / warm,
+                   gap_ms=n * (warm - bound), plain_ms=None, library_ms=None,
+                   library_call="none: PyTorch has no int8 convolution on CUDA")
+        if shape[3:] in picks and shape == order[list(picks).index(shape[3:])]:
+            row["what"] = picks[shape[3:]]
+            row["plain_ms"] = time_ms(lambda: k4.int8_conv_plain(**call), iters=5, warmup=1)
+            row["yardstick_ms"], row["yardstick_call"] = k4_yardstick_ms(call, card)
+        if shape[5] == 1 and shape[6] == 1:
+            row["int_mm_ms"] = k4_int_mm_ms(call)
+        rows.append(row)
+    del flush
+    print(f"K4, every distinct (N, H, W, Cin, Cout, k, stride, mode) of one frame, ranked by "
+          f"gap = launches x (warm - bound) [{card}]:")
+    for r in sorted(rows, key=lambda r: -r["gap_ms"]):
+        extra = ""
+        if r["plain_ms"] is not None:
+            extra += (f"; plain {r['plain_ms']:.4f}; {r['yardstick_call']} "
+                      f"{r['yardstick_ms']:.4f}")
+        if "int_mm_ms" in r:
+            extra += (f"; torch._int_mm {r['int_mm_ms']:.4f} (not K4's function: int32 out, "
+                      "no epilogue)")
+        print(f"  {tuple(r['shape'])} {r['k4_route']} x{r['launches_per_frame']}: warm "
+              f"{r['ms']:.4f} ms, cold {r['cold_ms']:.4f} ({r['cold_by']}), bound "
+              f"{r['bound_ms']:.4f} ({r['bound_by']}), {r['pct_of_bound']:.1f}% of it, gap "
+              f"{r['gap_ms']:.4f}" + extra)
+    graph_sum = sum(r["launches_per_frame"] * r["ms"] for r in rows)
+    print(f"K4's bounds summed over one frame's {len(calls)} launches: {bound_sum:.4f} ms; "
+          f"its warm CUDA-graph times summed the same way: {graph_sum:.4f} ms [{card}]")
+    return rows, bound_sum
+
+
+def check_k4_mma_route(device, rng):
+    """K4's mma.sync route, which no WIDERFACE-L or TL-L conv takes: one
+    eager int8 frame of TL-S at TL_HW, whose 8 to 48-channel convs take it
+    (TL_S_MMA of them, the rest wgmma). Each call against the plain version,
+    exactly, and the mma calls' warm CUDA-graph ms and bounds summed over
+    the frame. Returns the kernels line's row."""
+    from lfdtpu_torch.ops import int8_conv as k4
+
+    tls = build_detector(device, seed=4, name="TL-S", cls_std=CLS_STD)
+    eager = compile_engine(tls, TL_HW, device, "int8", captured=False,
+                           preprocess=traffic_preprocess("TL-S"), class_agnostic=True)
+    _, calls = check_k4_routes(lambda: k4_inputs(lambda: eager.dense(frames(rng, 1, TL_HW))),
+                               "TL-S int8", mma=TL_S_MMA)
+    on_mma = [k4.route_of(*k4_shape(c)[3:7]) == "mma" for c in calls]
+    mma = [c for c, m in zip(calls, on_mma) if m]
+    err, seen = check_k4(mma, "TL-S int8, the mma.sync route")
+    err = max(err, check_k4([c for c, m in zip(calls, on_mma) if not m],
+                            "TL-S int8, its wgmma convs")[0])
+    first = {}
+    for c in mma:
+        first.setdefault(k4_shape(c), c)
+    ms = sum(n * graph_ms([lambda c=first[sh]: k4.int8_conv(**c)]) for sh, n in seen.items())
+    bound = sum(n * kernel_bound_ms("int8_conv", sh)[0] for sh, n in seen.items())
+    print(f"K4's mma.sync route in one TL-S int8 frame: {len(mma)} launches, {len(seen)} "
+          f"distinct (shape, mode), {ms:.4f} ms of warm CUDA-graph time against {bound:.4f} "
+          "ms of bounds")
+    return dict(path=f"TL-S int8 {TL_HW[0]}x{TL_HW[1]}, eager", k4_route="mma",
+                launches_per_frame=len(mma), distinct_shapes=len(seen), max_abs_err=err,
+                ms_per_frame=ms, bound_ms_per_frame=bound)
 
 
 def int8_phase(device, card, counters, tmp):
@@ -2832,8 +2975,9 @@ def int8_phase(device, card, counters, tmp):
     against fp32 (lfdtpu's criteria), decode + NMS with K1 against the plain
     NMS, the GPU against the CPU at SMALL_HW; TL-L at 768x1280 (its
     norm-free head runs int8: F15's path), the same checks and K4 at its
-    shapes; then the times. Returns (main path launches, replays, K4's
-    max|err|, K4's timing rows, TL-L's launches and replays)."""
+    shapes; K4's mma.sync route on TL-S's; then the times. Returns (main
+    path launches, replays, K4's max|err|, K4's timing rows and the mma
+    route's row, TL-L's launches and replays, the main path's routes)."""
     import torch
 
     from lfdtpu_torch.deploy import inference_latency_evaluation, make_device_preprocess
@@ -2850,7 +2994,8 @@ def int8_phase(device, card, counters, tmp):
     k4_err, calls_b1 = 0.0, None
     for batch in (1, 4):
         eager = compile_engine(det, HW, device, "int8", batch_size=batch, captured=False)
-        _, calls = k4_inputs(lambda: eager.dense(frames(rng, batch, HW)))
+        _, calls = check_k4_routes(lambda: k4_inputs(lambda: eager.dense(frames(rng, batch, HW))),
+                                   f"WIDERFACE-L int8 batch {batch}")
         check(len(calls) == want["int8_conv"],
               f"one eager int8 call gave K4 {len(calls)} calls, not {want['int8_conv']}")
         k4_err = max(k4_err, check_k4(calls, f"WIDERFACE-L int8 batch {batch}")[0])
@@ -2860,8 +3005,7 @@ def int8_phase(device, card, counters, tmp):
     torch.cuda.empty_cache()
 
     # the main path
-    for c in counters:
-        c.launches = 0
+    zero_counts(counters)
     engines = {v: compile_engine(det, HW, device, v) for v in ("int8", "int8_bf16")}
     imgs = [frames(rng, 1, (HW[0] - 8 - 24 * i, HW[1] - 40 * i))[0] for i in range(INT8_FRAMES)]
 
@@ -2873,6 +3017,10 @@ def int8_phase(device, card, counters, tmp):
     replayed, window = kernel_launches_in(prof)
     script_rows = predict_engine_jpeg(det, (HW[0] - 8, HW[1]), rng, tmp)
     launches = {c.__name__: c.launches for c in counters}
+    routes = dict(k4.int8_conv.routes)
+    print(f"WIDERFACE-L int8 main path, K4's launches by route at build and capture: {routes}")
+    check(routes["mma"] == 0 and sum(routes.values()) == launches["int8_conv"],
+          "the int8 main path sent a K4 launch to the mma.sync route")
     print(f"WIDERFACE-L int8 main path: {2 * INT8_FRAMES} replays served "
           f"{ {v: [len(r) for r in rr] for v, rr in rows.items()} } rows, predict_engine.py "
           f"(int8) {len(script_rows)} rows; launches at build and capture {launches}; by the "
@@ -2919,8 +3067,7 @@ def int8_phase(device, card, counters, tmp):
     tl = build_detector(device, seed=3, name="TL-L", cls_std=CLS_STD)
     pre = traffic_preprocess("TL-L")
     want_tl = expected_launches(tl, VARIANTS["int8"])
-    for c in counters:
-        c.launches = 0
+    zero_counts(counters)
     tl_engine = compile_engine(tl, TL_HW, device, "int8", preprocess=pre, class_agnostic=True)
     tl_imgs = [frames(rng, 1, (TL_HW[0] - 48, TL_HW[1]))[0]  # 720p in its bucket
                for _ in range(SERVED_FRAMES)]
@@ -2928,6 +3075,10 @@ def int8_phase(device, card, counters, tmp):
                              lambda: [tl.predict_for_single_image_with_engine(tl_engine, f)
                                       for f in tl_imgs])
     tl_launches = {c.__name__: c.launches for c in counters}
+    tl_routes = dict(k4.int8_conv.routes)
+    print(f"TL-L int8 main path, K4's launches by route at build and capture: {tl_routes}")
+    check(tl_routes["mma"] == 0 and sum(tl_routes.values()) == tl_launches["int8_conv"],
+          "the TL-L int8 main path sent a K4 launch to the mma.sync route")
     tl_replayed, window = kernel_launches_in(prof)
     print(f"TL-L int8 main path: {SERVED_FRAMES} replays served {[len(r) for r in tl_rows]} "
           f"rows; launches at build and capture {tl_launches}; by the replays (profile) "
@@ -2944,13 +3095,17 @@ def int8_phase(device, card, counters, tmp):
                       preprocess=pre, act_scales=tl_engine.int8_chain.amax, class_agnostic=True)
     eager = compile_engine(tl, TL_HW, device, "int8", captured=False, preprocess=pre,
                            act_scales=tl_engine.int8_chain.amax, class_agnostic=True)
-    _, calls = k4_inputs(lambda: eager.dense(frames(rng, 1, TL_HW)))
+    _, calls = check_k4_routes(lambda: k4_inputs(lambda: eager.dense(frames(rng, 1, TL_HW))),
+                               "TL-L int8")
+    check(len(calls) == want_tl["int8_conv"], f"TL-L int8: {len(calls)} K4 calls a frame")
     err, seen = check_k4(calls, "TL-L int8 (its head's merge units included)")
     k4_err = max(k4_err, err)
     check(any(s[3] == 128 and s[4] == 128 and s[5] == 1 for s in seen),
           "TL-L's int8 head convs did not reach K4")
     del eager, calls, tl_engine
     torch.cuda.empty_cache()
+    mma_row = check_k4_mma_route(device, rng)
+    k4_err = max(k4_err, mma_row["max_abs_err"])
 
     # times, beside the card
     print(f"[13 int8 timings] {card}")
@@ -2971,7 +3126,13 @@ def int8_phase(device, card, counters, tmp):
                                   counters, want)
     del pair, engines, fresh
     torch.cuda.empty_cache()
-    k4_rows = time_k4(calls_b1, card, device)
+    k4_rows, bound_sum = time_k4(calls_b1, card, device)
+    for v in ("int8", "int8_bf16"):
+        k4_ms, k4_n = share[v][2]["int8_conv"]
+        k4_excl = share[v][2]["int8_conv_exclusive"][0]
+        print(f"K4 per captured WIDERFACE-L {v} frame (profile): {k4_ms:.4f} ms in {k4_n:.0f} "
+              f"launches ({k4_excl:.4f} without the overlap with the kernel before each), "
+              f"against {bound_sum:.4f} ms of bounds ({100 * bound_sum / k4_excl:.1f}%) [{card}]")
     del calls_b1
     torch.cuda.empty_cache()
     from lfdtpu_torch import zoo
@@ -2992,7 +3153,7 @@ def int8_phase(device, card, counters, tmp):
               f"bad int8 latency cell {w}x{h}")
     del sweep_det
     torch.cuda.empty_cache()
-    return launches, replayed, k4_err, k4_rows, tl_launches, tl_replayed
+    return launches, replayed, k4_err, k4_rows + [mma_row], tl_launches, tl_replayed, routes
 
 
 # ------------------------------------------------------------------ main
@@ -3041,8 +3202,7 @@ def main():
     # the warmup calls and while the graph is captured; that is where the
     # host counters tick), then the predict entry points, whose calls replay
     # the graphs: those launches are counted from a profile by kernel name.
-    for c in counters:
-        c.launches = 0
+    zero_counts(counters)
     t0 = time.time()
     engines = compile_engines(det, HW, device)
     print(f"compiled {len(engines)} captured engines {HW[0]}x{HW[1]} in "
@@ -3072,8 +3232,7 @@ def main():
     print("[6 train]")
     t0 = time.time()
     check_train_gpu_vs_cpu(device)
-    for c in counters:
-        c.launches = 0
+    zero_counts(counters)
     trained = train_full_width(device, card)
     torch.cuda.synchronize()
     print("hand-written kernel launches during training (its path runs none): "
@@ -3149,7 +3308,7 @@ def main():
     t0 = time.time()
     tmp = tempfile.mkdtemp(prefix="lfd_int8_")
     try:
-        launches8, replayed8, k4_err, k4_rows, tl_launches8, tl_replayed8 = int8_phase(
+        launches8, replayed8, k4_err, k4_rows, tl_launches8, tl_replayed8, routes8 = int8_phase(
             device, card, counters, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3158,6 +3317,8 @@ def main():
     paths["TL-L int8"] = dict(build_and_capture=tl_launches8, replayed=tl_replayed8)
     timings["int8_conv"] = {k: v for k, v in k4_rows[0].items()
                             if k not in ("shape", "what")}
+    # K4's main-path launches by route (its int8 engines' build and capture)
+    timings["int8_conv"]["launches_by_route"] = routes8
     print(f"int8 phase {time.time() - t0:.1f} s")
 
     sources = {
@@ -3167,7 +3328,9 @@ def main():
         "pair_conv3x3": ("lfdtpu_torch/csrc/pair_conv.cu", "lfdtpu/ops/conv_pallas.py:171",
                          errs["pair_conv3x3"]),
         # not a Pallas kernel: XLA's int8 conv of lfdtpu's fused int8 chain
-        "int8_conv": ("lfdtpu_torch/csrc/int8_conv.cu", "lfdtpu/deploy/int8_net.py:276",
+        # (its stem route: csrc/int8_conv_stem.cu; the entry point and the
+        # mma.sync route for other widths: csrc/int8_conv.cu)
+        "int8_conv": ("lfdtpu_torch/csrc/int8_conv_wgmma.cuh", "lfdtpu/deploy/int8_net.py:276",
                       k4_err),
     }
     other = {"nms_mask_sorted": [fcos_k1],

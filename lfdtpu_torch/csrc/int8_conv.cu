@@ -18,39 +18,62 @@
 // rounding now and then. With them K4 equals its plain version
 // (`ops/int8_conv.py::int8_conv_plain`) bit for bit.
 //
-// What bounds it on the H100: bytes, at every shape of the zoo. The 3x3
-// 64 -> 64 conv at 272 x 480 does 9.6 G int8 operations (4.9 us at the 1,979
-// TOP/s tensor-core peak) and moves 16.7 MB of int8 in and out (5.0 us at
-// 3.35 TB/s); the 1x1 convs and the stem are far below the operations line.
-// What this first design does about it: keeps activations in int8 end to end
-// (a quarter of f32's bytes) and fuses BN, ReLU, the residual and the
-// requant into the epilogue, so each activation is read once and written
-// once. It does not yet try to reach the bound (a later redesign's work:
-// wgmma, TMA, a persistent grid).
+// What bounds it on the H100: bytes, at every shape of the zoo. At stage 0's
+// 3x3 64 -> 64 at 272 x 480 the operations line is as close: 9.6 G int8
+// operations take 4.86 us at the 1,979 TOP/s wgmma peak, the 16.7 MB of int8
+// in and out 5.00 us at 3.35 TB/s. mma.sync runs at about half of wgmma's
+// int8 rate, so a kernel on it cannot come within 2x of the bound there.
 //
-// Design: a plain implicit GEMM on mma.sync.m16n8k32.s8.s8.s32.
-//   * M = N * Ho * Wo output pixels, N = Cout, K = taps x input channels. A
+// Three routes; the wrapper picks one by shape (ops/int8_conv.py::route_of)
+// and passes it in `route`:
+//   * wgmma (`int8_conv_wgmma.cuh`): Cin and Cout 64 or 128, 1x1 or 3x3,
+//     stride 1 or 2, every conv of WIDERFACE-L's and TL-L's chains but the
+//     stem. K3's design in int8: persistent, the weights resident in shared
+//     memory (TMA, K-major), halo windows by TMA (a tap is an address
+//     offset; a 1x1/s2 conv reads only the pixels it samples), wgmma with A
+//     from ldmatrix, a staged epilogue stored by TMA, two of each in flight.
+//   * stem (`int8_conv_stem.cu`): Cin 3, Cout 64, 3x3 stride 2. K2's design
+//     in int8: persistent, the input rows as aligned 16-byte words, A
+//     gathered without division, 16-byte stores.
+//   * mma (this file, the first design): every other shape (the 8 to 48 and
+//     96 channels of the smaller zoo models). A plain implicit GEMM on
+//     mma.sync.m16n8k32.s8.s8.s32:
+//   - M = N * Ho * Wo output pixels, N = Cout, K = taps x input channels. A
 //     block owns 128 output pixels and every output channel; each of its 8
 //     warps owns 16 pixels, so a warp's B fragments span all of Cout (the
-//     template NT = Cout / 8: 1, 2, 3, 4, 6, 8, 12 or 16 n8 tiles; the zoo
-//     uses 32, 48, 64 and 128 channels, the smallest LFDs 8 and 16).
-//   * K advances 32 bytes a step (one mma k32). With Cin a multiple of 16 the
+//     template NT = Cout / 8: 1, 2, 3, 4, 6, 8, 12 or 16 n8 tiles).
+//   - K advances 32 bytes a step (one mma k32). With Cin a multiple of 16 the
 //     packed weight pads each tap's channels to a multiple of 32 (cin_pad), so
 //     a step lies inside one tap: every thread copies one 16-byte run of one
 //     pixel's channels with cp.async (zero-filled outside the image, past the
-//     ragged M and past Cin), and one of B's rows. With another Cin (the
-//     3-channel stem) taps x Cin is packed flat and padded to 32 once, and the
-//     threads gather the bytes one by one.
-//   * Two stages in shared memory, 48-byte rows (32 bytes + 16 of padding) so
-//     that the fragment loads of a warp hit 32 different banks; the next
-//     step's copies are in flight during this step's mma.
-//   * Epilogue straight from the accumulator registers: each thread writes two
+//     ragged M and past Cin), and one of B's rows. With another Cin taps x
+//     Cin is packed flat and padded to 32 once, and the threads gather the
+//     bytes one by one.
+//   - Two stages in shared memory, 48-byte rows (32 bytes + 16 of padding) so
+//     that the fragment loads of a warp hit 32 different banks.
+//   - Epilogue straight from the accumulator registers: each thread writes two
 //     adjacent channels of a pixel (2 bytes int8, 8 bytes f32).
-//   * 32-bit index math; the entry point refuses tensors larger than that.
+//   - 32-bit index math; the entry point refuses tensors larger than that.
+//
+// -Xptxas -v (CUDA 12.8, sm_90a), registers and static shared memory; no
+// instantiation spills:
+//   wgmma <Cin, N, k, tile rows>, dynamic shared memory sized per launch
+//   (4-row tiles are held to 128 registers, two blocks an SM):
+//     <64,64,1,4> 92, <64,64,1,8> 128, <64,64,3,4> 125, <64,64,3,8> 184,
+//     <64,128,1,4> 122, <64,128,1,8> 208, <64,128,3,4> 128, <64,128,3,8> 255,
+//     <128,64,1,4> 92, <128,64,1,8> 128, <128,64,3,4> 101, <128,64,3,8> 144,
+//     <128,128,1,4> 122, <128,128,1,8> 207, <128,128,3,4> 128,
+//     <128,128,3,8> 223;
+//   stem 102 registers (the chain's int8-out mode) or 114 (any mode), 20,448
+//     bytes, a 16-byte stack frame;
+//   mma <NT> 39 (NT 1) to 120 (NT 16) registers, 24,576 bytes.
 
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
+
+#include "int8_epilogue.cuh"
+#include "ptx.cuh"
 
 namespace {
 
@@ -79,35 +102,6 @@ struct Params {
   float inv_out;
   int relu;
 };
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 16-byte async copy of `bytes` (0 or 16) bytes; the rest is zero-filled
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-__device__ __forceinline__ int requant(float v, float inv) {
-  const int q = __float2int_rn(__fmul_rn(v, inv));
-  return q < -127 ? -127 : (q > 127 ? 127 : q);
-}
 
 // One output pixel's place in the input: the image's base and the top-left
 // input coordinate of its window; valid false past the ragged M.
@@ -195,7 +189,7 @@ __global__ void __launch_bounds__(kThreads) int8_conv_kernel(const Params p) {
   for (int s = 0; s < steps; ++s) {
     if (s + 1 < steps) load_step<NT>(p, px, half, s + 1, sA[(s + 1) & 1], sB[(s + 1) & 1]);
     cp_async_commit();
-    cp_async_wait1();  // step s has landed
+    cp_async_wait<1>();  // step s has landed
     __syncthreads();
     const uint8_t* a_s = sA[s & 1];
     const uint8_t* b_s = sB[s & 1];
@@ -222,34 +216,22 @@ __global__ void __launch_bounds__(kThreads) int8_conv_kernel(const Params p) {
     for (int nt = 0; nt < NT; ++nt) {
       const int ch = 8 * nt + 2 * t;
       const int idx = m * p.Cout + ch;
-      float v[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        v[e] = __fadd_rn(__fmul_rn(__int2float_rn(acc[nt][2 * i + e]), p.mult[ch + e]),
-                         p.bias[ch + e]);
-      }
-      if (p.res_kind == 1) {
-        const char2 r = *reinterpret_cast<const char2*>(
-            static_cast<const int8_t*>(p.residual) + idx);
-        v[0] = __fadd_rn(v[0], __fmul_rn(static_cast<float>(r.x), p.res_scale));
-        v[1] = __fadd_rn(v[1], __fmul_rn(static_cast<float>(r.y), p.res_scale));
-      } else if (p.res_kind == 2) {
-        const float2 r = *reinterpret_cast<const float2*>(
-            static_cast<const float*>(p.residual) + idx);
-        v[0] = __fadd_rn(v[0], r.x);
-        v[1] = __fadd_rn(v[1], r.y);
-      }
-      if (p.relu || p.res_kind) {
-        v[0] = fmaxf(v[0], 0.0f);
-        v[1] = fmaxf(v[1], 0.0f);
-      }
+      const float2 v = epilogue_f(
+          acc[nt][2 * i], acc[nt][2 * i + 1], make_float2(p.mult[ch], p.mult[ch + 1]),
+          make_float2(p.bias[ch], p.bias[ch + 1]), p.res_kind, p.res_kind, p.res_scale, p.relu,
+          [&](int kind) {
+            if (kind == 1) {
+              const char2 r = *reinterpret_cast<const char2*>(
+                  static_cast<const int8_t*>(p.residual) + idx);
+              return make_float2(static_cast<float>(r.x), static_cast<float>(r.y));
+            }
+            return *reinterpret_cast<const float2*>(static_cast<const float*>(p.residual) + idx);
+          });
       if (p.out_int8) {
-        char2 q;
-        q.x = static_cast<signed char>(requant(v[0], p.inv_out));
-        q.y = static_cast<signed char>(requant(v[1], p.inv_out));
-        *reinterpret_cast<char2*>(static_cast<int8_t*>(p.out) + idx) = q;
+        *reinterpret_cast<unsigned short*>(static_cast<int8_t*>(p.out) + idx) =
+            requant_pair(v, p.inv_out);
       } else {
-        *reinterpret_cast<float2*>(static_cast<float*>(p.out) + idx) = make_float2(v[0], v[1]);
+        *reinterpret_cast<float2*>(static_cast<float*>(p.out) + idx) = v;
       }
     }
   }
@@ -257,18 +239,45 @@ __global__ void __launch_bounds__(kThreads) int8_conv_kernel(const Params p) {
 
 }  // namespace
 
+// The other routes (`int8_conv_wgmma64.cu`, `int8_conv_wgmma128.cu`,
+// `int8_conv_stem.cu`): C++ functions of the library, C entry points only in
+// the trace tool's build of each source alone.
+int lfd_int8_conv_wgmma64(const int8_t* x, const int8_t* w, const float* mult, const float* bias,
+                          const void* residual, int res_kind, float res_scale, void* out,
+                          int out_int8, float inv_out, int relu, int N, int H, int W, int Cout,
+                          int ksize, int stride, int Ho, int Wo, int Kpad, cudaStream_t stream);
+int lfd_int8_conv_wgmma128(const int8_t* x, const int8_t* w, const float* mult,
+                           const float* bias, const void* residual, int res_kind, float res_scale,
+                           void* out, int out_int8, float inv_out, int relu, int N, int H, int W,
+                           int Cout, int ksize, int stride, int Ho, int Wo, int Kpad,
+                           cudaStream_t stream);
+int lfd_int8_conv_stem(const int8_t* x, const int8_t* w, const float* mult, const float* bias,
+                       const void* residual, int res_kind, float res_scale, void* out,
+                       int out_int8, float inv_out, int relu, int N, int H, int W, int Kpad,
+                       cudaStream_t stream);
+
 // x (N, H, W, Cin) int8; w (Cout, Kpad) int8 packed by
 // ops/int8_conv.py::pack_int8_weight; mult, bias (Cout,) f32; residual
 // (N, Ho, Wo, Cout) int8 (res_kind 1) or f32 (res_kind 2) or null; out
-// (N, Ho, Wo, Cout) int8 (out_int8) or f32. Padding ksize / 2.
+// (N, Ho, Wo, Cout) int8 (out_int8) or f32. Padding ksize / 2. route: the
+// kernel the wrapper picked by shape (the rule is ops/int8_conv.py::route_of
+// alone): 0 the mma.sync implicit GEMM (any Cin, Cout a multiple of 8 up to
+// 128), 1 the stem (Cin 3, Cout 64, 3x3 stride 2), 2 wgmma (Cin and Cout 64
+// or 128, 1x1 or 3x3, stride 1 or 2); a shape the route cannot take is
+// refused.
 extern "C" int lfd_int8_conv(const int8_t* x, const int8_t* w, const float* mult,
                              const float* bias, const void* residual, int res_kind,
                              float res_scale, void* out, int out_int8, float inv_out,
                              int relu, int N, int H, int W, int Cin, int Cout, int ksize,
-                             int stride, cudaStream_t stream) {
+                             int stride, int route, cudaStream_t stream) {
   if (N <= 0 || H <= 0 || W <= 0) return static_cast<int>(cudaGetLastError());
   if (Cin <= 0 || Cout % 8 != 0 || Cout > kMaxCout || ksize <= 0 || stride <= 0 ||
-      res_kind < 0 || res_kind > 2) {
+      res_kind < 0 || res_kind > 2 || route < 0 || route > 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool c64 = (Cin == 64 || Cin == 128) && (Cout == 64 || Cout == 128);
+  if ((route == 1 && !(Cin == 3 && Cout == 64 && ksize == 3 && stride == 2)) ||
+      (route == 2 && !(c64 && (ksize == 1 || ksize == 3) && (stride == 1 || stride == 2)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
@@ -308,6 +317,15 @@ extern "C" int lfd_int8_conv(const int8_t* x, const int8_t* w, const float* mult
   p.out_int8 = out_int8;
   p.inv_out = inv_out;
   p.relu = relu;
+  if (route == 2) {
+    return (Cin == 64 ? lfd_int8_conv_wgmma64 : lfd_int8_conv_wgmma128)(
+        x, w, mult, bias, residual, p.res_kind, res_scale, out, out_int8, inv_out, relu, N, H,
+        W, Cout, ksize, stride, p.Ho, p.Wo, p.Kpad, stream);
+  }
+  if (route == 1) {
+    return lfd_int8_conv_stem(x, w, mult, bias, residual, p.res_kind, res_scale, out, out_int8,
+                              inv_out, relu, N, H, W, p.Kpad, stream);
+  }
   const int grid = static_cast<int>((M + kBM - 1) / kBM);
   switch (Cout / 8) {
     case 1: int8_conv_kernel<1><<<grid, kThreads, 0, stream>>>(p); break;

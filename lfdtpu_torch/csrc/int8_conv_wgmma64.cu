@@ -1,0 +1,13 @@
+// K4's wgmma route for 64 input channels (`int8_conv_wgmma.cuh`), called
+// by lfd_int8_conv (`int8_conv.cu`); the trace tool builds this source alone
+// and calls it as a C entry point (`trace.cuh`).
+
+#include "int8_conv_wgmma.cuh"
+
+LFD_TRACED_ENTRY int lfd_int8_conv_wgmma64(
+    const int8_t* x, const int8_t* w, const float* mult, const float* bias, const void* residual,
+    int res_kind, float res_scale, void* out, int out_int8, float inv_out, int relu, int N, int H,
+    int W, int Cout, int ksize, int stride, int Ho, int Wo, int Kpad, cudaStream_t stream) {
+  return wgmma_entry<64>(x, w, mult, bias, residual, res_kind, res_scale, out, out_int8,
+                         inv_out, relu, N, H, W, Cout, ksize, stride, Ho, Wo, Kpad, stream);
+}

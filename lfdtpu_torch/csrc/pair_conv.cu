@@ -68,6 +68,7 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "ptx.cuh"
 #include "trace.cuh"
 
 namespace {
@@ -99,95 +100,6 @@ static_assert(kSmemBytes <= 232448, "shared memory of one H100 block");
 static_assert(kWBytes % 1024 == 0 && kWinBytes % 1024 == 0, "1 KB aligned boxes");
 static_assert(9 * kC % kWBoxRows == 0 && kWBoxRows % (3 * kC) == 0, "boxes of whole tap rows");
 constexpr int kMaxDevices = 64;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// a TMA box at {c, x, y, n} (a 4-D map; a 2-D one ignores y and n); parts
-// outside the tensor read as zero
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c,
-                                         int x, int y, int n) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c), "r"(x), "r"(y), "r"(n)
-      : "memory");
-}
-
-// fetch a TMA descriptor ahead of its first use
-__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
-  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
-}
-
-// parts of the box outside the tensor are not written
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c, int x, int y,
-                                          int n) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
-      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c), "r"(x), "r"(y), "r"(n)
-      : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void tma_store_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
-}
-
-// generic-proxy shared-memory writes, made visible to TMA and wgmma
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keeps the compiler from moving accumulator accesses across wgmma's
-// asynchronous window
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 // Shared-memory descriptor of an MN-major B operand with 128B swizzle: atoms
 // of 8 input-channel rows x 128 bytes (the 64 output channels), 1 KB each.
@@ -312,21 +224,21 @@ pair_conv_kernel(const __grid_constant__ CUtensorMap map_w,
   // then residual 0 and window 1.
   if (tid == 0) {
     mbar_expect(bar_u32, kWinBox);
-    tma_load(win_u32, &map_x, bar_u32, 0, cur.x0 - 1, cur.y0 - 1, cur.n);
+    tma_load4(win_u32, &map_x, bar_u32, 0, cur.x0 - 1, cur.y0 - 1, cur.n);
     for (int r = 0; r < kWBoxes; ++r) {
       mbar_expect(bar_u32 + 32 + 8 * r, kWBoxRows * kC * 2);
-      tma_load(w_u32 + r * kWBoxRows * kC * 2, &map_w, bar_u32 + 32 + 8 * r, 0, r * kWBoxRows, 0,
+      tma_load4(w_u32 + r * kWBoxRows * kC * 2, &map_w, bar_u32 + 32 + 8 * r, 0, r * kWBoxRows, 0,
                0);
     }
     if (has_res) {
       mbar_expect(bar_u32 + 16, kResBytes);
-      tma_load(tile_u32, &map_res, bar_u32 + 16, cur.c0, cur.x0, cur.y0, cur.n);
+      tma_load4(tile_u32, &map_res, bar_u32 + 16, cur.c0, cur.x0, cur.y0, cur.n);
     }
     const int next = item + gridDim.x;
     if (next < work) {
       const Item nx = item_of(next, kSplit, tiles_x, tiles_img, kN, kTH);
       mbar_expect(bar_u32 + 8, kWinBox);
-      tma_load(win_u32 + kWinBytes, &map_x, bar_u32 + 8, 0, nx.x0 - 1, nx.y0 - 1, nx.n);
+      tma_load4(win_u32 + kWinBytes, &map_x, bar_u32 + 8, 0, nx.x0 - 1, nx.y0 - 1, nx.n);
     }
   }
   LFD_TR(1);
@@ -393,7 +305,7 @@ pair_conv_kernel(const __grid_constant__ CUtensorMap map_w,
     if (tid == 0 && next + static_cast<int>(gridDim.x) < work) {  // window of item i + 2
       const Item n2 = item_of(next + gridDim.x, kSplit, tiles_x, tiles_img, kN, kTH);
       mbar_expect(bar_u32 + 8 * s, kWinBox);
-      tma_load(win, &map_x, bar_u32 + 8 * s, 0, n2.x0 - 1, n2.y0 - 1, n2.n);
+      tma_load4(win, &map_x, bar_u32 + 8 * s, 0, n2.x0 - 1, n2.y0 - 1, n2.n);
     }
     if (has_res) mbar_wait(bar_u32 + 16 + 8 * s, phase);  // this item's residual
 
@@ -430,11 +342,11 @@ pair_conv_kernel(const __grid_constant__ CUtensorMap map_w,
     __syncthreads();
     LFD_TR(4 + 3 * i);
     if (tid == 0) {
-      tma_store(&map_out, tile_u32 + s * kTileBytes, cur.c0, cur.x0, cur.y0, cur.n);
+      tma_store4(&map_out, tile_u32 + s * kTileBytes, cur.c0, cur.x0, cur.y0, cur.n);
       tma_store_wait_read<1>();  // item i - 1's store has read the other tile
       if (has_res && next < work) {  // residual of item i + 1 into it
         mbar_expect(bar_u32 + 16 + 8 * (s ^ 1), kResBytes);
-        tma_load(tile_u32 + (s ^ 1) * kTileBytes, &map_res, bar_u32 + 16 + 8 * (s ^ 1), nxt.c0,
+        tma_load4(tile_u32 + (s ^ 1) * kTileBytes, &map_res, bar_u32 + 16 + 8 * (s ^ 1), nxt.c0,
                  nxt.x0, nxt.y0, nxt.n);
       }
     }
@@ -442,31 +354,6 @@ pair_conv_kernel(const __grid_constant__ CUtensorMap map_w,
     cur = nxt;
   }
   if (tid == 0) tma_store_wait_read<0>();  // the tiles stay until the stores read them
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, found once through the runtime's entry points
-cudaError_t encoder(EncodeTiled* out) {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err != cudaSuccess) return err;
-    if (q != cudaDriverEntryPointSuccess || p == nullptr) return cudaErrorNotSupported;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  *out = fn;
-  return cudaSuccess;
 }
 
 // A 4-D TMA map of a bf16 tensor, dims innermost first, the innermost

@@ -44,6 +44,7 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "ptx.cuh"
 #include "trace.cuh"
 
 namespace {
@@ -112,21 +113,6 @@ __device__ __forceinline__ Row row_of(const Tile& tl, int dy, int H, int W) {
   r.plo = 3 * (xa - ix0);
   r.phi = 3 * (xb - ix0);
   return r;
-}
-
-// 16-byte async copy of `bytes` (<= 16) bytes; the rest of the 16 is zeroed
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // The aligned 16-byte words covering a tile's three input rows, into a raw
@@ -248,7 +234,7 @@ stem_conv_kernel(const uint8_t* __restrict__ x, const float* __restrict__ w,
   LFD_TR(1);
 
   for (int i = 0;; ++i) {
-    cp_async_wait_all();  // this tile's raw rows
+    cp_async_wait<0>();  // this tile's raw rows
     __syncthreads();
     LFD_TR(2 + 3 * i);
     fill_strip(s_strip, s_raw[i & 1], cur, H, W, mean, inv);

@@ -6,6 +6,9 @@
 // block's row of g_trace, and lfd_trace_clear / lfd_trace_read let the host
 // zero and read the table. The entry points are defined in every source that
 // includes this header, so a traced library holds one kernel source.
+// LFD_TRACED_ENTRY marks a function that the package calls from another
+// source (a K4 route): a C entry point in a traced build, which calls it
+// alone, and a plain C++ function otherwise.
 
 #pragma once
 
@@ -34,8 +37,11 @@ extern "C" int lfd_trace_clear() {
 extern "C" int lfd_trace_read(long long* host) {
   return static_cast<int>(cudaMemcpyFromSymbol(host, g_trace, sizeof(g_trace)));
 }
+
+#define LFD_TRACED_ENTRY extern "C"
 #else
 #define LFD_TR(k) \
   do {            \
   } while (0)
+#define LFD_TRACED_ENTRY
 #endif

@@ -2,7 +2,9 @@
 #
 # The sources compile with nvcc into ONE shared library with a plain C
 # interface, loaded with ctypes: no PyTorch headers, so a cold build takes
-# seconds. The build happens at the first kernel launch, never at import
+# seconds. Each source compiles in its own nvcc process, all started
+# together, and the objects are linked into the library. The build happens
+# at the first kernel launch, never at import
 # (the CPU-only test machines have no nvcc), into `<checkout>/build/kernels/`
 # under a file name that carries a hash of the sources and flags, so a stale
 # library is never loaded.
@@ -23,7 +25,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # reference's float32 expression (see csrc/nms.cu)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _P = ctypes.c_void_p
@@ -36,9 +38,9 @@ _SIGNATURES = {
     # x, w, scale, bias, residual, out, N, H, W, relu, stream
     "lfd_pair_conv3x3": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # x, w, mult, bias, residual, res_kind, res_scale, out, out_int8, inv_out,
-    # relu, N, H, W, Cin, Cout, ksize, stride, stream
+    # relu, N, H, W, Cin, Cout, ksize, stride, route, stream
     "lfd_int8_conv": (_P, _P, _P, _P, _P, _I, ctypes.c_float, _P, _I, ctypes.c_float,
-                      _I, _I, _I, _I, _I, _I, _I, _I, _P),
+                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 
@@ -69,17 +71,33 @@ def library_path():
 
 
 def compile_sources(sources, out, *flags):
-    """Compile `sources` with NVCC_FLAGS (and `flags`) into the shared
-    library `out`. Returns the compiler's output (register and shared memory
-    use per kernel, from -Xptxas=-v), which is kept beside it as `.log`."""
+    """Compile `sources` with NVCC_FLAGS (and `flags`), one nvcc process per
+    source, all at once, and link them into the shared library `out`.
+    Returns the compilers' output (register and shared memory use per
+    kernel, from -Xptxas=-v), which is kept beside it as `.log`."""
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    out.with_suffix(".log").write_text(" ".join(cmd) + "\n" + log)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log[-4000:]}")
+    tag = f"{os.getpid()}.tmp"
+    objs = [out.parent / f"{out.stem}.{Path(src).stem}.{tag}.o" for src in sources]
+    cmds = [[_nvcc(), *NVCC_FLAGS, *flags, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    logs = [" ".join(cmd) + "\n" + proc.communicate()[0] for cmd, proc in zip(cmds, procs)]
+    tmp = out.with_suffix(f".{tag}")
+    failed = [log for proc, log in zip(procs, logs) if proc.returncode != 0]
+    if not failed:
+        link = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp),
+                *map(str, objs)]
+        proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        logs.append(" ".join(link) + "\n" + proc.stdout)
+        if proc.returncode != 0:
+            failed = logs[-1:]
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    log = "\n".join(logs)
+    out.with_suffix(".log").write_text(log)
+    if failed:
+        raise RuntimeError(f"nvcc failed:\n{failed[0][-4000:]}")
     os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
     return log
 

@@ -631,6 +631,65 @@ def test_int8_conv_kernel_matches_plain_exactly(cuda, cin, cout, k, stride, hw, 
         assert int(got.max()) == 127 and len(torch.unique(got)) > 100
 
 
+# the wgmma and stem routes' edges: a level smaller than one tile, ragged
+# last tiles, 3x3 128 -> 128 with its 147 KB of resident weights, stride-2
+# windows at odd sizes, batch 4 (n, Cin, Cout, kernel, stride, hw)
+K4_EDGES = [(1, 64, 64, 3, 1, (17, 30)), (1, 128, 128, 1, 1, (17, 30)),
+            (1, 64, 64, 3, 1, (35, 61)), (1, 64, 128, 1, 1, (33, 47)),
+            (1, 128, 128, 3, 1, (34, 60)), (2, 128, 128, 3, 1, (11, 97)),
+            (1, 64, 64, 3, 2, (69, 121)), (1, 128, 128, 3, 2, (35, 61)),
+            (1, 64, 128, 3, 2, (67, 119)), (1, 64, 64, 1, 2, (69, 121)),
+            (1, 128, 128, 1, 2, (33, 59)), (1, 128, 64, 3, 1, (21, 40)),
+            (4, 64, 64, 3, 1, (68, 120)), (4, 64, 64, 1, 2, (136, 240)),
+            (4, 128, 128, 3, 2, (34, 60)), (4, 64, 128, 1, 1, (17, 30)),
+            (1, 3, 64, 3, 2, (1087, 1919)), (4, 3, 64, 3, 2, (135, 241)),
+            (1, 3, 64, 3, 2, (3, 5))]
+
+
+@pytest.mark.parametrize("n,cin,cout,k,stride,hw", K4_EDGES)
+@pytest.mark.parametrize("mode", ["a", "a relu", "b", "c int8", "c f32"])
+def test_int8_conv_routes_match_plain_at_their_edges(cuda, n, cin, cout, k, stride, hw, mode):
+    from lfdtpu_torch.ops import int8_conv as k4
+
+    x, wp, mult, bias = _k4_inputs(cuda, cin, cout, k, stride, hw, seed=n + cin + k, batch=n)
+    ho, wo = k4.out_hw(*hw, k, stride)
+    kw = dict(relu="relu" in mode)
+    if mode != "b":
+        kw["out_scale"] = 0.02
+    g = torch.Generator(device=cuda).manual_seed(2)
+    if mode == "c int8":
+        kw["residual"] = torch.randint(-127, 128, (n, ho, wo, cout), device=cuda,
+                                       generator=g).to(torch.int8)
+        kw["residual_scale"] = 0.013
+    elif mode == "c f32":
+        kw["residual"] = torch.randn(n, ho, wo, cout, device=cuda, generator=g)
+    route = k4.route_of(cin, cout, k, stride)
+    assert route == ("stem" if cin == 3 else "wgmma")
+    before = dict(k4.int8_conv.routes)
+    got = k4.int8_conv(x, wp, mult, bias, k, stride, **kw)
+    ref = k4.int8_conv_plain(x, wp, mult, bias, k, stride, **kw)
+    torch.cuda.synchronize()
+    assert k4.int8_conv.routes == dict(before, **{route: before[route] + 1})
+    assert got.shape == ref.shape == (n, ho, wo, cout) and got.dtype == ref.dtype
+    assert torch.equal(got, ref), (mode, (got.float() - ref.float()).abs().max())
+
+
+def test_int8_conv_routes_by_shape(cuda):
+    """Each K4_SHAPES conv reaches the route route_of names, and only it."""
+    from lfdtpu_torch.ops import int8_conv as k4
+
+    seen = set()
+    for cin, cout, k, stride, hw in K4_SHAPES:
+        x, wp, mult, bias = _k4_inputs(cuda, cin, cout, k, stride, hw, seed=0)
+        before = dict(k4.int8_conv.routes)
+        k4.int8_conv(x, wp, mult, bias, k, stride, out_scale=0.02)
+        route = k4.route_of(cin, cout, k, stride)
+        assert k4.int8_conv.routes == dict(before, **{route: before[route] + 1})
+        seen.add(route)
+    torch.cuda.synchronize()
+    assert seen == set(k4.ROUTES)
+
+
 def test_int8_conv_kernel_rejects_bad_input(cuda):
     from lfdtpu_torch.ops import int8_conv as k4
 

@@ -62,11 +62,16 @@ def test_int8_conv_bound_by_hand():
     assert ms * 1e3 == pytest.approx(5.00, abs=0.01)
     assert ops / 1979e12 * 1e6 == pytest.approx(4.86, abs=0.01)
     # its int8 residual adds one more int8 activation, the shortcut's f32
-    # output (mode b) four bytes an element: a 1x1/s2 64 -> 128 at 272x480
+    # output (mode b) four bytes an element: a 1x1/s2 64 -> 128 at 272x480,
+    # which reads only the 136x240 pixels it samples
     res = chip_smoke.kernel_work("int8_conv", (1, 272, 480, 64, 64, 3, 1, "c8"))[0]
     assert res == nbytes + act
     sc = chip_smoke.kernel_work("int8_conv", (1, 272, 480, 64, 128, 1, 2, "b"))[0]
-    assert sc == act + 128 * 64 + 2 * 128 * 4 + 136 * 240 * 128 * 4
+    assert sc == 136 * 240 * 64 + 128 * 64 + 2 * 128 * 4 + 136 * 240 * 128 * 4
+    # s0.0's shortcut at 544x960: 8.4 MB in (not the whole 33.4 MB), 33.4 MB
+    # of f32 out, 12.5 us
+    ms, by = chip_smoke.kernel_bound_ms("int8_conv", (1, 544, 960, 64, 64, 1, 2, "b"))
+    assert by == "bytes" and ms * 1e3 == pytest.approx(12.47, abs=0.01)
     # stem0 at 1088x1920: 6.3 MB in, 33.4 MB out
     stem = chip_smoke.kernel_work("int8_conv", (1, 1088, 1920, 3, 64, 3, 2, "a"))[0]
     assert stem == 1088 * 1920 * 3 + 64 * 27 + 512 + 544 * 960 * 64
