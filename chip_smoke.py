@@ -45,7 +45,10 @@ the LFDv2 family, FCOS-R50-FPN, and the int8 engine. It checks them:
               same build (captured=False) on two different frames in a row:
               every output bit-equal, the first result unchanged by the
               second call, the two results different, and the launches each
-              capture recorded;
+              capture recorded; a captured bf16 engine without a device
+              preprocess serving a frame normalized on the host (float32)
+              through predict_for_single_image_with_engine, rows equal to
+              its eager twin's, and the stem kernel's engine refusing it;
   6. train    the training path (forward, on-device target assignment,
               loss, backward, clip, SGD) of WIDERFACE-L, which runs no
               hand-written kernel: two fp32 steps at 128x128, batch 2, on the
@@ -214,10 +217,20 @@ the LFDv2 family, FCOS-R50-FPN, and the int8 engine. It checks them:
               256x256 with one amax dict (every int8 edge equal, dense within
               DENSE_FP32_TOL). TL-L at 768x1280 in int8, whose norm-free
               head runs int8 too (F15's path): its main path, captured
-              against eager, K4 at its shapes. K4's mma.sync route (the
-              widths the other routes do not take) on one eager TL-S int8
-              frame at 768x1280: 14 of its launches on that route, each
-              call against the plain version, EXACT. Times beside the card: the
+              against eager, K4 at its shapes. Then WIDERFACE-XS at
+              1088x1920 and TL-S at 768x1280 in int8 (narrow_int8_path),
+              whose 32- and 48-channel convs the wgmma and stem routes take:
+              K4 against its plain version on every call of one eager frame
+              at batch 1 and 4 (XS 1 stem + 34 wgmma launches a frame, TL-S
+              1 + 39, none on the mma.sync route), their main paths as
+              WIDERFACE-L's (the captured float32- and bf16-head engines,
+              the replays counted from a profile), captured against eager,
+              int8 against fp32, the captured engines timed beside their
+              bf16 kernel engine, a profile of a fresh capture, and K4 at
+              every distinct (shape, mode) of a frame on its route and on
+              the mma.sync route. K4's mma.sync route, which no zoo chain
+              takes, on K4_MMA_SHAPES (Cout 8, 16, 24, 96, 5x5 kernels, odd
+              sizes) in every mode, EXACT. Times beside the card: the
               captured int8 engines against bf16_kernels (A B C C B A), a
               profile of each int8 engine (device work per frame, the
               busiest kernels, K4's ms per frame by route and without the
@@ -237,9 +250,10 @@ its int8 engines for K4; and on every path in
 launches_by_path: an engine path's launches at build and capture and by its
 replays, the FCOS path's eager launches and replayed null (it has no
 engine); K2's and K3's times at the new shapes, K1's at the FCOS shape and
-K4's at its other shapes of a frame and its mma.sync route's TL-S frame
-(error, launches, ms) in other_shapes; K4's main-path
-launches by route in launches_by_route);
+K4's at its other shapes of a WIDERFACE-L frame and its mma.sync route's
+synthetic shapes in other_shapes; K4's main-path
+launches by route in launches_by_route); a line before it holds K4's rows
+of the WIDERFACE-XS and TL-S frames ({"k4_narrow_rows": ...});
 the last line is {"ok": true, "device": {...}}. Any failed check exits non-zero. Needs a
 CUDA device: without one it exits 1 and prints no result. No CUDA graph
 is replayed under two torch.profiler sessions: profile_engine takes a
@@ -352,7 +366,28 @@ FCOS_NMAX = 100
 # the int8 engine (phase 13)
 INT8_FRAMES = 3             # frames each int8 engine serves on the main path
 INT8_CORR, INT8_RATIO = 0.95, (0.8, 1.25)  # lfdtpu's criteria against fp32
-TL_S_MMA = 14               # TL-S's K4 launches a frame on the mma.sync route
+# the narrow LFDs' int8 paths (narrow_int8_path): frame, the workload's
+# device preprocess (None: WIDERFACE's), engine switches, build seed, K4's
+# launches a frame by route, and K4's shapes also timed against the plain
+# version and cuDNN (time_k4's `timed`)
+NARROW_INT8 = {
+    "WIDERFACE-XS": (HW, None, dict(), 6, {"mma": 0, "stem": 1, "wgmma": 34},
+                     (("XS stem0 3x3/s2 3->32", (3, 32, 3, 2, "a")),
+                      ("XS stem1 1x1 32->32", (32, 32, 1, 1, "a")))),
+    "TL-S": (TL_HW, "TL-S", dict(class_agnostic=True), 4,
+             {"mma": 0, "stem": 1, "wgmma": 39},
+             (("TL-S stem0 3x3/s2 3->48", (3, 48, 3, 2, "a")),
+              ("TL-S stage 0 3x3 48->48, mode a", (48, 48, 3, 1, "a")))),
+}
+# The widths the wgmma route took in its first design: a conv outside them
+# (or the 3 -> 64 stem) went to the mma.sync route then.
+FIRST_WGMMA_WIDTHS = (64, 128)
+# K4's mma.sync route takes no conv of the zoo's int8 chains: it is held to
+# its plain version on these (N, H, W, Cin, Cout, k, stride): Cout 8, 16, 24
+# and 96, 5x5 kernels, the flat layout (Cin 3 and 8), odd sizes.
+K4_MMA_SHAPES = ((1, 67, 93, 3, 8, 3, 2), (2, 33, 31, 8, 16, 3, 2), (1, 17, 16, 16, 24, 1, 1),
+                 (1, 35, 61, 24, 96, 3, 1), (1, 33, 47, 64, 96, 3, 1), (2, 37, 50, 32, 64, 5, 1),
+                 (1, 19, 23, 48, 32, 5, 2), (1, 136, 240, 48, 96, 1, 2))
 # K4's timed shapes: the first of the main path's calls (the largest level)
 # with these (Cin, Cout, k, stride, mode); the first is the kernels line's.
 # At 1088x1920: 272x480 (stage 0, the neck's first level), 1088x1920 (stem0)
@@ -823,6 +858,52 @@ def check_engine_parity(det, engines, hw, rng, label="WIDERFACE-L"):
           f"identical={same}")
     check(same, "decode with K1 differs from decode with the plain NMS")
     return imgs
+
+
+def check_float_frames(det, engines, device, rng):
+    """A captured engine serves frames normalized on the host, as its eager
+    twin does: a bf16 engine built without a device preprocess takes one
+    frame through predict_for_single_image_with_engine with the workload's
+    Normalize (a float32 frame: the engine captures its float graph at that
+    first call), the rows equal to the eager engine's; a float32 batch from
+    the host and from the card, bit-equal to eager; a uint8 frame still on
+    the graph captured at build; and the stem kernel's engine (K2 takes raw
+    uint8 only) refuses a float frame."""
+    import torch
+
+    from lfdtpu_torch.data.augmentation import Compose, Normalize
+    from lfdtpu_torch.deploy import compile_inference
+
+    kw = dict(batch_size=1, device=device, classification_threshold=SERVE_THRESHOLD)
+    engine = compile_inference(det, HW, "bf16", **kw)
+    eager = compile_inference(det, HW, "bf16", captured=False, **kw)
+    norm = Compose([Normalize(MEAN, STD)])
+    img = frames(rng, 1, (HW[0] - 8, HW[1] - 40))[0]
+    rows = det.predict_for_single_image_with_engine(engine, img, aug_pipeline=norm)
+    want = det.predict_for_single_image_with_engine(eager, img, aug_pipeline=norm)
+    f = norm({"image": frames(rng, 1, HW)})["image"]
+    vhw = np.asarray([HW[0] - 8, HW[1]], np.float32)
+    ref, u = eager(f, vhw), frames(rng, 1, HW)
+    got = {"host": engine(f, vhw), "card": engine(torch.as_tensor(f, device=device), vhw)}
+    same, same_card = (all(torch.equal(r[k], ref[k]) for k in ref) for r in got.values())
+    got_u8, ref_u8 = engine(u, vhw), eager(u, vhw)
+    same_u8 = all(torch.equal(got_u8[k], ref_u8[k]) for k in ref_u8)
+    graphs = sorted(str(d) for d in engine._graphs)
+    try:
+        engines["bf16_kernels"](f, vhw)
+        refused = False
+    except ValueError:
+        refused = True
+    print(f"captured bf16 engine, float32 frames normalized on the host: predict rows "
+          f"{len(rows)}, equal to eager={rows == want}; a float batch bit-equal to eager from "
+          f"the host={same} and from the card={same_card}; uint8 still bit-equal={same_u8}; "
+          f"graphs {graphs}; the stem kernel's engine refuses a float frame={refused}")
+    check(len(rows) > 0 and rows == want, "float frames: the captured engine's rows differ")
+    check(same and same_card and same_u8, "float frames: captured differs from eager")
+    check(graphs == ["torch.float32", "torch.uint8"], f"float frames: graphs {graphs}")
+    check(refused, "the stem kernel's captured engine took a float frame")
+    del engine, eager
+    torch.cuda.empty_cache()
 
 
 def check_captured_engines(det, det_s, engines, device, rng):
@@ -2694,7 +2775,7 @@ def k4_mode(call):
     f32 residual fused)."""
     if call["out_scale"] is None:
         return "b"
-    if call["residual"] is None:
+    if call.get("residual") is None:
         return "a"
     return "cf" if call["residual"].is_floating_point() else "c8"
 
@@ -2705,10 +2786,11 @@ def k4_shape(call):
             k4_mode(call))
 
 
-def check_k4_routes(fn, label, mma=0):
+def check_k4_routes(fn, label, expect=None):
     """fn() (k4_inputs of one eager int8 call), checking that each of its K4
-    launches went to the route ops.int8_conv.route_of names for its shape and
-    `mma` of them to the mma.sync route. Returns fn()'s value."""
+    launches went to the route ops.int8_conv.route_of names for its shape,
+    none to the mma.sync route (no zoo chain has a shape of it), and, with
+    `expect`, that many to each route. Returns fn()'s value."""
     from lfdtpu_torch.ops import int8_conv as k4
 
     before = dict(k4.int8_conv.routes)
@@ -2718,8 +2800,8 @@ def check_k4_routes(fn, label, mma=0):
     for c in calls:
         want[k4.route_of(*k4_shape(c)[3:7])] += 1
     print(f"{label}: K4's {len(calls)} launches by route {got}")
-    check(got == want and got["mma"] == mma,
-          f"{label}: K4's routes {got}, not {want} with {mma} on mma")
+    check(got == want and got["mma"] == 0 and expect in (None, got),
+          f"{label}: K4's routes {got}, not {want} with none on mma ({expect})")
     return out, calls
 
 
@@ -2852,21 +2934,34 @@ def k4_int_mm_ms(call):
     import torch
 
     x = call["x"].reshape(-1, call["x"].shape[-1])
-    w = call["wpack"].t()  # (Cin, Cout), column-major
+    w = call["wpack"][:, :x.shape[1]].contiguous().t()  # (Cin, Cout), column-major
     return graph_ms([lambda: torch._int_mm(x, w)])
 
 
-def time_k4(calls, card, device):
+def first_route(shape):
+    """The route the rule gave a K4 shape before the wgmma and stem routes
+    took 32 and 48 channels: mma outside FIRST_WGMMA_WIDTHS and the 3 -> 64
+    stem."""
+    cin, cout, k, stride = shape[3:7]
+    if cin in FIRST_WGMMA_WIDTHS and cout in FIRST_WGMMA_WIDTHS:
+        return "wgmma"
+    return "stem" if (cin, cout, k, stride) == (3, 64, 3, 2) else "mma"
+
+
+def time_k4(calls, card, device, timed=K4_TIMED, on_mma=False, label="one frame"):
     """K4 at every distinct (shape, mode) of one frame's calls (WIDERFACE-L:
     28 of 32 launches), each on the inputs the chain gave it: launches a
     frame, warm and cold CUDA-graph ms, bound, % of bound and the gap,
     launches x (warm - bound). Cold rotates over more than COLD_BYTES of
     inputs where GRAPH_LAUNCHES inputs hold that much, else each launch
-    follows a COLD_BYTES write (its own time taken off). The K4_TIMED shapes also get the plain
-    version (eager) and the bf16 cuDNN yardstick, the stride-1 1x1s
-    torch._int_mm. Prints the table ranked by gap and the frame's sum of
-    bounds. Returns the rows, K4_TIMED's first (the kernels line's first is
-    stage 0's 3x3) and the sum of bounds a frame."""
+    follows a COLD_BYTES write (its own time taken off). The `timed` shapes
+    (K4_TIMED's (Cin, Cout, k, stride, mode)) also get the plain version
+    (eager) and the bf16 cuDNN yardstick, the stride-1 1x1s torch._int_mm;
+    with `on_mma`, every shape also its warm time on the mma.sync route
+    (ops.int8_conv.launch_on) and the route its first design took
+    (first_route). Prints the table ranked by gap and the frame's sum of
+    bounds. Returns the rows, the `timed` shapes first (the kernels line's
+    first row is K4_TIMED's: stage 0's 3x3), and the sum of bounds a frame."""
     import torch
 
     from lfdtpu_torch.ops import int8_conv as k4
@@ -2874,8 +2969,8 @@ def time_k4(calls, card, device):
     distinct = {}
     for c in calls:
         distinct.setdefault(k4_shape(c), [c, 0])[1] += 1
-    picks = {pick: label for label, pick in K4_TIMED}
-    order = [next(sh for sh in distinct if sh[3:] == pick) for _, pick in K4_TIMED]
+    picks = {pick: what for what, pick in timed}
+    order = [next(sh for sh in distinct if sh[3:] == pick) for _, pick in timed]
     order += [sh for sh in distinct if sh not in order]
     rows, bound_sum = [], 0.0
     flush = torch.empty(COLD_BYTES // 4, device=device)
@@ -2909,9 +3004,12 @@ def time_k4(calls, card, device):
             row["yardstick_ms"], row["yardstick_call"] = k4_yardstick_ms(call, card)
         if shape[5] == 1 and shape[6] == 1:
             row["int_mm_ms"] = k4_int_mm_ms(call)
+        if on_mma:
+            row["first_route"] = first_route(shape)
+            row["mma_ms"] = graph_ms([lambda: k4.launch_on("mma", **call)])
         rows.append(row)
     del flush
-    print(f"K4, every distinct (N, H, W, Cin, Cout, k, stride, mode) of one frame, ranked by "
+    print(f"K4, every distinct (N, H, W, Cin, Cout, k, stride, mode) of {label}, ranked by "
           f"gap = launches x (warm - bound) [{card}]:")
     for r in sorted(rows, key=lambda r: -r["gap_ms"]):
         extra = ""
@@ -2921,45 +3019,171 @@ def time_k4(calls, card, device):
         if "int_mm_ms" in r:
             extra += (f"; torch._int_mm {r['int_mm_ms']:.4f} (not K4's function: int32 out, "
                       "no epilogue)")
+        if "mma_ms" in r:
+            extra += f"; mma.sync route {r['mma_ms']:.4f} (first design: {r['first_route']})"
         print(f"  {tuple(r['shape'])} {r['k4_route']} x{r['launches_per_frame']}: warm "
               f"{r['ms']:.4f} ms, cold {r['cold_ms']:.4f} ({r['cold_by']}), bound "
               f"{r['bound_ms']:.4f} ({r['bound_by']}), {r['pct_of_bound']:.1f}% of it, gap "
               f"{r['gap_ms']:.4f}" + extra)
     graph_sum = sum(r["launches_per_frame"] * r["ms"] for r in rows)
-    print(f"K4's bounds summed over one frame's {len(calls)} launches: {bound_sum:.4f} ms; "
+    print(f"K4's bounds summed over {label}'s {len(calls)} launches: {bound_sum:.4f} ms; "
           f"its warm CUDA-graph times summed the same way: {graph_sum:.4f} ms [{card}]")
+    if on_mma:  # the launches that took the mma.sync route in its first design
+        was = [r for r in rows if r["first_route"] == "mma"]
+        n = sum(r["launches_per_frame"] for r in was)
+        print(f"K4 in {label}, the {n} launches the first design sent to the mma.sync "
+              "route, warm ms a frame: "
+              f"{sum(r['launches_per_frame'] * r['ms'] for r in was):.4f} on their routes now, "
+              f"{sum(r['launches_per_frame'] * r['mma_ms'] for r in was):.4f} on the mma.sync "
+              f"route, bounds {sum(r['launches_per_frame'] * r['bound_ms'] for r in was):.4f} "
+              f"[{card}]")
     return rows, bound_sum
 
 
-def check_k4_mma_route(device, rng):
-    """K4's mma.sync route, which no WIDERFACE-L or TL-L conv takes: one
-    eager int8 frame of TL-S at TL_HW, whose 8 to 48-channel convs take it
-    (TL_S_MMA of them, the rest wgmma). Each call against the plain version,
-    exactly, and the mma calls' warm CUDA-graph ms and bounds summed over
-    the frame. Returns the kernels line's row."""
+def check_k4_mma_route(device, card):
+    """K4's mma.sync route, which no conv of the zoo's int8 chains takes, on
+    K4_MMA_SHAPES in every mode (a, b, c8, cf): each launch against the
+    plain version, EXACT, and on that route; mode a's warm CUDA-graph ms
+    beside its bound. Returns (max|err|, one row per shape for the kernels
+    line)."""
+    import torch
+
+    from lfdtpu_torch.ops import int8_conv as k4
+    from lfdtpu_torch.tools.kernel_trace import k4_case
+
+    g = torch.Generator(device=device).manual_seed(21)
+    err, rows = 0.0, []
+    for n, h, w, cin, cout, k, stride in K4_MMA_SHAPES:
+        check(k4.route_of(cin, cout, k, stride) == "mma", f"{cin}->{cout} {k}x{k}/s{stride} "
+              "does not take the mma.sync route")
+        calls = [k4_case(device, g, n, h, w, cin, cout, k, stride, m)
+                 for m in ("a", "b", "c8", "cf")]
+        before = k4.int8_conv.routes["mma"]
+        e, _ = check_k4(calls, f"the mma.sync route, ({n}, {h}, {w}) {cin}->{cout} "
+                        f"{k}x{k}/s{stride}")
+        check(k4.int8_conv.routes["mma"] - before == len(calls),
+              "a synthetic shape's launch left the mma.sync route")
+        err = max(err, e)
+        shape = k4_shape(calls[0])
+        bound, by = kernel_bound_ms("int8_conv", shape)
+        warm = graph_ms([lambda: k4.int8_conv(**calls[0])])
+        rows.append(dict(shape=list(shape), k4_route="mma", launches_per_frame=0, ms=warm,
+                         bound_ms=bound, bound_by=by, pct_of_bound=100.0 * bound / warm,
+                         max_abs_err=e, plain_ms=None, library_ms=None,
+                         note="synthetic: no conv of the zoo's int8 chains takes this route"))
+        print(f"  mma.sync route {tuple(shape)}: warm {warm:.4f} ms, bound {bound:.4f} ({by}), "
+              f"{rows[-1]['pct_of_bound']:.1f}% of it [{card}]")
+    return err, rows
+
+
+def narrow_int8_path(name, device, card, counters, rng):
+    """Phase 13, one narrow LFD of NARROW_INT8 (WIDERFACE-XS, TL-S), whose
+    32- and 48-channel convs the wgmma and stem routes take at their own
+    widths. K4 against its plain version on every call of one eager frame at
+    batch 1 and 4, each launch on its route (the counts of NARROW_INT8). The
+    main path, counters zeroed: the captured int8 engines (float32 and bf16
+    head, calibrated by default), INT8_FRAMES frames each through
+    predict_for_single_image_with_engine, the replays counted from a
+    profile. Each captured engine against an eager twin, int8 against fp32
+    by lfdtpu's criteria. The times: the captured int8 engines beside the
+    bf16 engine with every kernel the net takes (A B C C B A), a profile of
+    a fresh int8 capture, K4 at every distinct (shape, mode) of a frame on
+    its route and on the mma.sync route. Returns (launches, replays, K4's
+    max|err|, K4's rows)."""
+    import torch
+
     from lfdtpu_torch.ops import int8_conv as k4
 
-    tls = build_detector(device, seed=4, name="TL-S", cls_std=CLS_STD)
-    eager = compile_engine(tls, TL_HW, device, "int8", captured=False,
-                           preprocess=traffic_preprocess("TL-S"), class_agnostic=True)
-    _, calls = check_k4_routes(lambda: k4_inputs(lambda: eager.dense(frames(rng, 1, TL_HW))),
-                               "TL-S int8", mma=TL_S_MMA)
-    on_mma = [k4.route_of(*k4_shape(c)[3:7]) == "mma" for c in calls]
-    mma = [c for c, m in zip(calls, on_mma) if m]
-    err, seen = check_k4(mma, "TL-S int8, the mma.sync route")
-    err = max(err, check_k4([c for c, m in zip(calls, on_mma) if not m],
-                            "TL-S int8, its wgmma convs")[0])
-    first = {}
-    for c in mma:
-        first.setdefault(k4_shape(c), c)
-    ms = sum(n * graph_ms([lambda c=first[sh]: k4.int8_conv(**c)]) for sh, n in seen.items())
-    bound = sum(n * kernel_bound_ms("int8_conv", sh)[0] for sh, n in seen.items())
-    print(f"K4's mma.sync route in one TL-S int8 frame: {len(mma)} launches, {len(seen)} "
-          f"distinct (shape, mode), {ms:.4f} ms of warm CUDA-graph time against {bound:.4f} "
-          "ms of bounds")
-    return dict(path=f"TL-S int8 {TL_HW[0]}x{TL_HW[1]}, eager", k4_route="mma",
-                launches_per_frame=len(mma), distinct_shapes=len(seen), max_abs_err=err,
-                ms_per_frame=ms, bound_ms_per_frame=bound)
+    t0 = time.time()
+    hw, pre_name, switches, seed, by_route, timed = NARROW_INT8[name]
+    det = build_detector(device, seed=seed, name=name, cls_std=CLS_STD if pre_name else None)
+    pre = traffic_preprocess(pre_name) if pre_name else None
+    want = expected_launches(det, VARIANTS["int8"])
+    print(f"{name} int8 chain plan: {want['int8_conv']} K4 launches a frame")
+
+    k4_err, calls_b1 = 0.0, None
+    for batch in (1, 4):
+        eager = compile_engine(det, hw, device, "int8", batch_size=batch, captured=False,
+                               preprocess=pre, **switches)
+        _, calls = check_k4_routes(
+            lambda: k4_inputs(lambda: eager.dense(frames(rng, batch, hw))),
+            f"{name} int8 batch {batch}", expect=by_route)
+        check(len(calls) == want["int8_conv"],
+              f"{name}: one eager int8 call gave K4 {len(calls)} calls")
+        k4_err = max(k4_err, check_k4(calls, f"{name} int8 batch {batch}")[0])
+        if batch == 1:
+            calls_b1 = calls
+        del eager, calls
+    torch.cuda.empty_cache()
+
+    # the main path
+    zero_counts(counters)
+    engines = {v: compile_engine(det, hw, device, v, preprocess=pre, **switches)
+               for v in ("int8", "int8_bf16")}
+    imgs = [frames(rng, 1, (hw[0] - 8 - 24 * i, hw[1] - 40 * i))[0] for i in range(INT8_FRAMES)]
+    prof, rows = profiled(lambda: engines["int8"](frames(rng, 1, hw), hw),
+                          lambda: {v: [det.predict_for_single_image_with_engine(e, f)
+                                       for f in imgs] for v, e in engines.items()})
+    replayed, window = kernel_launches_in(prof)
+    launches = {c.__name__: c.launches for c in counters}
+    routes = dict(k4.int8_conv.routes)
+    print(f"{name} int8 main path: {2 * INT8_FRAMES} replays served "
+          f"{ {v: [len(r) for r in rr] for v, rr in rows.items()} } rows; launches at build and "
+          f"capture {launches}, K4's by route {routes}; by the replays (profile) {replayed} "
+          f"({window}); per capture {engines['int8'].captured_launches} (counted from the net "
+          f"{want})")
+    check(routes["mma"] == 0 and sum(routes.values()) == launches["int8_conv"],
+          f"the {name} int8 main path sent a K4 launch to the mma.sync route")
+    for k, v in want.items():
+        check((launches[k] > 0) == (v > 0), f"{name} int8: {k} launched {launches[k]}")
+    check(all(e.captured and e.captured_launches == want for e in engines.values()),
+          f"{name} int8: a capture did not record {want}")
+    check(replayed == {k: 2 * INT8_FRAMES * v for k, v in want.items()},
+          f"the {name} int8 replays did not launch each kernel as captured")
+    for v, rr in rows.items():
+        for r, img in zip(rr, imgs):
+            check_rows(det, r, img)
+    for v, e in engines.items():
+        captured_vs_eager(det, hw, device, rng, v, 1, name, captured=e, preprocess=pre,
+                          act_scales=e.int8_chain.amax, **switches)
+    x = frames(rng, 1, hw)
+    fp32 = compile_engine(det, hw, device, "fp32", captured=False, preprocess=pre, **switches)
+    for v, e in engines.items():
+        check_int8_close_to_fp32(e, fp32, x, f"{name} {v}")
+    del fp32
+    torch.cuda.empty_cache()
+    print(f"int8 {name} checks {time.time() - t0:.1f} s")
+
+    print(f"[13 int8 timings, {name}] {card}")
+    xc = torch.as_tensor(x, device=device)
+    vhw_c = torch.tensor(hw, dtype=torch.float32, device=device)
+    bf16 = kernel_variant(det)
+    pair = dict(engines)
+    pair[bf16] = compile_engine(det, hw, device, bf16, preprocess=pre, **switches)
+    ms = {k: [] for k in pair}
+    for k in ("int8", "int8_bf16", bf16, bf16, "int8_bf16", "int8"):
+        ms[k].append(time_ms(lambda e=pair[k]: e(xc, vhw_c), iters=30, warmup=10))
+    print(f"captured engines {name} {hw[0]}x{hw[1]} batch 1, frame on the card, ms/frame "
+          "(A B C C B A): " + "; ".join(f"{k} " + ", ".join(f"{t:.3f}" for t in v)
+                                        for k, v in ms.items()) + f" [{card}]")
+    fresh = compile_engine(det, hw, device, "int8", preprocess=pre,
+                           act_scales=engines["int8"].int8_chain.amax, **switches)
+    share = profile_engine(fresh, xc, vhw_c, card, f"captured {name} int8", counters, want)
+    del pair, engines, fresh
+    torch.cuda.empty_cache()
+    k4_rows, bound_sum = time_k4(calls_b1, card, device, timed=timed, on_mma=True,
+                                 label=f"a {name} frame")
+    k4_ms, k4_n = share[2]["int8_conv"]
+    k4_excl = share[2]["int8_conv_exclusive"][0]
+    print(f"K4 per captured {name} int8 frame (profile): {k4_ms:.4f} ms in {k4_n:.0f} launches "
+          f"({k4_excl:.4f} without the overlap with the kernel before each), against "
+          f"{bound_sum:.4f} ms of bounds ({100 * bound_sum / k4_excl:.1f}%) [{card}]")
+    del calls_b1
+    torch.cuda.empty_cache()
+    for r in k4_rows:
+        r["path"] = f"{name} int8 {hw[0]}x{hw[1]}"
+    print(f"{name} int8 path {time.time() - t0:.1f} s")
+    return launches, replayed, k4_err, k4_rows
 
 
 def int8_phase(device, card, counters, tmp):
@@ -2975,9 +3199,11 @@ def int8_phase(device, card, counters, tmp):
     against fp32 (lfdtpu's criteria), decode + NMS with K1 against the plain
     NMS, the GPU against the CPU at SMALL_HW; TL-L at 768x1280 (its
     norm-free head runs int8: F15's path), the same checks and K4 at its
-    shapes; K4's mma.sync route on TL-S's; then the times. Returns (main
-    path launches, replays, K4's max|err|, K4's timing rows and the mma
-    route's row, TL-L's launches and replays, the main path's routes)."""
+    shapes; K4's mma.sync route on K4_MMA_SHAPES; WIDERFACE-XS and TL-S
+    (narrow_int8_path); then the times. Returns (main path launches,
+    replays, K4's max|err|, K4's timing rows and the mma route's rows,
+    TL-L's launches and replays, the main path's routes, {narrow path:
+    (launches, replays, K4's rows)})."""
     import torch
 
     from lfdtpu_torch.deploy import inference_latency_evaluation, make_device_preprocess
@@ -3104,8 +3330,14 @@ def int8_phase(device, card, counters, tmp):
           "TL-L's int8 head convs did not reach K4")
     del eager, calls, tl_engine
     torch.cuda.empty_cache()
-    mma_row = check_k4_mma_route(device, rng)
-    k4_err = max(k4_err, mma_row["max_abs_err"])
+    mma_err, mma_rows = check_k4_mma_route(device, card)
+    k4_err = max(k4_err, mma_err)
+    narrow = {}
+    for name in NARROW_INT8:
+        n_launches, n_replayed, n_err, n_rows = narrow_int8_path(name, device, card, counters,
+                                                                 rng)
+        narrow[name] = (n_launches, n_replayed, n_rows)
+        k4_err = max(k4_err, n_err)
 
     # times, beside the card
     print(f"[13 int8 timings] {card}")
@@ -3153,7 +3385,8 @@ def int8_phase(device, card, counters, tmp):
               f"bad int8 latency cell {w}x{h}")
     del sweep_det
     torch.cuda.empty_cache()
-    return launches, replayed, k4_err, k4_rows + [mma_row], tl_launches, tl_replayed, routes
+    return (launches, replayed, k4_err, k4_rows + mma_rows, tl_launches, tl_replayed, routes,
+            narrow)
 
 
 # ------------------------------------------------------------------ main
@@ -3227,6 +3460,7 @@ def main():
     t0 = time.time()
     det_s = build_detector(device, seed=1, size="S")
     check_captured_engines(det, det_s, engines, device, rng)
+    check_float_frames(det, engines, device, rng)
     print(f"captured engines checked in {time.time() - t0:.1f} s")
 
     print("[6 train]")
@@ -3308,13 +3542,16 @@ def main():
     t0 = time.time()
     tmp = tempfile.mkdtemp(prefix="lfd_int8_")
     try:
-        launches8, replayed8, k4_err, k4_rows, tl_launches8, tl_replayed8, routes8 = int8_phase(
-            device, card, counters, tmp)
+        (launches8, replayed8, k4_err, k4_rows, tl_launches8, tl_replayed8, routes8,
+         narrow8) = int8_phase(device, card, counters, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     paths["WIDERFACE-L int8 (float32 and bf16 heads, predict_engine.py)"] = dict(
         build_and_capture=launches8, replayed=replayed8)
     paths["TL-L int8"] = dict(build_and_capture=tl_launches8, replayed=tl_replayed8)
+    for name, (n_launches, n_replayed, _) in narrow8.items():
+        paths[f"{name} int8 (float32 and bf16 heads)"] = dict(build_and_capture=n_launches,
+                                                              replayed=n_replayed)
     timings["int8_conv"] = {k: v for k, v in k4_rows[0].items()
                             if k not in ("shape", "what")}
     # K4's main-path launches by route (its int8 engines' build and capture)
@@ -3351,6 +3588,7 @@ def main():
                                   for r in other[name]])
                for name, (src, tpu, err) in sources.items()]
 
+    print(json.dumps({"k4_narrow_rows": [r for _, _, rows in narrow8.values() for r in rows]}))
     print(f"total {time.time() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

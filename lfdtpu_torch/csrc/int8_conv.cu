@@ -26,18 +26,18 @@
 //
 // Three routes; the wrapper picks one by shape (ops/int8_conv.py::route_of)
 // and passes it in `route`:
-//   * wgmma (`int8_conv_wgmma.cuh`): Cin and Cout 64 or 128, 1x1 or 3x3,
-//     stride 1 or 2, every conv of WIDERFACE-L's and TL-L's chains but the
-//     stem. K3's design in int8: persistent, the weights resident in shared
-//     memory (TMA, K-major), halo windows by TMA (a tap is an address
-//     offset; a 1x1/s2 conv reads only the pixels it samples), wgmma with A
-//     from ldmatrix, a staged epilogue stored by TMA, two of each in flight.
-//   * stem (`int8_conv_stem.cu`): Cin 3, Cout 64, 3x3 stride 2. K2's design
-//     in int8: persistent, the input rows as aligned 16-byte words, A
-//     gathered without division, 16-byte stores.
-//   * mma (this file, the first design): every other shape (the 8 to 48 and
-//     96 channels of the smaller zoo models). A plain implicit GEMM on
-//     mma.sync.m16n8k32.s8.s8.s32:
+//   * wgmma (`int8_conv_wgmma.cuh`): Cin and Cout 32, 48, 64 or 128, 1x1 or
+//     3x3, stride 1 or 2, every conv of the zoo's int8 chains but the stem.
+//     K3's design in int8: persistent, the weights resident in shared memory
+//     (TMA, K-major), halo windows by TMA (a tap is an address offset; a
+//     1x1/s2 conv reads only the pixels it samples), wgmma with A from
+//     ldmatrix, a staged epilogue stored by TMA, two of each in flight.
+//   * stem (`int8_conv_stem.cu`): Cin 3, Cout 32, 48 or 64, 3x3 stride 2,
+//     every zoo chain's stem0. K2's design in int8: persistent, the input rows
+//     as aligned 16-byte words, A gathered without division, 16-byte stores.
+//   * mma (this file, the first design): every other shape (Cout 8, 16, 24
+//     or 96, other kernel sizes; no conv of the zoo's int8 chains). A plain
+//     implicit GEMM on mma.sync.m16n8k32.s8.s8.s32:
 //   - M = N * Ho * Wo output pixels, N = Cout, K = taps x input channels. A
 //     block owns 128 output pixels and every output channel; each of its 8
 //     warps owns 16 pixels, so a warp's B fragments span all of Cout (the
@@ -57,15 +57,19 @@
 //
 // -Xptxas -v (CUDA 12.8, sm_90a), registers and static shared memory; no
 // instantiation spills:
-//   wgmma <Cin, N, k, tile rows>, dynamic shared memory sized per launch
-//   (4-row tiles are held to 128 registers, two blocks an SM):
+//   wgmma <tap row, N, k, tile rows>, dynamic shared memory sized per launch
+//   (4-row tiles are held to 128 registers, two blocks an SM); at N 32 and 48
+//   from 60 (<64,32,1,4>) to 164 (<64,48,3,8>) registers, at N 64 and 128:
 //     <64,64,1,4> 92, <64,64,1,8> 128, <64,64,3,4> 125, <64,64,3,8> 184,
 //     <64,128,1,4> 122, <64,128,1,8> 208, <64,128,3,4> 128, <64,128,3,8> 255,
 //     <128,64,1,4> 92, <128,64,1,8> 128, <128,64,3,4> 101, <128,64,3,8> 144,
 //     <128,128,1,4> 122, <128,128,1,8> 207, <128,128,3,4> 128,
-//     <128,128,3,8> 223;
-//   stem 102 registers (the chain's int8-out mode) or 114 (any mode), 20,448
-//     bytes, a 16-byte stack frame;
+//     <128,128,3,8> 223, <32,64,1,4> 100, <32,64,1,8> 128, <32,64,3,4> 106,
+//     <32,64,3,8> 165, <32,128,1,4> 122, <32,128,1,8> 208, <32,128,3,4> 128,
+//     <32,128,3,8> 246;
+//   stem <32, 48, 64 channels> 76, 94, 100 registers (the chain's int8-out
+//     mode) or 89, 105, 117 (any mode), 16,096 to 20,448 bytes, a 16-byte
+//     stack frame;
 //   mma <NT> 39 (NT 1) to 120 (NT 16) registers, 24,576 bytes.
 
 #include <cuda_runtime.h>
@@ -239,22 +243,24 @@ __global__ void __launch_bounds__(kThreads) int8_conv_kernel(const Params p) {
 
 }  // namespace
 
-// The other routes (`int8_conv_wgmma64.cu`, `int8_conv_wgmma128.cu`,
-// `int8_conv_stem.cu`): C++ functions of the library, C entry points only in
-// the trace tool's build of each source alone.
-int lfd_int8_conv_wgmma64(const int8_t* x, const int8_t* w, const float* mult, const float* bias,
-                          const void* residual, int res_kind, float res_scale, void* out,
-                          int out_int8, float inv_out, int relu, int N, int H, int W, int Cout,
-                          int ksize, int stride, int Ho, int Wo, int Kpad, cudaStream_t stream);
-int lfd_int8_conv_wgmma128(const int8_t* x, const int8_t* w, const float* mult,
-                           const float* bias, const void* residual, int res_kind, float res_scale,
-                           void* out, int out_int8, float inv_out, int relu, int N, int H, int W,
-                           int Cout, int ksize, int stride, int Ho, int Wo, int Kpad,
-                           cudaStream_t stream);
+// The other routes (`int8_conv_wgmma32.cu`, `int8_conv_wgmma64.cu`,
+// `int8_conv_wgmma128.cu`, `int8_conv_stem.cu`): C++ functions of the
+// library, C entry points only in the trace tool's build of each source alone.
+// The wgmma route's three take x, w, mult, bias, residual, res_kind,
+// res_scale, out, out_int8, inv_out, relu, N, H, W, Cin, Cout, ksize, stride,
+// Ho, Wo, Kpad, stream.
+#define LFD_WGMMA_ENTRY(name)                                                                  \
+  int name(const int8_t*, const int8_t*, const float*, const float*, const void*, int, float,  \
+           void*, int, float, int, int, int, int, int, int, int, int, int, int, int,          \
+           cudaStream_t)
+LFD_WGMMA_ENTRY(lfd_int8_conv_wgmma32);
+LFD_WGMMA_ENTRY(lfd_int8_conv_wgmma64);
+LFD_WGMMA_ENTRY(lfd_int8_conv_wgmma128);
+#undef LFD_WGMMA_ENTRY
 int lfd_int8_conv_stem(const int8_t* x, const int8_t* w, const float* mult, const float* bias,
                        const void* residual, int res_kind, float res_scale, void* out,
-                       int out_int8, float inv_out, int relu, int N, int H, int W, int Kpad,
-                       cudaStream_t stream);
+                       int out_int8, float inv_out, int relu, int N, int H, int W, int Cout,
+                       int Kpad, cudaStream_t stream);
 
 // x (N, H, W, Cin) int8; w (Cout, Kpad) int8 packed by
 // ops/int8_conv.py::pack_int8_weight; mult, bias (Cout,) f32; residual
@@ -262,9 +268,9 @@ int lfd_int8_conv_stem(const int8_t* x, const int8_t* w, const float* mult, cons
 // (N, Ho, Wo, Cout) int8 (out_int8) or f32. Padding ksize / 2. route: the
 // kernel the wrapper picked by shape (the rule is ops/int8_conv.py::route_of
 // alone): 0 the mma.sync implicit GEMM (any Cin, Cout a multiple of 8 up to
-// 128), 1 the stem (Cin 3, Cout 64, 3x3 stride 2), 2 wgmma (Cin and Cout 64
-// or 128, 1x1 or 3x3, stride 1 or 2); a shape the route cannot take is
-// refused.
+// 128), 1 the stem (Cin 3, Cout 32, 48 or 64, 3x3 stride 2), 2 wgmma (Cin
+// and Cout 32, 48, 64 or 128, 1x1 or 3x3, stride 1 or 2); a shape the route
+// cannot take is refused.
 extern "C" int lfd_int8_conv(const int8_t* x, const int8_t* w, const float* mult,
                              const float* bias, const void* residual, int res_kind,
                              float res_scale, void* out, int out_int8, float inv_out,
@@ -275,9 +281,12 @@ extern "C" int lfd_int8_conv(const int8_t* x, const int8_t* w, const float* mult
       res_kind < 0 || res_kind > 2 || route < 0 || route > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const bool c64 = (Cin == 64 || Cin == 128) && (Cout == 64 || Cout == 128);
-  if ((route == 1 && !(Cin == 3 && Cout == 64 && ksize == 3 && stride == 2)) ||
-      (route == 2 && !(c64 && (ksize == 1 || ksize == 3) && (stride == 1 || stride == 2)))) {
+  auto wide = [](int c) { return c == 32 || c == 48 || c == 64 || c == 128; };
+  const bool stem = Cin == 3 && (Cout == 32 || Cout == 48 || Cout == 64) && ksize == 3 &&
+                    stride == 2;
+  const bool wgmma = wide(Cin) && wide(Cout) && (ksize == 1 || ksize == 3) &&
+                     (stride == 1 || stride == 2);
+  if ((route == 1 && !stem) || (route == 2 && !wgmma)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
@@ -317,14 +326,16 @@ extern "C" int lfd_int8_conv(const int8_t* x, const int8_t* w, const float* mult
   p.out_int8 = out_int8;
   p.inv_out = inv_out;
   p.relu = relu;
-  if (route == 2) {
-    return (Cin == 64 ? lfd_int8_conv_wgmma64 : lfd_int8_conv_wgmma128)(
-        x, w, mult, bias, residual, p.res_kind, res_scale, out, out_int8, inv_out, relu, N, H,
-        W, Cout, ksize, stride, p.Ho, p.Wo, p.Kpad, stream);
+  if (route == 2) {  // by the tap row, cin_pad: 32, 64 (Cin 48 and 64) or 128
+    auto entry = p.cin_pad == 32 ? lfd_int8_conv_wgmma32
+                 : p.cin_pad == 64 ? lfd_int8_conv_wgmma64
+                                   : lfd_int8_conv_wgmma128;
+    return entry(x, w, mult, bias, residual, p.res_kind, res_scale, out, out_int8, inv_out, relu,
+                 N, H, W, Cin, Cout, ksize, stride, p.Ho, p.Wo, p.Kpad, stream);
   }
   if (route == 1) {
     return lfd_int8_conv_stem(x, w, mult, bias, residual, p.res_kind, res_scale, out, out_int8,
-                              inv_out, relu, N, H, W, p.Kpad, stream);
+                              inv_out, relu, N, H, W, Cout, p.Kpad, stream);
   }
   const int grid = static_cast<int>((M + kBM - 1) / kBM);
   switch (Cout / 8) {

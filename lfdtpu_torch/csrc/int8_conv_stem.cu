@@ -1,7 +1,7 @@
-// K4's stem route: the 3-channel int8 convolution 3x3 stride 2 to 64
-// channels (stem0 of every LFD int8 chain with a 64-channel stem), every
-// epilogue mode. The entry point and the epilogue's contract are in
-// `int8_conv.cu`.
+// K4's stem route: the 3-channel int8 convolution 3x3 stride 2 to 32, 48 or
+// 64 channels (stem0 of every LFD int8 chain of the zoo: WIDERFACE-XS's 32,
+// TL-S's 48, the others' 64), every epilogue mode. The entry point and the
+// epilogue's contract are in `int8_conv.cu`.
 //
 // Design: K2's (`stem_conv.cu`) carried over to int8. Persistent: grid =
 // min(tiles, blocks per SM x SMs), blocks per SM from the occupancy query
@@ -13,11 +13,12 @@
 // is gathered from the strip at offsets fixed per thread, 6 bytes further
 // per output pixel, with no division; one mma.sync.m16n8k32 per 8 output
 // channels, B held in registers, loaded once. 1.8 G operations at 1088x1920
-// are far below the bytes' 11.9 us, so mma.sync's rate is enough. The
-// epilogue (lfdtpu's arithmetic, mult and bias in shared memory) goes
-// through a per-warp staging tile into 16-byte stores of whole 64-byte pixel
-// rows; a residual or a float32 output goes straight between registers and
-// global memory.
+// to 64 channels are far below the bytes' 11.9 us, so mma.sync's rate is
+// enough (at 32 and 48 channels both shrink with the output). The epilogue
+// (lfdtpu's arithmetic, mult and bias in shared memory) goes through a
+// per-warp staging tile into 16-byte stores of whole pixel rows (kSCout
+// bytes: 32, 48 or 64); a residual or a float32 output goes straight between
+// registers and global memory. One kernel per output width.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -46,7 +47,6 @@ struct Params {
   int relu;
 };
 
-constexpr int kSCout = 64;
 constexpr int kSWarps = kThreads / 32;
 constexpr int kSTileW = 256;                    // output pixels per tile
 constexpr int kSMT = kSTileW / (16 * kSWarps);  // m16 tiles per warp
@@ -54,8 +54,15 @@ constexpr int kSStripB = 3 * (2 * kSTileW + 1);  // bytes of a tile's input row
 constexpr int kSWordsMax = kSStripB / 16 + 2;   // 16-byte words covering a row
 constexpr int kSRawPad = 16;                    // raw bytes before a row's first word
 constexpr int kSRawLd = kSRawPad + kSWordsMax * 16 + 32;
-constexpr int kSStageLd = kSCout + 16;          // staging row stride, bytes
 static_assert(kSMT * 16 * kSWarps == kSTileW, "stem tile");
+
+// Staging row stride in bytes for kSCout output channels: at least a pixel
+// row, an odd number of 16-byte words (48, 48, 80), so that the 8 pixel rows
+// a warp's requant writes land on distinct banks.
+template <int kSCout>
+__host__ __device__ constexpr int stage_ld() {
+  return kSCout / 32 * 32 + 16;
+}
 
 struct StemTile {
   int n, oy, ox0;
@@ -110,13 +117,17 @@ __device__ __forceinline__ void stem_load(uint8_t (*raw)[kSRawLd], const int8_t*
   }
 }
 
-// kA: the chain's stem, int8 out and no residual (its epilogue tests no
-// mode); else any mode
-template <bool kA>
+// kSCout: output channels (32, 48 or 64); kA: the chain's stem, int8 out and
+// no residual (its epilogue tests no mode); else any mode
+template <int kSCout, bool kA>
 __global__ void __launch_bounds__(kThreads, 2)
 int8_conv_stem_kernel(const Params p, int tiles_x, int tiles, int total) {
+  constexpr int kNT = kSCout / 8;           // n8 tiles
+  constexpr int kParts = kSCout / 16;       // 16-byte parts of an output pixel
+  constexpr int kStageLd = stage_ld<kSCout>();
+  static_assert(kSCout == 32 || kSCout == 48 || kSCout == 64, "stem channels");
   __shared__ __align__(16) uint8_t s_raw[2][3][kSRawLd];
-  __shared__ __align__(16) uint8_t s_stage[kSWarps][16 * kSStageLd];
+  __shared__ __align__(16) uint8_t s_stage[kSWarps][16 * kStageLd];
   __shared__ __align__(16) float s_mult[kSCout], s_bias[kSCout];
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -131,11 +142,11 @@ int8_conv_stem_kernel(const Params p, int tiles_x, int tiles, int total) {
     s_mult[tid] = p.mult[tid];
     s_bias[tid] = p.bias[tid];
   }
-  // B fragments of the (32 x 64) packed weight: b[nt][0] holds k = 4t..4t+3,
-  // b[nt][1] k = 16 + 4t.. at n = 8 nt + g (taps past 27 are zero)
-  uint32_t b[8][2];
+  // B fragments of the (32 x kSCout) packed weight: b[nt][0] holds k =
+  // 4t..4t+3, b[nt][1] k = 16 + 4t.. at n = 8 nt + g (taps past 27 are zero)
+  uint32_t b[kNT][2];
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
+  for (int nt = 0; nt < kNT; ++nt) {
     const uint8_t* row = reinterpret_cast<const uint8_t*>(p.w) + (8 * nt + g) * p.Kpad;
     b[nt][0] = *reinterpret_cast<const uint32_t*>(row + 4 * t);
     b[nt][1] = *reinterpret_cast<const uint32_t*>(row + 16 + 4 * t);
@@ -208,9 +219,9 @@ int8_conv_stem_kernel(const Params p, int tiles_x, int tiles, int total) {
           for (int e = 0; e < 4; ++e) v |= static_cast<uint32_t>(kp[h][e][px]) << (8 * e);
           a[2 * h + r] = v;
         }
-      int acc[8][4];
+      int acc[kNT][4];
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
+      for (int nt = 0; nt < kNT; ++nt) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[nt][e] = 0;
         mma_s8(acc[nt], a, b[nt][0], b[nt][1]);
@@ -218,7 +229,7 @@ int8_conv_stem_kernel(const Params p, int tiles_x, int tiles, int total) {
       const int rk = kA ? 0 : p.res_kind;
       const bool out8 = kA || p.out_int8;
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
+      for (int nt = 0; nt < kNT; ++nt) {
         const int ch = 8 * nt + 2 * t;
         const float2 mu = *reinterpret_cast<const float2*>(s_mult + ch);
         const float2 bi = *reinterpret_cast<const float2*>(s_bias + ch);
@@ -239,7 +250,7 @@ int8_conv_stem_kernel(const Params p, int tiles_x, int tiles, int total) {
                                                         idx);
               });
           if (out8) {
-            *reinterpret_cast<unsigned short*>(stage + (g + 8 * r) * kSStageLd + ch) =
+            *reinterpret_cast<unsigned short*>(stage + (g + 8 * r) * kStageLd + ch) =
                 requant_pair(v, p.inv_out);
           } else if (inside) {
             *reinterpret_cast<float2*>(static_cast<float*>(p.out) + idx) = v;
@@ -248,14 +259,13 @@ int8_conv_stem_kernel(const Params p, int tiles_x, int tiles, int total) {
       }
       if (out8) {
         __syncwarp();
-#pragma unroll
-        for (int it = 0; it < 2; ++it) {  // 16 pixels x 4 16-byte parts
-          const int px = it * 8 + (lane >> 2), part = lane & 3;
+        for (int it = lane; it < 16 * kParts; it += 32) {  // 16 pixels x kParts 16-byte parts
+          const int px = it / kParts, part = it - px * kParts;
           const int ox = cur.ox0 + m0 + px;
           if (ox < p.Wo) {
             *reinterpret_cast<uint4*>(static_cast<int8_t*>(p.out) + (orow + ox) * kSCout +
                                       part * 16) =
-                *reinterpret_cast<const uint4*>(stage + px * kSStageLd + part * 16);
+                *reinterpret_cast<const uint4*>(stage + px * kStageLd + part * 16);
           }
         }
         __syncwarp();
@@ -270,7 +280,7 @@ int8_conv_stem_kernel(const Params p, int tiles_x, int tiles, int total) {
 
 constexpr int kMaxDevices = 64;
 
-template <bool kA>
+template <int kSCout, bool kA>
 cudaError_t stem_capacity(int* out) {
   static int cached[kMaxDevices];
   int dev = 0;
@@ -279,8 +289,8 @@ cudaError_t stem_capacity(int* out) {
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (cached[dev] == 0) {
     int per_sm = 0, sms = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, int8_conv_stem_kernel<kA>,
-                                                        kThreads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, int8_conv_stem_kernel<kSCout, kA>, kThreads, 0);
     if (err != cudaSuccess) return err;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
@@ -291,15 +301,37 @@ cudaError_t stem_capacity(int* out) {
   return cudaSuccess;
 }
 
+// One launch of the kernel for kSCout output channels, the chain's mode (kA)
+// or any mode.
+template <int kSCout>
+cudaError_t stem_launch(const Params& p, int N, cudaStream_t stream) {
+  const bool a = p.out_int8 && p.res_kind == 0;
+  int cap = 0;
+  const cudaError_t err = a ? stem_capacity<kSCout, true>(&cap)
+                            : stem_capacity<kSCout, false>(&cap);
+  if (err != cudaSuccess) return err;
+  const int tiles_x = (p.Wo + kSTileW - 1) / kSTileW;
+  const int tiles = N * p.Ho * tiles_x;
+  const int grid = tiles < cap ? tiles : cap;
+  const int total = N * p.H * p.W * 3;
+  if (a) {
+    int8_conv_stem_kernel<kSCout, true><<<grid, kThreads, 0, stream>>>(p, tiles_x, tiles, total);
+  } else {
+    int8_conv_stem_kernel<kSCout, false><<<grid, kThreads, 0, stream>>>(p, tiles_x, tiles, total);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// x (N, H, W, 3) int8; w (64, Kpad) int8 in the flat packed layout; the
-// rest as lfd_int8_conv's (`int8_conv.cu`), which has checked the shape and
-// calls this; a C entry point in the trace tool's build (`trace.cuh`).
+// x (N, H, W, 3) int8; w (Cout, Kpad) int8 in the flat packed layout, Cout
+// 32, 48 or 64; the rest as lfd_int8_conv's (`int8_conv.cu`), which has
+// checked the shape and calls this; a C entry point in the trace tool's build
+// (`trace.cuh`).
 LFD_TRACED_ENTRY int lfd_int8_conv_stem(const int8_t* x, const int8_t* w, const float* mult,
                                         const float* bias, const void* residual, int res_kind,
                                         float res_scale, void* out, int out_int8, float inv_out,
-                                        int relu, int N, int H, int W, int Kpad,
+                                        int relu, int N, int H, int W, int Cout, int Kpad,
                                         cudaStream_t stream) {
   if (N <= 0 || H <= 0 || W <= 0) return static_cast<int>(cudaGetLastError());
   Params p;
@@ -320,20 +352,13 @@ LFD_TRACED_ENTRY int lfd_int8_conv_stem(const int8_t* x, const int8_t* w, const 
   p.inv_out = inv_out;
   p.relu = relu;
   if (static_cast<long long>(N) * H * W * 3 > INT_MAX - 16 ||
-      static_cast<long long>(N) * p.Ho * p.Wo * kSCout > INT_MAX) {
+      static_cast<long long>(N) * p.Ho * p.Wo * Cout > INT_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);  // 32-bit index math
   }
-  const bool a = p.out_int8 && p.res_kind == 0;
-  int cap = 0;
-  const cudaError_t err = a ? stem_capacity<true>(&cap) : stem_capacity<false>(&cap);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles_x = (p.Wo + kSTileW - 1) / kSTileW;
-  const int tiles = N * p.Ho * tiles_x;
-  const int grid = tiles < cap ? tiles : cap;
-  if (a) {
-    int8_conv_stem_kernel<true><<<grid, kThreads, 0, stream>>>(p, tiles_x, tiles, N * H * W * 3);
-  } else {
-    int8_conv_stem_kernel<false><<<grid, kThreads, 0, stream>>>(p, tiles_x, tiles, N * H * W * 3);
+  switch (Cout) {
+    case 32: return static_cast<int>(stem_launch<32>(p, N, stream));
+    case 48: return static_cast<int>(stem_launch<48>(p, N, stream));
+    case 64: return static_cast<int>(stem_launch<64>(p, N, stream));
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -1,10 +1,11 @@
-// K4's wgmma route: the int8 convolutions of 64 or 128 input channels and 64
-// or 128 output channels (every conv of WIDERFACE-L's and TL-L's int8 chains
-// but the 3-channel stem), 1x1 or 3x3, stride 1 or 2, every epilogue mode.
+// K4's wgmma route: the int8 convolutions of 32, 48, 64 or 128 input channels
+// and 32, 48, 64 or 128 output channels, 1x1 or 3x3, stride 1 or 2, every
+// epilogue mode: every conv of the zoo's int8 chains but the 3-channel stem.
 // The entry point and the epilogue's contract are in `int8_conv.cu`. This
-// header holds the route; `int8_conv_wgmma64.cu` and `int8_conv_wgmma128.cu`
-// instantiate it for one input width each, so that nvcc builds the two
-// halves (8 kernels each) in parallel.
+// header holds the route; `int8_conv_wgmma32.cu` (Cin 32),
+// `int8_conv_wgmma64.cu` (Cin 48 and 64) and `int8_conv_wgmma128.cu` (Cin 128)
+// instantiate it for one tap row width each, so that nvcc builds the three
+// (16 kernels each) in parallel.
 //
 // Design: K3's (`pair_conv.cu`) carried over to int8, a persistent implicit
 // GEMM on wgmma.m64nNk32.s32.s8.s8 with every load issued by TMA:
@@ -17,17 +18,21 @@
 //   * The weights stay resident: each block loads its kN rows of the packed
 //     (Cout, Kpad) weight once, one TMA box per tap, each on its own barrier
 //     (the first item's math starts with tap 0). The packed rows are K-major,
-//     the only layout wgmma takes for 8-bit operands; a tap's Cin bytes are
-//     one swizzle row (64B swizzle at Cin 64, 128B at Cin 128), which is
-//     wgmma's K-major canonical layout, and a k32 step inside it is the
-//     descriptor's start address plus 32 bytes.
+//     the only layout wgmma takes for 8-bit operands; a tap's kRow bytes
+//     (cin_pad: 32 at Cin 32, 64 at Cin 48 and 64, 128 at Cin 128) are one
+//     swizzle row (32B, 64B or 128B swizzle), which is wgmma's K-major
+//     canonical layout, and a k32 step inside it is the descriptor's start
+//     address plus 32 bytes. At Cin 48 the packed row's bytes 48-63 are zero.
 //   * A comes from registers, loaded by ldmatrix from an input window: a 4-D
 //     TMA box of the NHWC int8 input ((kTH - 1) s + k rows, 31 s + k pixels,
-//     zero outside the image), swizzled like the weights, so ldmatrix is free
-//     of bank conflicts at stride 1 (two-way at stride 2). A tap is an
-//     address offset. A 1x1 stride-2 conv reads only the pixels it uses: its
-//     box steps 2 pixels in x and y (TMA's element strides). The A registers
-//     are double-buffered: the next ldmatrix overlaps the wgmma in flight.
+//     zero outside the image), kRow bytes a pixel and swizzled like the
+//     weights, so ldmatrix is free of bank conflicts at stride 1 (two-way at
+//     stride 2). At Cin 48 the box's 64 bytes a pixel reach past the tensor's
+//     48 channels and TMA fills bytes 48-63 with zeros: no neighbour pixel's
+//     bytes are read. A tap is an address offset. A 1x1 stride-2 conv reads
+//     only the pixels it uses: its box steps 2 pixels in x and y (TMA's
+//     element strides). The A registers are double-buffered: the next
+//     ldmatrix overlaps the wgmma in flight.
 //   * A ring of 2 windows (1 where the weights leave no room: Cin 128 at
 //     3x3): item i + 1's window is in flight during item i's math.
 //   * A programmatic dependent launch: a block is scheduled, sets up its
@@ -39,21 +44,28 @@
 //     bias from shared memory. An int8 output goes through a swizzled staging
 //     tile in shared memory and a TMA store (clipped at the image's edge); an
 //     int8 residual comes into the same tile by TMA, an item ahead, and is
-//     overwritten in place. Two tiles alternate (one where room is short), so
-//     a store overlaps the next item. A float32 residual or output (the
-//     shortcut's) goes straight between registers and global memory: each
-//     quad of threads covers a whole 32-byte sector; the residual's box is
-//     prefetched into L2 by TMA an item ahead. One loop per mode, pixel by
-//     pixel, so that no element tests the mode or recomputes an address; the
-//     requant and the int8 residual's conversion go through the float adder
-//     (1.5 * 2^23), not the quarter-rate float/int conversions.
-//   * The tile shape (4 or 8 rows, N 64 or 128) and the rings come from a
-//     cost model of rounds x item cycles (`price`) calibrated on clock64
-//     traces: 4-row tiles run two blocks an SM, so that one block's epilogue
-//     overlaps the other's math; 8-row tiles one.
+//     overwritten in place. The tile's pixel rows are kN bytes, 64 at kN 48
+//     (a swizzle row; its box reaches past Cout, so the store clips bytes
+//     48-63 and the residual's load fills them with zeros). Two tiles
+//     alternate (one where room is short), so a store overlaps the next item.
+//     A float32 residual or output (the shortcut's) goes straight between
+//     registers and global memory: each quad of threads covers a whole
+//     32-byte sector; the residual's box is prefetched into L2 by TMA an item
+//     ahead. One loop per mode, pixel by pixel, so that no element tests the
+//     mode or recomputes an address; the requant and the int8 residual's
+//     conversion go through the float adder (1.5 * 2^23), not the
+//     quarter-rate float/int conversions.
+//   * The tile shape (4 or 8 rows, kN of Cout or 64 of 128) and the rings
+//     come from a cost model of rounds x item cycles (`price`) calibrated on
+//     clock64 traces of the 64- and 128-channel convs: 4-row tiles run two
+//     blocks an SM, so that one block's epilogue overlaps the other's math;
+//     8-row tiles one where registers or shared memory allow no more. At 32
+//     and 48 channels an item's math is a quarter to a half of the 64-channel
+//     case, and the epilogue and the bytes set the pace.
 // What holds it back now (traces, PERF.md): the epilogue of an item takes
-// as long as its math (about 2,900 against 2,700 cycles at stage 0's 3x3)
-// and overlaps it only across the SM's two blocks, not within a block.
+// as long as its math (about 2,900 against 2,700 cycles at stage 0's 3x3
+// 64 -> 64) and overlaps it only across the SM's two blocks, not within a
+// block.
 
 #pragma once
 
@@ -95,12 +107,13 @@ struct Params {
 };
 
 // Shared-memory descriptor of a K-major B operand: rows of kRow bytes (one
-// tap's input channels), kRow-byte swizzle (128B: layout 1, 64B: layout 2),
-// 8-row groups kRow x 8 bytes apart; the leading offset is unused (a k32
-// step never leaves a swizzle row).
+// tap's input channels), kRow-byte swizzle (128B: layout 1, 64B: layout 2,
+// 32B: layout 3), 8-row groups kRow x 8 bytes apart; the leading offset is
+// unused (a k32 step never leaves a swizzle row).
 template <int kRow>
 __device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
-  constexpr uint64_t layout = kRow == 128 ? 1 : 2;
+  static_assert(kRow == 32 || kRow == 64 || kRow == 128, "swizzle row");
+  constexpr uint64_t layout = kRow == 128 ? 1 : (kRow == 64 ? 2 : 3);
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
          (static_cast<uint64_t>((8 * kRow) >> 4) << 32) | (layout << 62);
 }
@@ -112,6 +125,35 @@ __device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
 // D(64 x N, s32) += A(64 x 32, s8 registers) * B(32 x N, s8 shared, K-major)
 template <int N>
 struct Wgmma;
+
+template <>
+struct Wgmma<32> {
+  static __device__ __forceinline__ void mma(int (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p;\n}\n"
+        : LFD_D8(0), LFD_D8(8)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<48> {
+  static __device__ __forceinline__ void mma(int (&d)[24], const uint32_t (&a)[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23}, "
+        "{%24, %25, %26, %27}, %28, p;\n}\n"
+        : LFD_D8(0), LFD_D8(8), LFD_D8(16)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
 
 template <>
 struct Wgmma<64> {
@@ -163,13 +205,29 @@ __device__ __forceinline__ Item item_of(int item, const Params& p, int th) {
   return it;
 }
 
-// Byte offset of (pixel q, 16-byte chunk) in a TMA box of kRow-byte pixel
-// rows, swizzled as TMA writes it (box 1 KB aligned): 128-byte rows 128B
-// (chunk ^ q % 8), 64-byte rows 64B (chunk ^ q / 2 % 4).
+// The swizzle of row q in a TMA box of kRow-byte rows, as TMA writes it (box
+// 1 KB aligned): its 16-byte chunks are permuted by chunk ^ key, key q % 8
+// for 128-byte rows (128B swizzle), q / 2 % 4 for 64-byte rows (64B) and
+// q / 4 % 2 for 32-byte rows (32B): address bits 7.. into bits 4...
+template <int kRow>
+__device__ __forceinline__ int swizzle_key(int q) {
+  return kRow == 128 ? (q & 7) : (kRow == 64 ? ((q >> 1) & 3) : ((q >> 2) & 1));
+}
+
+// Byte offset of (pixel q, 16-byte chunk) in such a box
 template <int kRow>
 __device__ __forceinline__ uint32_t box_offset(int q, int chunk) {
-  if (kRow == 128) return q * 128 + ((chunk ^ (q & 7)) << 4);
-  return q * 64 + ((chunk ^ ((q >> 1) & 3)) << 4);
+  return q * kRow + ((chunk ^ swizzle_key<kRow>(q)) << 4);
+}
+
+// Bytes of a staging tile's pixel row: kN, a swizzle row (64 at kN 48)
+template <int kN>
+__host__ __device__ constexpr int out_row() {
+  return kN == 48 ? 64 : kN;
+}
+
+__host__ __device__ constexpr uint32_t align1k(uint32_t bytes) {
+  return (bytes + 1023) & ~1023u;
 }
 
 // What an item's epilogue reads: its staging tile, mult and bias (shared
@@ -199,8 +257,8 @@ __device__ __forceinline__ void epilogue(const Epilogue& e, const int (&acc)[kM]
       const bool inside = oy < p.Ho && ox < p.Wo;
       const size_t gpix =
           (static_cast<size_t>(e.it.n * p.Ho + oy) * p.Wo + ox) * p.Cout + e.c0 + 2 * e.t;
-      unsigned char* prow = e.tile + q * kN + (e.t << 1);
-      const int key = kN == 128 ? (q & 7) : ((q >> 1) & 3);  // the tile's swizzle
+      unsigned char* prow = e.tile + q * out_row<kN>() + (e.t << 1);
+      const int key = swizzle_key<out_row<kN>()>(q);  // the tile's swizzle
 #pragma unroll
       for (int nt = 0; nt < kN / 8; ++nt) {
         const int ch = nt * 8 + 2 * e.t;
@@ -232,25 +290,26 @@ __device__ __forceinline__ void epilogue(const Epilogue& e, const int (&acc)[kM]
   }
 }
 
-// kCin: input channels (a pixel row of the window, a tap's row of the
-// weights); kN: output channels per item; kK: kernel size; kTH: tile rows
-// (4-row tiles: two blocks an SM, at most 128 registers a thread, so that
-// one block's epilogue overlaps the other's math)
-template <int kCin, int kN, int kK, int kTH>
+// kRow: bytes of a tap's input channels (a pixel row of the window, a tap's
+// row of the weights: cin_pad, 32, 64 or 128); kN: output channels per item
+// (32, 48, 64 or 128); kK: kernel size; kTH: tile rows (4-row tiles: two
+// blocks an SM, at most 128 registers a thread, so that one block's epilogue
+// overlaps the other's math)
+template <int kRow, int kN, int kK, int kTH>
 __global__ void __launch_bounds__(kThreads, kTH == 4 ? 2 : 1)
 int8_conv_wgmma_kernel(const __grid_constant__ CUtensorMap map_w,
                        const __grid_constant__ CUtensorMap map_x,
                        const __grid_constant__ CUtensorMap map_res,
                        const __grid_constant__ CUtensorMap map_out, const Params p) {
   constexpr int kTaps = kK * kK;
-  constexpr int kSteps = kCin / 32;           // k32 steps per tap
+  constexpr int kSteps = kRow / 32;           // k32 steps per tap
   constexpr int kM = kTH / 4;                 // m64 products per warpgroup (2 rows each)
   constexpr int kAcc = kN / 2;                // accumulator registers per product
-  constexpr uint32_t kTapBytes = kN * kCin;   // one tap's weights
-  constexpr uint32_t kWBytes = kTaps * kTapBytes;
-  constexpr uint32_t kTileBytes = kTH * kTileW * kN;  // an int8 staging tile
-  static_assert(kCin == 64 || kCin == 128, "Cin");
-  static_assert(kN == 64 || kN == 128, "N");
+  constexpr uint32_t kTapBytes = kN * kRow;   // one tap's weights
+  constexpr uint32_t kWBytes = align1k(kTaps * kTapBytes);  // the windows 1 KB aligned
+  constexpr uint32_t kTileBytes = kTH * kTileW * out_row<kN>();  // an int8 staging tile
+  static_assert(kRow == 32 || kRow == 64 || kRow == 128, "tap row");
+  static_assert(kN == 32 || kN == 48 || kN == 64 || kN == 128, "N");
   static_assert(kTH == 4 || kTH == 8, "tile rows");
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -294,7 +353,7 @@ int8_conv_wgmma_kernel(const __grid_constant__ CUtensorMap map_w,
               cur.y0 * p.stride - p.pad, cur.n);
     for (int t = 0; t < kTaps; ++t) {
       mbar_expect(bar_u32 + 32 + 8 * t, kTapBytes);
-      tma_load2(w_u32 + t * kTapBytes, &map_w, bar_u32 + 32 + 8 * t, t * kCin, c0);
+      tma_load2(w_u32 + t * kTapBytes, &map_w, bar_u32 + 32 + 8 * t, t * kRow, c0);
     }
     if (res_tma) {
       mbar_expect(bar_u32 + 16, kTileBytes);
@@ -324,7 +383,7 @@ int8_conv_wgmma_kernel(const __grid_constant__ CUtensorMap map_w,
   const int p_lane = row0 * ws * p.win_w + (xo + (lane & 15)) * ws;
   const int c_lane = lane >> 4;  // 16-byte chunk within k32
   const int g = lane >> 2, t = lane & 3;
-  const uint64_t desc_w = b_desc<kCin>(w_u32);
+  const uint64_t desc_w = b_desc<kRow>(w_u32);
 
   for (int i = 0; item < p.work; ++i) {
     const int sw = p.nwin == 2 ? (i & 1) : 0;
@@ -352,7 +411,7 @@ int8_conv_wgmma_kernel(const __grid_constant__ CUtensorMap map_w,
 #pragma unroll
       for (int j = 0; j < kM; ++j) {
         const int q = p_lane + (2 * j * ws + dy) * p.win_w + dx;
-        ldsm_x4(win + box_offset<kCin>(q, kc * 2 + c_lane), a[st & 1][j]);
+        ldsm_x4(win + box_offset<kRow>(q, kc * 2 + c_lane), a[st & 1][j]);
       }
       if (kc == 0) mbar_wait(bar_u32 + 32 + 8 * tap, 0);  // passes at once after item 0
       wgmma_fence();
@@ -429,8 +488,11 @@ int8_conv_wgmma_kernel(const __grid_constant__ CUtensorMap map_w,
 }
 
 // A TMA map of an int8 tensor of `rank` dims (innermost first, contiguous),
-// with element steps `step`; the box's innermost bytes (64 or 128) set the
-// swizzle. f32: a float32 tensor, unswizzled (prefetched into L2 only).
+// with element steps `step`; the box's innermost bytes (32, 64 or 128) set
+// the swizzle. The box may reach past the tensor's innermost dimension (Cin
+// or Cout 48 in a 64-byte box): a load fills those bytes with zeros, a store
+// leaves them out. f32: a float32 tensor, unswizzled (prefetched into L2
+// only).
 cudaError_t tensor_map(CUtensorMap* map, const void* ptr, int rank, const long long* dims,
                        const int* box, const int* step, bool f32 = false) {
   EncodeTiled encode = nullptr;
@@ -446,9 +508,12 @@ cudaError_t tensor_map(CUtensorMap* map, const void* ptr, int rank, const long l
     stride *= size[d];
     if (d < rank - 1) strides[d] = stride;
   }
-  const CUtensorMapSwizzle swizzle = f32 ? CU_TENSOR_MAP_SWIZZLE_NONE
-                                     : (box[0] == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                                      : CU_TENSOR_MAP_SWIZZLE_64B);
+  CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE;
+  if (!f32) {
+    swizzle = box[0] == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+              : box[0] == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                             : CU_TENSOR_MAP_SWIZZLE_32B;
+  }
   const CUresult r = encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
                                      : CU_TENSOR_MAP_DATA_TYPE_UINT8,
                             rank, const_cast<void*>(ptr), size, strides, bx, el,
@@ -459,7 +524,7 @@ cudaError_t tensor_map(CUtensorMap* map, const void* ptr, int rank, const long l
 
 // Blocks per SM x SMs of one instantiation at `smem` bytes on the current
 // device, queried once per (device, size) and kept.
-template <int kCin, int kN, int kK, int kTH>
+template <int kRow, int kN, int kK, int kTH>
 cudaError_t capacity(int smem, int* out) {
   constexpr int kSlots = 8;
   static int sizes[kMaxDevices][kSlots], caps[kMaxDevices][kSlots];
@@ -473,7 +538,7 @@ cudaError_t capacity(int smem, int* out) {
       return cudaSuccess;
     }
   }
-  auto kernel = int8_conv_wgmma_kernel<kCin, kN, kK, kTH>;
+  auto kernel = int8_conv_wgmma_kernel<kRow, kN, kK, kTH>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
   if (err != cudaSuccess) return err;
   int per_sm = 0, sms = 0;
@@ -508,7 +573,7 @@ struct Choice {
   double cost;
 };
 
-template <int kCin, int kN, int kK, int kTH>
+template <int kRow, int kN, int kK, int kTH>
 cudaError_t price(const Shape& s, const Params& p, Choice* c) {
   c->th = kTH;
   c->kn = kN;
@@ -516,10 +581,10 @@ cudaError_t price(const Shape& s, const Params& p, Choice* c) {
   const int ws = kK == 3 ? s.stride : 1;
   const int win_h = (kTH - 1) * ws + kK;
   c->win_w = (kTileW - 1) * ws + kK;
-  c->win_box = win_h * c->win_w * kCin;
-  c->win_alloc = (c->win_box + 1023) / 1024 * 1024;
-  const int w_bytes = kK * kK * kN * kCin;
-  const int tile = kTH * kTileW * kN;
+  c->win_box = win_h * c->win_w * kRow;
+  c->win_alloc = static_cast<int>(align1k(c->win_box));
+  const int w_bytes = static_cast<int>(align1k(kK * kK * kN * kRow));
+  const int tile = kTH * kTileW * out_row<kN>();
   const int fixed = 1024 + 8 * (4 + kMaxTaps) + 2 * kN * 4;  // alignment, bars, mult/bias
   c->smem = 0;
   for (int nwin = 2; nwin >= 1 && c->smem == 0; --nwin) {
@@ -539,7 +604,7 @@ cudaError_t price(const Shape& s, const Params& p, Choice* c) {
     return cudaSuccess;
   }
   int cap = 0, dev = 0, sms = 0;
-  cudaError_t err = capacity<kCin, kN, kK, kTH>(c->smem, &cap);
+  cudaError_t err = capacity<kRow, kN, kK, kTH>(c->smem, &cap);
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
@@ -553,12 +618,13 @@ cudaError_t price(const Shape& s, const Params& p, Choice* c) {
   grid -= grid % split;
   c->grid = grid;
   // An item's cycles on its block, from clock64 traces on the H100
-  // (PERF.md): the math at about 6,000 int8 operations a cycle, the
-  // epilogue about 0.2 cycles an output (more with a residual or a float32
-  // output), 400 cycles of waits. Blocks that share an SM overlap one's
-  // epilogue with another's math, at a cost: two run at 1.6 times one's rate.
-  // An SM moves about 14 HBM bytes a cycle, and 30 of L2 for the weights.
-  const double ops = 2.0 * kTH * kTileW * kN * kK * kK * kCin;
+  // (PERF.md): the math at about 6,000 int8 operations a cycle (counted on
+  // the padded tap row, what the tensor cores do), the epilogue about 0.2
+  // cycles an output (more with a residual or a float32 output), 400 cycles
+  // of waits. Blocks that share an SM overlap one's epilogue with another's
+  // math, at a cost: two run at 1.6 times one's rate. An SM moves about 14
+  // HBM bytes a cycle, and 30 of L2 for the weights.
+  const double ops = 2.0 * kTH * kTileW * kN * kK * kK * kRow;
   const double outs = kTH * kTileW * kN;
   const double epi = p.out_int8 ? 0.2 + 0.05 * (p.res_kind == 1) + 0.1 * (p.res_kind == 2) : 0.3;
   const double bytes = c->win_box + outs * (p.out_int8 ? 1.0 : 4.0) +
@@ -570,7 +636,7 @@ cudaError_t price(const Shape& s, const Params& p, Choice* c) {
   return cudaSuccess;
 }
 
-template <int kCin, int kN, int kK, int kTH>
+template <int kRow, int kN, int kK, int kTH>
 cudaError_t run(const Shape& s, Params p, const Choice& c, cudaStream_t stream) {
   p.win_w = c.win_w;
   p.win_box = c.win_box;
@@ -586,25 +652,27 @@ cudaError_t run(const Shape& s, Params p, const Choice& c, cudaStream_t stream) 
   CUtensorMap map_w, map_x, map_res, map_out;
   const int one[4] = {1, 1, 1, 1};
   const long long wdims[2] = {s.Kpad, s.Cout};
-  const int wbox[2] = {kCin, kN};
+  const int wbox[2] = {kRow, kN};
   cudaError_t err = tensor_map(&map_w, s.w, 2, wdims, wbox, one);
-  const long long xdims[4] = {s.Cin, s.W, s.H, s.N};
+  const long long xdims[4] = {s.Cin, s.W, s.H, s.N};  // a box of kRow bytes a pixel
   if (err == cudaSuccess) {
     if (kK == 1 && s.stride == 2) {  // every other pixel of a (2 kTH) x 64 box
-      const int box[4] = {kCin, 2 * kTileW, 2 * kTH, 1};
+      const int box[4] = {kRow, 2 * kTileW, 2 * kTH, 1};
       const int step[4] = {1, 2, 2, 1};
       err = tensor_map(&map_x, s.x, 4, xdims, box, step);
     } else {
-      const int box[4] = {kCin, c.win_w, c.win_box / (c.win_w * kCin), 1};
+      const int box[4] = {kRow, c.win_w, c.win_box / (c.win_w * kRow), 1};
       err = tensor_map(&map_x, s.x, 4, xdims, box, one);
     }
   }
   const long long odims[4] = {s.Cout, p.Wo, p.Ho, s.N};
-  const int obox[4] = {kN, kTileW, kTH, 1};
+  const int obox[4] = {out_row<kN>(), kTileW, kTH, 1};  // a staging tile
+  const int fbox[4] = {kN, kTileW, kTH, 1};             // an item's f32 residual
   map_res = map_x;  // unused without a residual
   map_out = map_x;  // unused unless an int8 output
   if (err == cudaSuccess && p.res_kind) {
-    err = tensor_map(&map_res, s.residual, 4, odims, obox, one, p.res_kind == 2);
+    err = tensor_map(&map_res, s.residual, 4, odims, p.res_kind == 2 ? fbox : obox, one,
+                     p.res_kind == 2);
   }
   if (err == cudaSuccess && p.out_int8) err = tensor_map(&map_out, p.out, 4, odims, obox, one);
   if (err != cudaSuccess) return err;
@@ -618,24 +686,39 @@ cudaError_t run(const Shape& s, Params p, const Choice& c, cudaStream_t stream) 
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, int8_conv_wgmma_kernel<kCin, kN, kK, kTH>, map_w, map_x, map_res,
+  err = cudaLaunchKernelEx(&cfg, int8_conv_wgmma_kernel<kRow, kN, kK, kTH>, map_w, map_x, map_res,
                            map_out, p);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-// The instantiations of one (Cin, K): output channels per item and tile rows.
-template <int kCin, int kK>
-cudaError_t launch_cin_k(const Shape& s, const Params& p, cudaStream_t stream) {
+// The instantiations of one (tap row, K): output channels per item (Cout,
+// or 64 of 128) and tile rows, the cheapest by `price`.
+template <int kRow, int kK>
+cudaError_t launch_row_k(const Shape& s, const Params& p, cudaStream_t stream) {
   Choice c[4];
   int n = 0;
   cudaError_t err = cudaSuccess;
-  if (s.Cout == 128) {
-    err = price<kCin, 128, kK, 8>(s, p, &c[n++]);
-    if (err == cudaSuccess) err = price<kCin, 128, kK, 4>(s, p, &c[n++]);
+  switch (s.Cout) {
+    case 128:
+      err = price<kRow, 128, kK, 8>(s, p, &c[n++]);
+      if (err == cudaSuccess) err = price<kRow, 128, kK, 4>(s, p, &c[n++]);
+      [[fallthrough]];
+    case 64:
+      if (err == cudaSuccess) err = price<kRow, 64, kK, 8>(s, p, &c[n++]);
+      if (err == cudaSuccess) err = price<kRow, 64, kK, 4>(s, p, &c[n++]);
+      break;
+    case 48:
+      err = price<kRow, 48, kK, 8>(s, p, &c[n++]);
+      if (err == cudaSuccess) err = price<kRow, 48, kK, 4>(s, p, &c[n++]);
+      break;
+    case 32:
+      err = price<kRow, 32, kK, 8>(s, p, &c[n++]);
+      if (err == cudaSuccess) err = price<kRow, 32, kK, 4>(s, p, &c[n++]);
+      break;
+    default:
+      return cudaErrorInvalidValue;
   }
-  if (err == cudaSuccess) err = price<kCin, 64, kK, 8>(s, p, &c[n++]);
-  if (err == cudaSuccess) err = price<kCin, 64, kK, 4>(s, p, &c[n++]);
   if (err != cudaSuccess) return err;
   int best = 0;
   for (int k = 1; k < n; ++k) {
@@ -643,21 +726,28 @@ cudaError_t launch_cin_k(const Shape& s, const Params& p, cudaStream_t stream) {
   }
   const Choice& b = c[best];
   if (b.smem == 0) return cudaErrorInvalidConfiguration;
-  if (b.kn == 128) {
-    return b.th == 8 ? run<kCin, 128, kK, 8>(s, p, b, stream)
-                     : run<kCin, 128, kK, 4>(s, p, b, stream);
+  const bool t8 = b.th == 8;
+  switch (b.kn) {
+    case 128:
+      return t8 ? run<kRow, 128, kK, 8>(s, p, b, stream) : run<kRow, 128, kK, 4>(s, p, b, stream);
+    case 64:
+      return t8 ? run<kRow, 64, kK, 8>(s, p, b, stream) : run<kRow, 64, kK, 4>(s, p, b, stream);
+    case 48:
+      return t8 ? run<kRow, 48, kK, 8>(s, p, b, stream) : run<kRow, 48, kK, 4>(s, p, b, stream);
+    default:
+      return t8 ? run<kRow, 32, kK, 8>(s, p, b, stream) : run<kRow, 32, kK, 4>(s, p, b, stream);
   }
-  return b.th == 8 ? run<kCin, 64, kK, 8>(s, p, b, stream) : run<kCin, 64, kK, 4>(s, p, b, stream);
 }
 
 // The wgmma route of lfd_int8_conv (`int8_conv.cu`), which has checked the
-// arguments: Cin kCin, Cout 64 or 128, ksize 1 or 3, stride 1 or 2.
-template <int kCin>
+// arguments: Cin with a tap row of kRow bytes (cin_pad(Cin) == kRow), Cout
+// 32, 48, 64 or 128, ksize 1 or 3, stride 1 or 2.
+template <int kRow>
 int wgmma_entry(const int8_t* x, const int8_t* w, const float* mult, const float* bias,
                 const void* residual, int res_kind, float res_scale, void* out, int out_int8,
-                float inv_out, int relu, int N, int H, int W, int Cout, int ksize, int stride,
-                int Ho, int Wo, int Kpad, cudaStream_t stream) {
-  Shape s{x, w, residual, N, H, W, kCin, Cout, ksize, stride, Kpad};
+                float inv_out, int relu, int N, int H, int W, int Cin, int Cout, int ksize,
+                int stride, int Ho, int Wo, int Kpad, cudaStream_t stream) {
+  Shape s{x, w, residual, N, H, W, Cin, Cout, ksize, stride, Kpad};
   Params p{};
   p.mult = mult;
   p.bias = bias;
@@ -672,8 +762,8 @@ int wgmma_entry(const int8_t* x, const int8_t* w, const float* mult, const float
   p.out_int8 = out_int8;
   p.inv_out = inv_out;
   p.relu = relu;
-  const cudaError_t err = ksize == 1 ? launch_cin_k<kCin, 1>(s, p, stream)
-                                     : launch_cin_k<kCin, 3>(s, p, stream);
+  const cudaError_t err = ksize == 1 ? launch_row_k<kRow, 1>(s, p, stream)
+                                     : launch_row_k<kRow, 3>(s, p, stream);
   return static_cast<int>(err);
 }
 

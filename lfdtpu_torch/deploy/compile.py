@@ -7,14 +7,16 @@
 #   int8 -> the calibrated fused int8 chain (reference TRT int8 engine;
 #           deploy/int8_net.py, K4), then the float remainder in float32
 #           (or bfloat16 with int8_head_dtype="bf16")
-# It takes raw uint8 NHWC frames (padded to the resolution bucket) and
-# returns fixed-shape detections, decode and NMS included.
+# It takes uint8 NHWC frames (raw, padded to the resolution bucket) or float
+# ones (normalized on the host) and returns fixed-shape detections, decode
+# and NMS included.
 #
 # The engine holds its own copy of the weights and the point grids on its
-# device. On a CUDA device it is ONE captured CUDA graph (dense + decode +
-# pack) that a call replays, the counterpart of lfdtpu's single jitted
-# program (`lfdtpu/deploy/compile.py:403-444`); on the CPU, or when asked
-# (captured=False), it runs eagerly. A capture that fails raises: no engine
+# device. On a CUDA device it is a captured CUDA graph (dense + decode +
+# pack) that a call replays, one per frame dtype, the counterpart of
+# lfdtpu's jitted program (`lfdtpu/deploy/compile.py:403-444`), which jit
+# traces once per input dtype; on the CPU, or when asked (captured=False), it
+# runs eagerly. A capture that fails raises: no engine
 # quietly runs eagerly in its place. What breaks a capture: a host sync
 # (.item(), .cpu(), torch.equal, a boolean-mask index), a tensor made from
 # host data, or a CUDA allocation outside torch's allocator, anywhere in
@@ -44,6 +46,16 @@ _DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16, "int8": torch.float32}
 _HEAD_DTYPES = {None: torch.float32, "bf16": torch.bfloat16}  # int8_head_dtype
 CALIBRATION_FRAMES = 2  # noise frames of the default int8 calibration (lfdtpu's)
 _WARMUP_CALLS = 3  # eager calls before a capture
+
+
+def _frame_dtype(dtype):
+    """The dtype a frame of `dtype` (torch or numpy) reaches the net in:
+    uint8 (raw) or float32. Any other dtype is converted to float32 on
+    arrival, as lfdtpu's jit does with float64 (JAX's default 32-bit mode);
+    a captured engine holds one graph for each of the two."""
+    if isinstance(dtype, torch.dtype):
+        return torch.uint8 if dtype == torch.uint8 else torch.float32
+    return torch.uint8 if np.dtype(dtype) == np.uint8 else torch.float32
 
 
 def cast_variables(net, dtype):
@@ -106,26 +118,44 @@ def _launch_counts():
     return {fn.__name__: fn.launches for fn in _COUNTED}
 
 
+@dataclasses.dataclass
+class _Graph:
+    """One captured graph of a captured engine, for frames of one dtype:
+    its static input on the device, the pinned staging buffer (and its numpy
+    view), its outputs, and the kernel launches it records."""
+    graph: torch.cuda.CUDAGraph
+    inp: torch.Tensor
+    host: torch.Tensor
+    host_np: np.ndarray
+    out: object
+    launches: dict
+
+
 class Engine:
     """Compiled engine: engine(images, valid_hw) -> decoded dict of tensors
     on the engine's device (or the packed tensor with pack_output).
 
-    images: (B, H, W, 3) numpy array or tensor at input_resolution (a
-    captured engine takes raw uint8 frames only);
+    images: (B, H, W, 3) numpy array or tensor at input_resolution: raw
+    uint8 frames, or float frames normalized on the host (any dtype but
+    uint8 reaches the net as float32; the stem kernel takes uint8 only);
     valid_hw: (2,) shared or (B, 2) per-image unpadded extents.
     `dense` and `decode` expose the two halves, always eager, for checks and
     timing.
 
     A captured engine (`captured`, the default on a CUDA device) holds
-    dense + decode (+ pack) as ONE CUDA graph over static buffers and a call
-    replays it: the counterpart of lfdtpu's single jitted program. A numpy
-    frame goes through one pinned staging buffer and an asynchronous copy
-    on the current stream; a CUDA tensor is copied into the static input.
-    The host does no allocation per call. A call runs on the current stream;
-    calls from different streams share the graph's buffers, so the caller
-    orders them. `captured_launches` holds how
-    often the graph launches each hand-written kernel (their wrappers'
-    counters tick while the graph is captured, not when it replays)."""
+    dense + decode (+ pack) as a CUDA graph over static buffers and a call
+    replays it: the counterpart of lfdtpu's jitted program. It holds one
+    graph per frame dtype, uint8 and float32, each with its own static
+    input, pinned staging buffer and memory pool: the uint8 graph is
+    captured at build, the float32 one at the first float call (as jit
+    traces again for a new input dtype). A numpy frame goes through the
+    pinned staging buffer and an asynchronous copy on the current stream; a
+    CUDA tensor is copied into the static input. The host does no allocation
+    per call once a dtype's graph exists. A call runs on the current stream;
+    calls from different streams share the graphs' buffers, so the caller
+    orders them. `captured_launches` holds how often the uint8 graph
+    launches each hand-written kernel (their wrappers' counters tick while a
+    graph is captured, not when it replays)."""
 
     def __init__(self, detector, net, preprocess, spec, input_hw, precision,
                  batch_size, device, pack_output, kernel_stem, captured=False,
@@ -145,8 +175,9 @@ class Engine:
         self.level_arrays = detector.level_arrays(input_hw, device)
         self.captured = False
         self.captured_launches = None
+        self._graphs = {}  # frame dtype -> _Graph
         if captured:
-            self._capture()
+            self.captured_launches = self._capture(torch.uint8).launches
             self.captured = True
 
     # ---------------------------------------------------------- host side
@@ -161,7 +192,7 @@ class Engine:
     def _images(self, images):
         x = torch.as_tensor(images)
         self._check_images(x)
-        return x.to(self.device, non_blocking=True)
+        return x.to(self.device, _frame_dtype(x.dtype), non_blocking=True)
 
     def _valid_hw(self, valid_hw):
         vhw = torch.as_tensor(valid_hw, dtype=torch.float32).to(self.device)
@@ -210,21 +241,24 @@ class Engine:
         return self._decode(cls_o, reg_o, self._valid_hw(valid_hw))
 
     # ------------------------------------------------------------ capture
-    def _capture(self):
+    def _capture(self, dtype):
+        """Capture the graph for frames of `dtype` (eager warmup calls on a
+        side stream first); returns its _Graph."""
         if self.device.type != "cuda":
             raise RuntimeError(f"a captured engine needs a CUDA device, not {self.device}; "
                                "on the CPU build an eager one (captured=False)")
         dev, shape = self.device, (self.batch_size, *self.input_resolution, 3)
         with torch.cuda.device(dev):
-            self._in = torch.zeros(shape, dtype=torch.uint8, device=dev)
-            self._vhw = torch.tensor([self.input_resolution] * self.batch_size,
-                                     dtype=torch.float32, device=dev)
-            self._in_host = torch.zeros(shape, dtype=torch.uint8).pin_memory()
-            self._vhw_host = torch.zeros((self.batch_size, 2)).pin_memory()
-            self._in_host_np, self._vhw_host_np = self._in_host.numpy(), self._vhw_host.numpy()
-            # set after each call's asynchronous copies out of the staging
-            # buffers: the next call waits for it before it overwrites them
-            self._staged = torch.cuda.Event()
+            if not self._graphs:  # the valid extents' buffers, shared by the graphs
+                self._vhw = torch.tensor([self.input_resolution] * self.batch_size,
+                                         dtype=torch.float32, device=dev)
+                self._vhw_host = torch.zeros((self.batch_size, 2)).pin_memory()
+                self._vhw_host_np = self._vhw_host.numpy()
+                # set after each call's asynchronous copies out of the staging
+                # buffers: the next call waits for it before it overwrites them
+                self._staged = torch.cuda.Event()
+            inp = torch.zeros(shape, dtype=dtype, device=dev)
+            host = torch.zeros(shape, dtype=dtype).pin_memory()
             # Eager calls on a side stream first: the kernels' build and
             # load at first use, cuDNN's plan selection and CUDA's lazy
             # module loading must all be over before the capture begins.
@@ -232,7 +266,7 @@ class Engine:
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
                 for _ in range(_WARMUP_CALLS):
-                    self._forward(self._in, self._vhw)
+                    self._forward(inp, self._vhw)
             torch.cuda.current_stream(dev).wait_stream(side)
             torch.cuda.synchronize(dev)
             graph = torch.cuda.CUDAGraph()
@@ -241,35 +275,38 @@ class Engine:
                 # thread_local: another thread's CUDA calls (a loader
                 # pinning memory) do not fail this capture
                 with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                    out = self._forward(self._in, self._vhw)
+                    out = self._forward(inp, self._vhw)
             except Exception as e:
                 # never an eager engine in its place
                 torch.cuda.synchronize(dev)
                 raise RuntimeError(
                     f"capturing the engine into a CUDA graph failed: {e}") from e
-            self.captured_launches = {k: v - before[k] for k, v in _launch_counts().items()}
-            self._graph, self._out = graph, out
+            launches = {k: v - before[k] for k, v in _launch_counts().items()}
+            self._graphs[dtype] = _Graph(graph, inp, host, host.numpy(), out, launches)
+            return self._graphs[dtype]
 
-    def _load(self, images, valid_hw):
-        """Put one call's inputs into the static buffers, in stream order."""
-        if not isinstance(images, (torch.Tensor, np.ndarray)):
-            images = np.asarray(images)
-        self._check_images(images)
-        if images.dtype != (torch.uint8 if isinstance(images, torch.Tensor) else np.uint8):
-            raise ValueError(f"a captured engine takes raw uint8 frames, got {images.dtype}: "
-                             "build an eager engine (captured=False) for other input")
+    def _graph_for(self, images):
+        """The graph for these frames' dtype, captured at its first use."""
+        dtype = _frame_dtype(images.dtype)
+        if self.kernel_stem and dtype != torch.uint8:
+            raise ValueError("the stem kernel consumes raw uint8 frames")
+        return self._graphs.get(dtype) or self._capture(dtype)
+
+    def _load(self, g, images, valid_hw):
+        """Put one call's inputs into graph g's static buffers, in stream
+        order."""
         host_in = not (isinstance(images, torch.Tensor) and images.is_cuda)
         host_vhw = not (isinstance(valid_hw, torch.Tensor) and valid_hw.is_cuda)
         if host_in or host_vhw:
             self._staged.synchronize()
         if host_in:
             if isinstance(images, torch.Tensor):
-                self._in_host.copy_(images)
+                g.host.copy_(images)
             else:
-                np.copyto(self._in_host_np, images)
-            self._in.copy_(self._in_host, non_blocking=True)
+                np.copyto(g.host_np, images, casting="unsafe")
+            g.inp.copy_(g.host, non_blocking=True)
         else:
-            self._in.copy_(images)
+            g.inp.copy_(images)
         if host_vhw:
             self._vhw_host_np[...] = np.asarray(valid_hw, np.float32).reshape(-1, 2)
             self._vhw.copy_(self._vhw_host, non_blocking=True)
@@ -282,16 +319,20 @@ class Engine:
         if not self.captured:
             x, vhw = self._images(images), self._valid_hw(valid_hw)
             return self._forward(x, vhw)
+        if not isinstance(images, (torch.Tensor, np.ndarray)):
+            images = np.asarray(images)
+        self._check_images(images)
         with torch.cuda.device(self.device):
-            self._load(images, valid_hw)
-            self._graph.replay()
+            g = self._graph_for(images)
+            self._load(g, images, valid_hw)
+            g.graph.replay()
             # Copies, so that call n's result survives call n + 1 (the
             # graph writes the same output tensors every replay): one small
             # device copy per output, max_det rows each (B x 100 x 7 floats
             # when packed, four such launches for the dict).
             if self.pack_output:
-                return self._out.clone()
-            return {k: v.clone() for k, v in self._out.items()}
+                return g.out.clone()
+            return {k: v.clone() for k, v in g.out.items()}
 
 
 def compile_inference(
@@ -323,7 +364,9 @@ def compile_inference(
     captured: None (default) builds a captured (CUDA-graph) engine on a CUDA
       device and an eager one on the CPU; False builds an eager engine on any
       device (the oracle of the captured one); True on the CPU raises. A
-      capture that fails raises. A captured engine takes raw uint8 frames.
+      capture that fails raises. A captured engine takes uint8 frames and
+      float frames (a graph for each, the float one captured at its first
+      float call), as the eager one does.
 
     Kernel switches (the JAX knobs in brackets), with lfdtpu's defaults:
       nms_use_kernel [nms_use_pallas], default on: K1 for CUDA tensors.

@@ -12,13 +12,14 @@
 # 127) with round half to even.
 #
 # Three routes, picked by shape (route_of), each counted in int8_conv.routes
-# beside int8_conv.launches: "wgmma" (`csrc/int8_conv_wgmma.cuh`) takes 64 or
-# 128 input and output channels, 1x1 or 3x3, stride 1 or 2, which is every
-# conv of WIDERFACE-L's and TL-L's chains but the stem; "stem"
-# (`csrc/int8_conv_stem.cu`) the 3-channel 3x3/s2 conv to 64 channels; "mma"
-# (the first, plain mma.sync kernel, `csrc/int8_conv.cu`) every other shape: the 8 to
-# 48 and 96 channels of the smaller LFDs and the traffic S models. All three
-# compute the same function, exactly.
+# beside int8_conv.launches: "wgmma" (`csrc/int8_conv_wgmma.cuh`) takes 32,
+# 48, 64 or 128 input and output channels, 1x1 or 3x3, stride 1 or 2, which
+# is every conv of the zoo's int8 chains but the stem; "stem"
+# (`csrc/int8_conv_stem.cu`) the 3-channel 3x3/s2 conv to 32, 48 or 64
+# channels, every chain's stem0; "mma" (the first, plain mma.sync kernel,
+# `csrc/int8_conv.cu`) every other shape: Cout 8, 16, 24 or 96, other kernel
+# sizes, which no zoo chain has. All three compute the same function,
+# exactly.
 #
 # The wrapper runs the plain version for CPU tensors only; for CUDA tensors it
 # launches the kernel or raises.
@@ -34,13 +35,16 @@ from . import kernel_lib
 K_STEP = 32  # K4's K bytes per mma step: a packed row is a multiple of it
 COUTS = (8, 16, 24, 32, 48, 64, 96, 128)  # output channels K4 is built for
 ROUTES = ("mma", "stem", "wgmma")  # the C entry point's route numbers, in order
+WGMMA_WIDTHS = (32, 48, 64, 128)  # input and output channels of the wgmma route
+STEM_COUTS = (32, 48, 64)  # output channels of the stem route
 
 
 def route_of(cin, cout, kernel_size, stride):
     """The kernel that takes a conv of this shape (see the header)."""
-    if cin in (64, 128) and cout in (64, 128) and kernel_size in (1, 3) and stride in (1, 2):
+    if (cin in WGMMA_WIDTHS and cout in WGMMA_WIDTHS and kernel_size in (1, 3)
+            and stride in (1, 2)):
         return "wgmma"
-    if (cin, cout, kernel_size, stride) == (3, 64, 3, 2):
+    if cin == 3 and cout in STEM_COUTS and (kernel_size, stride) == (3, 2):
         return "stem"
     return "mma"
 
@@ -150,6 +154,19 @@ def int8_conv(x, wpack, mult, bias, kernel_size, stride, relu=False, out_scale=N
     if not x.is_cuda:
         return int8_conv_plain(x, wpack, mult, bias, kernel_size, stride, relu, out_scale,
                                residual, residual_scale)
+    route = route_of(x.shape[-1], wpack.shape[0], kernel_size, stride)
+    out = launch_on(route, x, wpack, mult, bias, kernel_size, stride, relu, out_scale, residual,
+                    residual_scale)
+    int8_conv.launches += 1
+    int8_conv.routes[route] += 1
+    return out
+
+
+def launch_on(route, x, wpack, mult, bias, kernel_size, stride, relu=False, out_scale=None,
+              residual=None, residual_scale=None):
+    """K4's kernel of `route` on CUDA tensors, uncounted: int8_conv's launch,
+    and a way to time one shape on two routes (the mma route takes every
+    shape). A route that cannot take the shape raises."""
     n, h, w, cin = x.shape
     cout = wpack.shape[0]
     if cout not in COUTS:
@@ -173,7 +190,6 @@ def int8_conv(x, wpack, mult, bias, kernel_size, stride, relu=False, out_scale=N
     inv = float(np.float32(1.0 / out_scale)) if out_int8 else 0.0
     out = torch.empty((n, ho, wo, cout), dtype=torch.int8 if out_int8 else torch.float32,
                       device=dev)
-    route = route_of(cin, cout, kernel_size, stride)
     with torch.cuda.device(dev):
         kernel_lib.launch(
             "lfd_int8_conv", x.data_ptr(), wpack.data_ptr(), mult.data_ptr(),
@@ -181,8 +197,6 @@ def int8_conv(x, wpack, mult, bias, kernel_size, stride, relu=False, out_scale=N
             res_scale, out.data_ptr(), int(out_int8), inv, int(relu), n, h, w, cin, cout,
             kernel_size, stride, ROUTES.index(route), kernel_lib.stream_of(x),
         )
-    int8_conv.launches += 1
-    int8_conv.routes[route] += 1
     return out
 
 

@@ -1,8 +1,9 @@
 """Where a block of K1, K2, K3 or K4 spends its cycles, on the card.
 
 Builds `csrc/nms.cu`, `csrc/pair_conv.cu`, `csrc/stem_conv.cu`,
-`csrc/int8_conv_wgmma64.cu`, `csrc/int8_conv_wgmma128.cu` or
-`csrc/int8_conv_stem.cu` (K4's routes of the int8 chains, each called
+`csrc/int8_conv_wgmma32.cu`, `csrc/int8_conv_wgmma64.cu`,
+`csrc/int8_conv_wgmma128.cu` or `csrc/int8_conv_stem.cu` (K4's routes of the
+int8 chains, each called
 through the C entry point its traced build exports) alone with
 -DLFD_TRACE, which turns the kernel's LFD_TR(k) marks into clock64() stamps of
 thread 0 of every block (`csrc/trace.cuh`), runs it at the engine's shapes and
@@ -27,12 +28,13 @@ SLOTS, BLOCKS = 32, 4096  # LFD_TRACE_SLOTS, LFD_TRACE_BLOCKS of csrc/trace.cuh
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # K4's routes as C entry points of their traced builds (LFD_TRACED_ENTRY):
 # x, w, mult, bias, residual, res_kind, res_scale, out, out_int8, inv_out,
-# relu, N, H, W, then Cout, ksize, stride, Ho, Wo (wgmma), Kpad, stream
+# relu, N, H, W, then Cin, Cout, ksize, stride, Ho, Wo (wgmma) or Cout
+# (stem), Kpad, stream
 _K4_HEAD = (_P, _P, _P, _P, _P, _I, _F, _P, _I, _F, _I, _I, _I, _I)
-SIGNATURES = dict(kernel_lib._SIGNATURES,
-                  lfd_int8_conv_wgmma64=_K4_HEAD + (_I,) * 6 + (_P,),
-                  lfd_int8_conv_wgmma128=_K4_HEAD + (_I,) * 6 + (_P,),
-                  lfd_int8_conv_stem=_K4_HEAD + (_I, _P))
+_WGMMA = _K4_HEAD + (_I,) * 7 + (_P,)
+SIGNATURES = dict(kernel_lib._SIGNATURES, lfd_int8_conv_wgmma32=_WGMMA,
+                  lfd_int8_conv_wgmma64=_WGMMA, lfd_int8_conv_wgmma128=_WGMMA,
+                  lfd_int8_conv_stem=_K4_HEAD + (_I, _I, _P))
 # the names of a kernel's stamps: 0 and 1 before its loop, then
 # 2 + len(per_item) i + k for its item, tile or chunk i
 STAMPS = {
@@ -43,8 +45,8 @@ STAMPS = {
                                                    "epilogue done")),
     "int8_conv_stem": ("entry", "constants in", ("raw rows in", "strip ready", "tile done")),
 }
-# K4's traced shapes, WIDERFACE-L's at 1088x1920: (label, N, H, W, Cin, Cout,
-# k, stride, mode)
+# K4's traced shapes, WIDERFACE-L's at 1088x1920, then WIDERFACE-XS's and
+# TL-S's (768x1280) narrow ones: (label, N, H, W, Cin, Cout, k, stride, mode)
 K4_TRACED = (
     ("stage 0 3x3 64->64", 1, 272, 480, 64, 64, 3, 1, "a"),
     ("stage 0 3x3 64->64, int8 residual", 1, 272, 480, 64, 64, 3, 1, "c8"),
@@ -54,6 +56,12 @@ K4_TRACED = (
     ("neck 1x1 64->128", 1, 272, 480, 64, 128, 1, 1, "a"),
     ("stage 4 3x3 128->128, f32 residual", 1, 17, 30, 128, 128, 3, 1, "cf"),
     ("stem0 3x3/s2 3->64", 1, 1088, 1920, 3, 64, 3, 2, "a"),
+    ("XS stem1 1x1 32->32", 1, 544, 960, 32, 32, 1, 1, "a"),
+    ("XS stem2 3x3/s2 32->32", 1, 544, 960, 32, 32, 3, 2, "a"),
+    ("TL-S stage 0 3x3 48->48", 1, 192, 320, 48, 48, 3, 1, "a"),
+    ("TL-S stage 0 3x3 48->48, int8 residual", 1, 192, 320, 48, 48, 3, 1, "c8"),
+    ("XS stem0 3x3/s2 3->32", 1, 1088, 1920, 3, 32, 3, 2, "a"),
+    ("TL-S stem0 3x3/s2 3->48", 1, 768, 1280, 3, 48, 3, 2, "a"),
 )
 
 
@@ -183,9 +191,9 @@ def trace_k4(dev, stream):
 
     from lfdtpu_torch.ops import int8_conv as k4
 
-    libs = {"wgmma64": build("int8_conv_wgmma64", "lfd_int8_conv_wgmma64"),
-            "wgmma128": build("int8_conv_wgmma128", "lfd_int8_conv_wgmma128"),
-            "stem": build("int8_conv_stem", "lfd_int8_conv_stem")}
+    libs = {f"wgmma{row}": build(f"int8_conv_wgmma{row}", f"lfd_int8_conv_wgmma{row}")
+            for row in (32, 64, 128)}
+    libs["stem"] = build("int8_conv_stem", "lfd_int8_conv_stem")
     g = torch.Generator(device=dev).manual_seed(4)
     for label, n, h, w, cin, cout, k, stride, mode in K4_TRACED:
         c = k4_case(dev, g, n, h, w, cin, cout, k, stride, mode)
@@ -200,13 +208,15 @@ def trace_k4(dev, stream):
                 int(c["relu"]))
         route = k4.route_of(cin, cout, k, stride)
         if route == "wgmma":
-            lib = libs[f"wgmma{cin}"]
-            entry = getattr(lib, f"lfd_int8_conv_wgmma{cin}")
-            run(lib, lambda: entry(*head, n, h, w, cout, k, stride, ho, wo,
+            row = k4.cin_pad(cin)  # the tap row: 32, 64 (Cin 48, 64) or 128
+            lib = libs[f"wgmma{row}"]
+            entry = getattr(lib, f"lfd_int8_conv_wgmma{row}")
+            run(lib, lambda: entry(*head, n, h, w, cin, cout, k, stride, ho, wo,
                                    c["wpack"].shape[1], stream))
         else:
             lib = libs[route]
-            run(lib, lambda: lib.lfd_int8_conv_stem(*head, n, h, w, c["wpack"].shape[1], stream))
+            run(lib, lambda: lib.lfd_int8_conv_stem(*head, n, h, w, cout, c["wpack"].shape[1],
+                                                    stream))
         if not torch.equal(out, k4.int8_conv(**c)):
             raise RuntimeError(f"the traced K4 differs from the package's at {label}")
         report(lib, f"int8_conv_{route}", f"{n}x{h}x{w}x{cin} -> {cout} {k}x{k}/s{stride} "

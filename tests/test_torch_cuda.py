@@ -434,11 +434,52 @@ def test_captured_engine_refuses_what_it_was_not_built_for(cuda):
         engine(_frames(1, batch=1), ENGINE_HW)
     with pytest.raises(ValueError, match="expected"):
         engine(_frames(1, hw=(128, 128)), ENGINE_HW)
+    stem = _engine(_detector("S"), "bf16_kernels")  # the stem kernel takes raw uint8 only
     with pytest.raises(ValueError, match="uint8"):
-        engine(_frames(1).astype(np.float32), ENGINE_HW)
+        stem(_frames(1).astype(np.float32), ENGINE_HW)
     with pytest.raises(ValueError, match="uint8"):
-        engine(torch.zeros(2, *ENGINE_HW, 3, device=cuda), ENGINE_HW)
+        stem(torch.zeros(2, *ENGINE_HW, 3, device=cuda), ENGINE_HW)
     assert int(engine(_frames(1), ENGINE_HW)["count"].sum()) > 0  # still serves
+    assert int(stem(_frames(1), ENGINE_HW)["count"].sum()) > 0
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "int8"])
+def test_captured_engine_serves_float_frames(cuda, precision):
+    """Frames normalized on the host (float32, no device preprocess): the
+    captured engine captures a float graph at the first float call and
+    returns the eager engine's rows, from the host and from the card, while
+    its uint8 graph goes on serving; predict_for_*_with_engine with a
+    host-normalizing pipeline works on it."""
+    from lfdtpu_torch.data.augmentation import Compose, Normalize
+    from lfdtpu_torch.deploy import compile_inference
+
+    det = _detector("S")
+    kw = dict(batch_size=2, classification_threshold=1e-4)
+    engine = compile_inference(det, ENGINE_HW, precision, **kw)
+    if precision == "int8":
+        kw["act_scales"] = engine.int8_chain.amax
+    eager = compile_inference(det, ENGINE_HW, precision, captured=False, **kw)
+    assert engine.captured and set(engine._graphs) == {torch.uint8}
+    norm = Compose([Normalize((0.5,) * 3, (0.5,) * 3)])
+    f = norm({"image": _frames(13)})["image"]
+    assert f.dtype == np.float32
+    vhw = np.asarray([[256, 320], [200, 311]], np.float32)
+    ref = eager(f, vhw)
+    assert int(ref["count"].sum()) > 0
+    assert _same(engine(f, vhw), ref)
+    assert set(engine._graphs) == {torch.uint8, torch.float32}
+    assert _same(engine(torch.as_tensor(f, device=cuda), torch.as_tensor(vhw, device=cuda)), ref)
+    assert _same(engine(f.astype(np.float64), vhw), ref)  # reaches the net as float32
+    u = _frames(14)
+    assert _same(engine(u, vhw), eager(u, vhw))
+    assert _same(engine(f, vhw), ref)
+    one = compile_inference(det, ENGINE_HW, precision, **dict(kw, batch_size=1))
+    one_eager = compile_inference(det, ENGINE_HW, precision, captured=False,
+                                  **dict(kw, batch_size=1))
+    img = _frames(15, 1, (200, 300))[0]
+    rows = det.predict_for_single_image_with_engine(one, img, aug_pipeline=norm)
+    assert rows and rows == det.predict_for_single_image_with_engine(one_eager, img,
+                                                                     aug_pipeline=norm)
 
 
 def test_a_capture_that_cannot_succeed_raises(cuda, monkeypatch):
@@ -591,6 +632,12 @@ K4_SHAPES = [(3, 64, 3, 2, (67, 93)), (3, 48, 3, 2, (40, 64)), (3, 32, 3, 2, (33
              (16, 24, 1, 1, (9, 9)), (24, 96, 3, 1, (9, 9))]
 
 
+def _mma_shapes():
+    from chip_smoke import K4_MMA_SHAPES
+
+    return K4_MMA_SHAPES
+
+
 def _k4_inputs(cuda, cin, cout, k, stride, hw, seed, batch=2):
     from lfdtpu_torch.ops import int8_conv as k4
 
@@ -633,7 +680,10 @@ def test_int8_conv_kernel_matches_plain_exactly(cuda, cin, cout, k, stride, hw, 
 
 # the wgmma and stem routes' edges: a level smaller than one tile, ragged
 # last tiles, 3x3 128 -> 128 with its 147 KB of resident weights, stride-2
-# windows at odd sizes, batch 4 (n, Cin, Cout, kernel, stride, hw)
+# windows at odd sizes, batch 4; at 32 and 48 channels the same (32-byte tap
+# rows, 48-channel taps padded to 64 bytes by TMA, 48-channel outputs in
+# 64-byte tile rows), 48 -> 128 1x1, 32 -> 64 1x1/s2 (the shortcut's f32
+# out), and the 3 -> 32 and 3 -> 48 stems (n, Cin, Cout, kernel, stride, hw)
 K4_EDGES = [(1, 64, 64, 3, 1, (17, 30)), (1, 128, 128, 1, 1, (17, 30)),
             (1, 64, 64, 3, 1, (35, 61)), (1, 64, 128, 1, 1, (33, 47)),
             (1, 128, 128, 3, 1, (34, 60)), (2, 128, 128, 3, 1, (11, 97)),
@@ -643,7 +693,20 @@ K4_EDGES = [(1, 64, 64, 3, 1, (17, 30)), (1, 128, 128, 1, 1, (17, 30)),
             (4, 64, 64, 3, 1, (68, 120)), (4, 64, 64, 1, 2, (136, 240)),
             (4, 128, 128, 3, 2, (34, 60)), (4, 64, 128, 1, 1, (17, 30)),
             (1, 3, 64, 3, 2, (1087, 1919)), (4, 3, 64, 3, 2, (135, 241)),
-            (1, 3, 64, 3, 2, (3, 5))]
+            (1, 3, 64, 3, 2, (3, 5)),
+            (1, 32, 32, 3, 1, (5, 20)), (1, 48, 48, 1, 1, (3, 17)),
+            (1, 32, 32, 1, 1, (35, 61)), (1, 48, 48, 3, 1, (35, 61)),
+            (2, 48, 48, 1, 1, (33, 47)), (1, 32, 32, 3, 2, (69, 121)),
+            (1, 48, 48, 3, 2, (67, 119)), (1, 48, 48, 1, 2, (69, 121)),
+            (1, 32, 64, 3, 2, (35, 61)), (1, 48, 64, 3, 2, (37, 63)),
+            (1, 48, 64, 1, 2, (37, 63)), (4, 48, 48, 3, 1, (24, 40)),
+            (4, 32, 32, 1, 1, (68, 120)), (4, 32, 32, 3, 2, (69, 121)),
+            (1, 48, 128, 1, 1, (48, 80)), (1, 32, 64, 1, 2, (69, 121)),
+            (1, 64, 48, 3, 1, (21, 40)), (1, 128, 32, 1, 1, (17, 30)),
+            (1, 48, 32, 3, 1, (19, 33)), (1, 32, 128, 3, 2, (33, 59)),
+            (1, 3, 32, 3, 2, (1087, 1919)), (1, 3, 48, 3, 2, (1087, 1919)),
+            (1, 3, 32, 3, 2, (3, 5)), (1, 3, 48, 3, 2, (3, 5)),
+            (4, 3, 48, 3, 2, (135, 241))]
 
 
 @pytest.mark.parametrize("n,cin,cout,k,stride,hw", K4_EDGES)
@@ -664,12 +727,63 @@ def test_int8_conv_routes_match_plain_at_their_edges(cuda, n, cin, cout, k, stri
     elif mode == "c f32":
         kw["residual"] = torch.randn(n, ho, wo, cout, device=cuda, generator=g)
     route = k4.route_of(cin, cout, k, stride)
-    assert route == ("stem" if cin == 3 else "wgmma")
+    assert route in ("stem", "wgmma")  # the edges of the routes that the chains take
     before = dict(k4.int8_conv.routes)
     got = k4.int8_conv(x, wp, mult, bias, k, stride, **kw)
     ref = k4.int8_conv_plain(x, wp, mult, bias, k, stride, **kw)
     torch.cuda.synchronize()
     assert k4.int8_conv.routes == dict(before, **{route: before[route] + 1})
+    assert got.shape == ref.shape == (n, ho, wo, cout) and got.dtype == ref.dtype
+    assert torch.equal(got, ref), (mode, (got.float() - ref.float()).abs().max())
+
+
+def test_int8_conv_48_channel_taps_read_zeros_past_48(cuda):
+    """A 48-channel tap reaches the wgmma route's math as 64 bytes: TMA fills
+    bytes 48-63 of each pixel with zeros, never a neighbour pixel's bytes.
+    With weights whose padding (bytes 48-63 of each packed tap row) is not
+    zero, the kernel still equals the plain version, which drops it."""
+    from lfdtpu_torch.ops import int8_conv as k4
+
+    for k, stride, hw in ((3, 1, (35, 61)), (1, 1, (17, 40)), (1, 2, (37, 63)), (3, 2, (33, 47))):
+        x, wp, mult, bias = _k4_inputs(cuda, 48, 48, k, stride, hw, seed=k + stride)
+        pad = wp.reshape(48, k * k, 64)
+        assert not pad[:, :, 48:].any()
+        g = torch.Generator(device=cuda).manual_seed(3)
+        pad[:, :, 48:] = torch.randint(1, 128, (48, k * k, 16), device=cuda, generator=g,
+                                       dtype=torch.int8)
+        got = k4.int8_conv(x, wp, mult, bias, k, stride, out_scale=0.02)
+        ref = k4.int8_conv_plain(x, wp, mult, bias, k, stride, out_scale=0.02)
+        torch.cuda.synchronize()
+        assert k4.route_of(48, 48, k, stride) == "wgmma"
+        assert torch.equal(got, ref), (k, stride, (got.float() - ref.float()).abs().max())
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout,k,stride", _mma_shapes())
+@pytest.mark.parametrize("mode", ["a", "a relu", "b", "c int8", "c f32"])
+def test_int8_conv_mma_route_matches_plain(cuda, n, h, w, cin, cout, k, stride, mode):
+    """The mma.sync route, which no zoo chain reaches, at the synthetic
+    shapes chip_smoke.py holds it to: Cout 8, 16, 24 and 96, 5x5 kernels,
+    the flat layout, odd sizes; EXACT in every mode."""
+    from lfdtpu_torch.ops import int8_conv as k4
+
+    x, wp, mult, bias = _k4_inputs(cuda, cin, cout, k, stride, (h, w), seed=cout + k, batch=n)
+    ho, wo = k4.out_hw(h, w, k, stride)
+    kw = dict(relu="relu" in mode)
+    if mode != "b":
+        kw["out_scale"] = 0.02
+    g = torch.Generator(device=cuda).manual_seed(4)
+    if mode == "c int8":
+        kw["residual"] = torch.randint(-127, 128, (n, ho, wo, cout), device=cuda,
+                                       generator=g).to(torch.int8)
+        kw["residual_scale"] = 0.013
+    elif mode == "c f32":
+        kw["residual"] = torch.randn(n, ho, wo, cout, device=cuda, generator=g)
+    assert k4.route_of(cin, cout, k, stride) == "mma"
+    before = dict(k4.int8_conv.routes)
+    got = k4.int8_conv(x, wp, mult, bias, k, stride, **kw)
+    ref = k4.int8_conv_plain(x, wp, mult, bias, k, stride, **kw)
+    torch.cuda.synchronize()
+    assert k4.int8_conv.routes == dict(before, mma=before["mma"] + 1)
     assert got.shape == ref.shape == (n, ho, wo, cout) and got.dtype == ref.dtype
     assert torch.equal(got, ref), (mode, (got.float() - ref.float()).abs().max())
 

@@ -139,7 +139,7 @@ def test_int8_calibrator_cache_is_read_across_packages(tmp_path):
 
 # ------------------------------------------------------------ calibration
 
-@pytest.mark.parametrize("name", ["WIDERFACE-L", "TL-S"])
+@pytest.mark.parametrize("name", ["WIDERFACE-L", "TL-S", "WIDERFACE-XS"])
 def test_calibrate_module_amax_matches_lfdtpus(name):
     jdet, variables, tdet = jax_and_port(name)
     frames = [_frames(1, 2), _frames(2, 2)]
@@ -153,7 +153,7 @@ def test_calibrate_module_amax_matches_lfdtpus(name):
     assert len(Int8Chain(tdet.net, mapped).units) == planned_launches(tdet.net)
 
 
-@pytest.mark.parametrize("name", ["WIDERFACE-L", "TL-S"])
+@pytest.mark.parametrize("name", ["WIDERFACE-L", "TL-S", "WIDERFACE-XS"])
 def test_calibration_walk_is_the_nets_forward(name):
     """calibrate_module_amax reads the net along the chain's structure: that
     walk computes net(x) exactly, so it records what the net computes."""
@@ -296,7 +296,7 @@ def _compare_edges(jcap, tcap, tnet):
     return n8
 
 
-@pytest.mark.parametrize("name,n8", [("WIDERFACE-L", 17), ("TL-S", 18)])
+@pytest.mark.parametrize("name,n8", [("WIDERFACE-L", 17), ("TL-S", 18), ("WIDERFACE-XS", 20)])
 def test_chain_edges_match_lfdtpus(name, n8, monkeypatch):
     """One amax dict for both (lfdtpu's, mapped), every module edge captured:
     the stem units, the blocks, the neck and the head's merge units (int8 in
@@ -343,7 +343,7 @@ def _engines(name, head=None, **kw):
     return je, te
 
 
-@pytest.mark.parametrize("name", ["WIDERFACE-L", "TL-S"])
+@pytest.mark.parametrize("name", ["WIDERFACE-L", "TL-S", "WIDERFACE-XS"])
 def test_int8_engine_rows_match_lfdtpus(name):
     je, te = _engines(name, class_agnostic=name == "TL-S")
     imgs = _frames(9, 2)

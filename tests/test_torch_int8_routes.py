@@ -1,8 +1,8 @@
 # K4's routes (ops/int8_conv.py::route_of) over the int8 chains of the zoo,
 # read from each chain's static plan on the CPU: which hand-written kernel
 # takes each conv on the card. The wgmma and stem routes must take every
-# conv of WIDERFACE-L's and TL-L's chains; the plain mma.sync kernel keeps only
-# the widths the other two do not take.
+# conv of every zoo chain; the plain mma.sync kernel keeps only the shapes the
+# other two do not take, which no zoo chain has.
 import collections
 
 import pytest
@@ -30,29 +30,32 @@ def chain_routes(name):
     ("WIDERFACE-L", {"stem": 1, "wgmma": 31}), ("TL-L", {"stem": 1, "wgmma": 49}),
     ("WIDERFACE-S", {"stem": 1, "wgmma": 34}), ("WIDERFACE-M", {"stem": 1, "wgmma": 27}),
     ("TT100K-L", {"stem": 1, "wgmma": 33}), ("TT100K-S", {"stem": 1, "wgmma": 27}),
-    ("WIDERFACE-XS", {"mma": 6, "wgmma": 29}), ("TL-S", {"mma": 14, "wgmma": 26}),
+    ("WIDERFACE-XS", {"stem": 1, "wgmma": 34}), ("TL-S", {"stem": 1, "wgmma": 39}),
 ])
 def test_zoo_int8_chains_by_route(name, routes):
     got = collections.Counter()
     for (route, (cin, cout, k, stride)), n in chain_routes(name).items():
         got[route] += n
         if route == "stem":
-            assert (cin, cout, k, stride) == (3, 64, 3, 2)
-        elif route == "wgmma":
-            assert cin in (64, 128) and cout in (64, 128) and k in (1, 3) and stride in (1, 2)
-        else:  # the mma.sync kernel: widths the other routes do not take
-            assert cout in k4.COUTS and not (cin in (64, 128) and cout in (64, 128))
+            assert cin == 3 and cout in (32, 48, 64) and (k, stride) == (3, 2)
+        else:
+            assert route == "wgmma"  # no zoo conv on the mma.sync route
+            assert cin in (32, 48, 64, 128) and cout in (32, 48, 64, 128)
+            assert k in (1, 3) and stride in (1, 2)
     assert dict(got) == routes
 
 
 def test_route_of_takes_each_shape_once():
     assert k4.route_of(3, 64, 3, 2) == "stem"
-    assert k4.route_of(3, 48, 3, 2) == "mma"  # TL-S's 48-channel stem
-    assert k4.route_of(3, 64, 3, 1) == "mma"
-    assert {k4.route_of(ci, co, k, s) for ci in (64, 128) for co in (64, 128)
+    assert k4.route_of(3, 48, 3, 2) == "stem"  # TL-S's 48-channel stem
+    assert k4.route_of(3, 32, 3, 2) == "stem"  # WIDERFACE-XS's 32-channel stem
+    assert k4.route_of(3, 64, 3, 1) == k4.route_of(3, 16, 3, 2) == "mma"
+    widths = (32, 48, 64, 128)
+    assert {k4.route_of(ci, co, k, s) for ci in widths for co in widths
             for k in (1, 3) for s in (1, 2)} == {"wgmma"}
-    assert k4.route_of(64, 96, 3, 1) == k4.route_of(32, 64, 1, 2) == "mma"
-    assert k4.route_of(64, 64, 5, 1) == "mma"
+    assert k4.route_of(64, 96, 3, 1) == "mma"  # Cout 96
+    assert k4.route_of(64, 64, 5, 1) == "mma"  # a 5x5
+    assert k4.route_of(16, 32, 3, 1) == k4.route_of(32, 24, 1, 1) == "mma"
     assert k4.ROUTES == ("mma", "stem", "wgmma")  # the C entry point's numbers
     assert k4.int8_conv.routes.keys() == set(k4.ROUTES)
 
