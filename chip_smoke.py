@@ -242,17 +242,43 @@ the LFDv2 family, FCOS-R50-FPN, and the int8 engine. It checks them:
               1x1s: PyTorch has no CUDA int8 conv), ranked by gap, with the
               frame's sum of bounds, and the latency
               sweep of WIDERFACE-L in int8 at the script's four
-              resolutions.
+              resolutions;
+ 14. files    serving from engine files, WIDERFACE-L at 1088x1920. With the
+              counters zeroed: the bf16 engine with K1-K3 and the int8
+              engines with a float32 and a bf16 head built (captured), each
+              serving two frames under a profile (replays counted by kernel
+              name), saved with deploy.engine_io.save_engine (file size,
+              seconds), and loaded in a FRESH Python process on the card
+              (this script with --serve-file, the three at once: each
+              imports engine_io and no model code, recaptures, serves the
+              same two frames under a profile of that fresh capture and
+              writes its outputs). The
+              loaded outputs must be bit-equal to the built engine's, its
+              capture's launches and its replays by kernel name equal to the
+              built one's; the seconds to load and to capture printed. Then
+              the WIDERFACE predict_engine.py with engine_file (the first
+              run saves, the second loads: rows equal); run_stream over 64
+              uint8 numpy frames with the bf16 K1-K3 engine at depths 1, 2
+              and 4 (twice, 1 2 4 4 2 1), bit-equal to the synchronous loop,
+              frames/s and per-frame latency (p50, p99) beside the predict
+              API's host ms a frame in the same run, then with
+              output_dtype="f16" (within lfdtpu's 0.5 px / 2e-3 of the
+              float32 stream, its bytes to the host and frames/s); a
+              BucketedEngineSet over DEFAULT_BUCKETS (bf16 K1-K3), prewarmed
+              (seconds), routing three frames of different sizes, rows equal
+              to engines built directly at each bucket.
 
 The second-to-last line is a JSON object {"kernels": [...]} (K1-K4; each
 kernel's launches on its main path: WIDERFACE-L's bf16 engines for K1-K3,
 its int8 engines for K4; and on every path in
 launches_by_path: an engine path's launches at build and capture and by its
 replays, the FCOS path's eager launches and replayed null (it has no
-engine); K2's and K3's times at the new shapes, K1's at the FCOS shape and
-K4's at its other shapes of a WIDERFACE-L frame and its mma.sync route's
-synthetic shapes in other_shapes; K4's main-path
-launches by route in launches_by_route); a line before it holds K4's rows
+engine), the engine files' loaded path's launches at load and capture and
+by its replays, in the fresh processes; K2's and K3's times at the new
+shapes, K1's at the FCOS shape and K4's at its other shapes of a
+WIDERFACE-L frame and its mma.sync route's synthetic shapes in
+other_shapes; K4's main-path launches by route in launches_by_route); a
+line before it holds K4's rows
 of the WIDERFACE-XS and TL-S frames ({"k4_narrow_rows": ...});
 the last line is {"ok": true, "device": {...}}. Any failed check exits non-zero. Needs a
 CUDA device: without one it exits 1 and prints no result. No CUDA graph
@@ -260,6 +286,8 @@ is replayed under two torch.profiler sessions: profile_engine takes a
 freshly captured engine (see there).
 
 Run from the root of a checkout:  python3 chip_smoke.py
+(phase 14 runs it again as `python3 chip_smoke.py --serve-file FILE DIR` in
+its fresh processes)
 """
 
 from __future__ import annotations
@@ -399,6 +427,16 @@ K4_TIMED = (
     ("stem1 1x1 64->64", (64, 64, 1, 1, "a")),
     ("neck 1x1 64->128", (64, 128, 1, 1, "a")),
 )
+
+
+# serving from engine files (phase 14)
+FILE_VARIANTS = ("bf16_kernels", "int8", "int8_bf16")  # saved, then loaded afresh
+FILE_FRAMES = 2             # frames the built and the loaded engines serve
+STREAM_FRAMES = 64          # uint8 numpy frames run_stream serves per depth
+STREAM_DEPTHS = (1, 2, 4)
+PREDICT_API_FRAMES = 16     # frames timed through predict_for_single_image_with_engine
+F16_TOL = (0.5, 2e-3)       # lfdtpu's output_dtype="f16" tolerances: boxes px, scores
+BUCKET_FRAMES = ((450, 600), (700, 1200), (1000, 1800))  # one per bucket below 4K
 
 
 class SmokeFailure(RuntimeError):
@@ -3391,8 +3429,311 @@ def int8_phase(device, card, counters, tmp):
 
 # ------------------------------------------------------------------ main
 
-def main():
+# ------------------------------------------------------- engine files
+
+def serve_file(path, out_dir):
+    """A fresh process of phase 14 (`chip_smoke.py --serve-file FILE DIR`):
+    load one engine file with deploy.engine_io alone, as a serving process
+    does (no model code), capture it, serve the FILE_FRAMES frames of
+    DIR/../frames.npy under a profile of that fresh capture, and write the
+    outputs (DIR/loaded.npz) and what it saw (DIR/loaded.json)."""
     import torch
+
+    # PyTorch's own TF32 switches (cuDNN's on): the loaded engine runs
+    # under the file's, those of the process that built it
+    torch.zeros(1, device="cuda")  # the CUDA context's start is not the load's
+    t0 = time.perf_counter()
+    import torch.export.pt2_archive._package  # noqa: F401  (torch's deserializer)
+
+    from lfdtpu_torch.deploy.engine_io import load_engine
+    from lfdtpu_torch.deploy.runner import launch_counts, tf32_switches
+
+    import_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine = load_engine(path)
+    total_s = time.perf_counter() - t0
+    launches = launch_counts()  # at load and capture: the warmup calls and the capture
+    imgs = np.load(os.path.join(os.path.dirname(out_dir), "frames.npy"))
+    vhw = np.asarray([HW[0] - 8, HW[1]], np.float32)
+    prof, outs = profiled(lambda: engine(imgs[:1], vhw),
+                          lambda: [engine(f[None], vhw) for f in imgs])
+    replayed, window = kernel_launches_in(prof)
+    np.savez(os.path.join(out_dir, "loaded.npz"),
+             **{f"{k}{i}": v.cpu().numpy() for i, o in enumerate(outs) for k, v in o.items()})
+    with open(os.path.join(out_dir, "loaded.json"), "w") as f:
+        json.dump(dict(
+            captured=engine.captured, captured_launches=engine.captured_launches,
+            process_tf32=tf32_switches(), engine_tf32=engine.tf32, launches=launches, replayed=replayed, window=window, import_s=import_s,
+            load_s=total_s - engine.capture_seconds, capture_s=engine.capture_seconds,
+            modules=sorted(m for m in sys.modules
+                           if m.split(".")[0] in ("jax", "jaxlib", "flax", "lfdtpu")
+                           or m.startswith(("lfdtpu_torch.models", "lfdtpu_torch.zoo")))), f)
+    return 0
+
+
+def check_engine_files(det, device, card, counters, tmp, rng):
+    """Phase 14's first path: each FILE_VARIANTS engine built (counters
+    zeroed before), serving FILE_FRAMES frames under a profile, and saved;
+    then the three files loaded in three fresh processes at once
+    (serve_file). Returns (the built engines' launches at build and
+    capture, their replays, the loaded engines' at load and capture, their
+    replays)."""
+    from lfdtpu_torch.deploy.engine_io import read_meta, save_engine
+
+    imgs = frames(rng, FILE_FRAMES, HW)
+    np.save(os.path.join(tmp, "frames.npy"), imgs)
+    vhw = np.asarray([HW[0] - 8, HW[1]], np.float32)
+    zero_counts(counters)
+    built = {}
+    for variant in FILE_VARIANTS:
+        before = {c.__name__: c.launches for c in counters}
+        t0 = time.perf_counter()
+        engine = compile_engine(det, HW, device, variant)
+        build_s = time.perf_counter() - t0
+        at_build = {c.__name__: c.launches - before[c.__name__] for c in counters}
+        want = expected_launches(det, VARIANTS[variant])
+        check(engine.captured and engine.captured_launches == want,
+              f"the built {variant} engine did not capture {want}")
+        prof, outs = profiled(lambda: engine(frames(rng, 1, HW), vhw),
+                              lambda: [engine(f[None], vhw) for f in imgs])
+        replayed, _ = kernel_launches_in(prof)
+        check(replayed == {k: FILE_FRAMES * n for k, n in want.items()},
+              f"the built {variant} engine's replays launched {replayed}")
+        path = os.path.join(tmp, variant, "engine.lfde")
+        os.makedirs(os.path.dirname(path))
+        t0 = time.perf_counter()
+        save_engine(engine, path)
+        built[variant] = dict(
+            build_s=build_s, save_s=time.perf_counter() - t0, path=path,
+            outs=[{k: v.cpu().numpy() for k, v in o.items()} for o in outs],
+            launches=at_build, captured_launches=engine.captured_launches,
+            replayed=replayed)
+        del engine, outs
+    launches = {c.__name__: c.launches for c in counters}
+    t0 = time.perf_counter()
+    procs = {}
+    for v, b in built.items():
+        log = open(os.path.join(os.path.dirname(b["path"]), "log.txt"), "w")
+        procs[v] = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--serve-file",
+                                     b["path"], os.path.dirname(b["path"])],
+                                    stdout=log, stderr=subprocess.STDOUT)
+        log.close()
+    try:
+        for p in procs.values():
+            p.wait(timeout=600)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:  # no process outlives the run
+                p.kill()
+                p.wait()
+    print(f"{len(procs)} fresh processes, at once, each loading one file: "
+          f"{time.perf_counter() - t0:.1f} s")
+    built_replayed = dict.fromkeys(KERNEL_NAMES, 0)
+    loaded_launches = dict.fromkeys(KERNEL_NAMES, 0)
+    loaded_replayed = dict.fromkeys(KERNEL_NAMES, 0)
+    for variant, b in built.items():
+        d = os.path.dirname(b["path"])
+        with open(os.path.join(d, "log.txt")) as f:
+            log = f.read()
+        check(procs[variant].returncode == 0,
+              f"the fresh process serving {variant} failed:\n{log[-4000:]}")
+        with open(os.path.join(d, "loaded.json")) as f:
+            got = json.load(f)
+        loaded = np.load(os.path.join(d, "loaded.npz"))
+        same = all(np.array_equal(o[k], loaded[f"{k}{i}"])
+                   for i, o in enumerate(b["outs"]) for k in o)
+        counts = [int(o["count"][0]) for o in b["outs"]]
+        print(f"{variant}: built in {b['build_s']:.2f} s, saved in {b['save_s']:.2f} s to "
+              f"{os.path.getsize(b['path']) / 1e6:.3f} MB (program calls "
+              f"{read_meta(b['path'])['ops']}); its fresh process imported engine_io and "
+              f"torch's deserializer in {got['import_s']:.2f} s, loaded in "
+              f"{got['load_s']:.3f} s, captured in {got['capture_s']:.3f} s; model modules "
+              f"imported {got['modules']}; {FILE_FRAMES} frames ({counts} rows) bit-equal to "
+              f"the built engine={same}; launches at build / load (warmup calls and capture) "
+              f"{b['launches']} / {got['launches']}, per capture built "
+              f"{b['captured_launches']}, loaded {got['captured_launches']}; replays (profile "
+              f"of a fresh capture, by "
+              f"kernel name) built {b['replayed']}, loaded {got['replayed']} "
+              f"({got['window']}) [{card}]")
+        check(got["captured"] and got["modules"] == [],
+              f"{variant}: the loaded engine was not captured, or its process imported "
+              f"model code {got['modules']}")
+        # the fresh process keeps PyTorch's own switches (cuDNN TF32 on); the
+        # loaded engine ran under the file's, the building process's (off)
+        check(got["process_tf32"][1] and got["engine_tf32"] == [False, False],
+              f"{variant}: TF32 switches of the process {got['process_tf32']}, of the "
+              f"loaded engine {got['engine_tf32']}")
+        check(same and min(counts) > 0, f"{variant}: the loaded engine's outputs differ")
+        check(got["captured_launches"] == b["captured_launches"]
+              and got["launches"] == b["launches"],
+              f"{variant}: the loaded engine launched {got['launches']} at load, "
+              f"{got['captured_launches']} in its capture")
+        check(got["replayed"] == b["replayed"],
+              f"{variant}: the replays launched built {b['replayed']}, loaded {got['replayed']}")
+        for k in KERNEL_NAMES:
+            built_replayed[k] += b["replayed"][k]
+            loaded_launches[k] += got["launches"][k]
+            loaded_replayed[k] += got["replayed"][k]
+    return launches, built_replayed, loaded_launches, loaded_replayed
+
+
+def check_predict_engine_file(det, rng, tmp):
+    """The WIDERFACE predict_engine.py with engine_file: the first run
+    builds and saves, the second loads (no model built); rows equal."""
+    from lfdtpu_torch.execution import save_checkpoint
+
+    ckpt, jpg = os.path.join(tmp, "files.pth"), os.path.join(tmp, "files.jpg")
+    engine_file = os.path.join(tmp, "script.lfde")
+    save_checkpoint(ckpt, det.net)
+    write_frame(jpg, (HW[0] - 8, HW[1]), rng)
+    script = load_script("WIDERFACE_train", "predict_engine.py")
+    rows, seconds = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):  # the script prints every row
+            rows.append(script.predict_with_engine(
+                "L", ckpt, jpg, classification_threshold=SERVE_THRESHOLD,
+                out_path=os.path.join(tmp, "files_out.jpg"), engine_file=engine_file))
+        seconds.append(time.perf_counter() - t0)
+    print(f"predict_engine.py with engine_file: the first run built and saved "
+          f"({seconds[0]:.1f} s, {len(rows[0])} rows), the second loaded the file "
+          f"({seconds[1]:.1f} s, {len(rows[1])} rows); rows equal={rows[0] == rows[1]}")
+    check(len(rows[0]) > 0 and rows[0] == rows[1], "predict_engine.py: the loaded rows differ")
+
+
+def stream_pass(engine, reqs, depth):
+    """One run_stream pass: (fetched results, frames/s, per-frame latencies
+    in ms, submit to result on the host's clock)."""
+    import torch
+
+    from lfdtpu_torch.deploy import run_stream
+
+    submitted = []
+
+    def requests():
+        for r in reqs:
+            submitted.append(time.perf_counter())
+            yield r
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results, done = [], []
+    for res in run_stream(engine, requests(), depth=depth):
+        results.append(res)
+        done.append(time.perf_counter())
+    fps = len(reqs) / (time.perf_counter() - t0)
+    return results, fps, (np.asarray(done) - np.asarray(submitted)) * 1e3
+
+
+def check_streams(det, device, card, rng):
+    """run_stream at STREAM_DEPTHS (1 2 4 4 2 1) with the captured bf16 K1-K3
+    engine, bit-equal to the synchronous loop; the predict API's host ms a
+    frame beside it; then the output_dtype="f16" engine."""
+    import torch
+
+    engines = {"f32": compile_engine(det, HW, device, "bf16_kernels"),
+               "f16": compile_engine(det, HW, device, "bf16_kernels", output_dtype="f16")}
+    want = expected_launches(det, VARIANTS["bf16_kernels"])
+    check(all(e.captured and e.captured_launches == want for e in engines.values()),
+          f"a stream engine did not capture {want}")
+    vhw = np.asarray([HW[0] - 8, HW[1]], np.float32)
+    reqs = [(frames(rng, 1, HW), vhw) for _ in range(STREAM_FRAMES)]
+    fps = {}
+    for name, engine in engines.items():
+        sync = [{k: v.cpu().numpy() for k, v in engine(*r).items()} for r in reqs]
+        list(stream_pass(engine, reqs[:8], max(STREAM_DEPTHS))[0])  # warm the slots
+        for depth in STREAM_DEPTHS + STREAM_DEPTHS[::-1]:
+            got, f, lat = stream_pass(engine, reqs, depth)
+            same = len(got) == len(sync) and all(
+                all(np.array_equal(g[k], s[k]) for k in s) for g, s in zip(got, sync))
+            fps.setdefault(name, {}).setdefault(depth, []).append(f)
+            print(f"run_stream {name} outputs, depth {depth}: {f:.1f} frames/s, latency p50 "
+                  f"{np.percentile(lat, 50):.3f} ms p99 {np.percentile(lat, 99):.3f} ms, "
+                  f"staging slots {len(engine._graphs[torch.uint8].slots)}; bit-equal to the "
+                  f"synchronous loop={same} [{card}]")
+            check(same, f"run_stream at depth {depth} differs from the synchronous loop")
+        if name == "f32":
+            ref = sync
+        else:
+            n = [int(r["count"][0]) for r in ref]
+            close = all(int(g["count"][0]) == m and np.array_equal(g["labels"], r["labels"])
+                        and np.abs(g["boxes"].astype(np.float32) - r["boxes"]).max() <= F16_TOL[0]
+                        and np.abs(g["scores"].astype(np.float32) - r["scores"]).max()
+                        <= F16_TOL[1] for g, r, m in zip(sync, ref, n))
+            nbytes = {k: sum(v.nbytes for v in out.values()) for k, out in
+                      (("f32", ref[0]), ("f16", sync[0]))}
+            print(f"output_dtype f16 against float32 outputs over {STREAM_FRAMES} frames: "
+                  f"counts and labels equal, boxes within {F16_TOL[0]} px, scores within "
+                  f"{F16_TOL[1]}={close}; bytes to the host a frame {nbytes}")
+            check(close and min(n) > 0, "the f16 outputs are not within lfdtpu's tolerances")
+    imgs = [r[0][0, :HW[0] - 8] for r in reqs[:PREDICT_API_FRAMES]]
+    det.predict_for_single_image_with_engine(engines["f32"], imgs[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for img in imgs:
+        det.predict_for_single_image_with_engine(engines["f32"], img)
+    api_ms = (time.perf_counter() - t0) / len(imgs) * 1e3
+    best = {name: {d: max(v) for d, v in by.items()} for name, by in fps.items()}
+    print(f"predict API (predict_for_single_image_with_engine, 1080x1920 numpy frames): "
+          f"{api_ms:.3f} host ms a frame ({1e3 / api_ms:.1f} frames/s); run_stream's best "
+          f"frames/s by depth {best} [{card}]")
+    del engines
+
+
+def check_buckets(det, device, card, rng):
+    """BucketedEngineSet over DEFAULT_BUCKETS (bf16 K1-K3), prewarmed; three
+    frames routed; rows equal to engines built at each bucket."""
+    import torch
+
+    from lfdtpu_torch.deploy import BucketedEngineSet, make_device_preprocess
+    from lfdtpu_torch.deploy.buckets import DEFAULT_BUCKETS
+
+    kw = {k: v for k, v in VARIANTS["bf16_kernels"].items() if k != "precision"}
+    bset = BucketedEngineSet(det, DEFAULT_BUCKETS, precision="bf16", device=device,
+                             preprocess=make_device_preprocess(MEAN, STD), **kw)
+    t0 = time.perf_counter()
+    bset.prewarm()
+    torch.cuda.synchronize()
+    prewarm_s = time.perf_counter() - t0
+    want = expected_launches(det, VARIANTS["bf16_kernels"])
+    check(sorted(bset._engines) == list(bset.buckets)
+          and all(e.captured and e.captured_launches == want for e in bset._engines.values()),
+          "BucketedEngineSet.prewarm did not capture every bucket")
+    routed = []
+    for hw in BUCKET_FRAMES:
+        img = frames(rng, 1, hw)[0]
+        bucket = bset.bucket_for(*hw)
+        rows = bset.predict(img)
+        direct = compile_engine(det, bucket, device, "bf16_kernels")
+        ref = det.predict_for_single_image_with_engine(direct, img)
+        check(len(rows) > 0 and rows == ref, f"a {hw} frame's rows in bucket {bucket} differ "
+              "from the engine built at that bucket")
+        check_rows(det, rows, img)
+        routed.append((hw, bucket, len(rows)))
+        del direct
+    print(f"BucketedEngineSet over {bset.buckets} (bf16 K1-K3): prewarmed in {prewarm_s:.1f} s; "
+          f"frames routed (size, bucket, rows) {routed}, rows equal to engines built at each "
+          f"bucket [{card}]")
+    del bset
+    torch.cuda.empty_cache()
+
+
+def files_phase(det, device, card, counters, tmp):
+    """Phase 14: serving from engine files, streaming and buckets (see the
+    module's head). Returns the engine-file paths' launch counts."""
+    rng = np.random.RandomState(14)
+    counts = check_engine_files(det, device, card, counters, tmp, rng)
+    check_predict_engine_file(det, rng, tmp)
+    check_streams(det, device, card, rng)
+    check_buckets(det, device, card, rng)
+    return counts
+
+
+def main(argv=()):
+    import torch
+
+    if argv[:1] == ["--serve-file"]:
+        return serve_file(*argv[1:3])
 
     # a crash in native code prints the crashing thread's Python stack (the
     # loaders' idle worker threads would crowd it out of an all-threads dump)
@@ -3557,6 +3898,19 @@ def main():
     # K4's main-path launches by route (its int8 engines' build and capture)
     timings["int8_conv"]["launches_by_route"] = routes8
     print(f"int8 phase {time.time() - t0:.1f} s")
+    print(f"[14 files] {card}")
+    t0 = time.time()
+    tmp = tempfile.mkdtemp(prefix="lfd_files_")
+    try:
+        built_f, built_replayed_f, loaded_f, loaded_replayed_f = files_phase(
+            det, device, card, counters, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    paths["WIDERFACE-L engine files built and saved (bf16 K1-K3, int8 float32 and bf16 heads)"] = \
+        dict(build_and_capture=built_f, replayed=built_replayed_f)
+    paths["WIDERFACE-L engine files loaded in fresh processes"] = dict(
+        load_and_capture=loaded_f, replayed=loaded_replayed_f)
+    print(f"files phase {time.time() - t0:.1f} s")
 
     sources = {
         "nms_mask_sorted": ("lfdtpu_torch/csrc/nms.cu", "lfdtpu/ops/nms_pallas.py:49", err1),
@@ -3599,4 +3953,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -285,18 +285,22 @@ def folded_norm(conv, norm):
     return scale, b
 
 
-class Int8Unit:
+class Int8Unit(nn.Module):
     """One conv unit as a K4 launch with its constants folded:
     mult = (f32(s_in) * w_scale) * bn_scale (lfdtpu's left-to-right
-    `s_in * w_scale * nscale`), bias the folded bias."""
+    `s_in * w_scale * nscale`), bias the folded bias. The packed weight,
+    mult and bias are buffers, so an exported engine holds them."""
 
     def __init__(self, name, wpack, mult, bias, kernel_size, stride, relu, out_scale):
+        super().__init__()
         self.name = name
-        self.wpack, self.mult, self.bias = wpack, mult, bias
+        self.register_buffer("wpack", wpack)
+        self.register_buffer("mult", mult)
+        self.register_buffer("bias", bias)
         self.kernel_size, self.stride = kernel_size, stride
         self.relu, self.out_scale = relu, out_scale
 
-    def __call__(self, x8, residual=None, residual_scale=None):
+    def forward(self, x8, residual=None, residual_scale=None):
         return int8_conv(x8, self.wpack, self.mult, self.bias, self.kernel_size, self.stride,
                          self.relu, self.out_scale, residual, residual_scale)
 
@@ -386,13 +390,16 @@ class _FloatStep:
         return self.fn(_to_float(v, dtype))
 
 
-class Int8Chain:
+class Int8Chain(nn.Module):
     """The fused int8 chain of one net as a static plan. Call it with the
     preprocessed float NHWC frames; returns the dense (cls, reg) outputs in
     `dequant_dtype` (the float remainder's). `units` lists every K4 launch
-    of one call in order: the plan's count of launches per frame."""
+    of one call in order: the plan's count of launches per frame. The units
+    are its submodules (`kernels`), so their constants are its buffers; the
+    float remainder runs the net's own modules, which it does not hold."""
 
     def __init__(self, net, amax, dequant_dtype=torch.float32, device=None):
+        super().__init__()
         st = net_structure(net)
         device = torch.device(device) if device is not None else \
             next(net.parameters()).device
@@ -460,8 +467,9 @@ class Int8Chain:
                 steps.append((path[-1].name, _FloatStep(path[-1].run)))
                 paths.append(steps)
             self.head.append((merge, paths[0], paths[1], lv.scale))
+        self.kernels = nn.ModuleList(self.units)
 
-    def __call__(self, images_f32, capture=None):
+    def forward(self, images_f32, capture=None):
         """images_f32: preprocessed (B, H, W, 3) float frames. capture: a dict
         whose keys name units or blocks (the amax keys without #in/#out);
         each one's output is stored there, an (int8 NHWC, scale) pair or a

@@ -52,20 +52,23 @@ def eligible_faster_block(block):
     )
 
 
-class FusedFasterBlock:
+class FusedFasterBlock(nn.Module):
     """relu(bn(conv3x3(relu(bn(conv3x3(x)))) + x) as two K3 launches.
-    Called with the block's NCHW (channels_last) bf16 input."""
+    Called with the block's NCHW (channels_last) bf16 input. Its packed
+    weights and folded BN are buffers, so an exported engine holds them."""
 
     def __init__(self, w1, w2, sb1, sb2):
-        self.w1, self.w2 = w1, w2
-        self.sb1, self.sb2 = sb1, sb2
+        super().__init__()
+        for name, t in (("w1", w1), ("w2", w2), ("scale1", sb1[0]), ("bias1", sb1[1]),
+                        ("scale2", sb2[0]), ("bias2", sb2[1])):
+            self.register_buffer(name, t)
 
-    def __call__(self, x):
+    def forward(self, x):
         xh = x.permute(0, 2, 3, 1)  # NHWC view of a channels_last tensor
         if not xh.is_contiguous():
             xh = xh.contiguous()
-        y = pair_conv3x3(xh, self.w1, *self.sb1, relu=True)
-        out = pair_conv3x3(y, self.w2, *self.sb2, residual=xh, relu=True)
+        y = pair_conv3x3(xh, self.w1, self.scale1, self.bias1, relu=True)
+        out = pair_conv3x3(y, self.w2, self.scale2, self.bias2, residual=xh, relu=True)
         return out.permute(0, 3, 1, 2)
 
 
@@ -101,14 +104,24 @@ def prepack_stem(net, mean, std, bgr2rgb=False):
     return (w.contiguous(), mean.contiguous(), std.contiguous(), scale, bias)
 
 
-class FusedStem:
+_STEM_PACK = ("weight", "mean", "std", "scale", "bias")  # prepack_stem's tuple
+
+
+class FusedStem(nn.Module):
     """The stem's first ConvNormAct as one K2 launch on the raw uint8 frame
-    (NCHW channels_last view in, NCHW channels_last bf16 view out)."""
+    (NCHW channels_last view in, NCHW channels_last bf16 view out). Its
+    constants (prepack_stem's) are buffers."""
 
     def __init__(self, pack):
-        self.pack = pack
+        super().__init__()
+        for name, t in zip(_STEM_PACK, pack):
+            self.register_buffer(name, t)
 
-    def __call__(self, x):
+    @property
+    def pack(self):
+        return tuple(getattr(self, name) for name in _STEM_PACK)
+
+    def forward(self, x):
         xh = x.permute(0, 2, 3, 1)
         if not xh.is_contiguous():
             xh = xh.contiguous()

@@ -14,10 +14,15 @@
 # NCHW tensors ARE NHWC in memory, so `x.permute(0, 2, 3, 1)` hands a
 # channels_last activation to these wrappers without a copy.
 #
-# Each wrapper runs its plain PyTorch version for CPU tensors only; for CUDA
-# tensors it launches the kernel or raises.
+# Each kernel is a custom op (torch.library; `lfd::stem_conv`,
+# `lfd::pair_conv3x3`) whose CUDA kernel is the launch and whose CPU kernel is
+# the plain version, so an exported engine program calls it. Each wrapper
+# calls its op: the plain PyTorch version for CPU tensors only; for CUDA
+# tensors the kernel's launch, or an error.
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -42,10 +47,17 @@ def stem_conv_plain(frame, weight, mean, std, scale, bias, relu=True):
     return y.to(torch.bfloat16).contiguous()
 
 
-def stem_conv(frame, weight, mean, std, scale, bias, relu=True):
-    """Fused stem (K2); see stem_conv_plain for the contract."""
-    if not frame.is_cuda:
-        return stem_conv_plain(frame, weight, mean, std, scale, bias, relu)
+@torch.library.custom_op("lfd::stem_conv", mutates_args=(), device_types="cpu")
+def _stem_op(frame: torch.Tensor, weight: torch.Tensor, mean: torch.Tensor,
+             std: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+             relu: bool) -> torch.Tensor:
+    """K2's CPU kernel: the plain version."""
+    return stem_conv_plain(frame, weight, mean, std, scale, bias, relu)
+
+
+@_stem_op.register_kernel("cuda")
+def _stem_cuda(frame, weight, mean, std, scale, bias, relu):
+    """K2's CUDA kernel: the launch on the current stream, counted."""
     N, H, W, _ = frame.shape
     dev = frame.device
     kernel_lib.check_cuda("stem frame", frame, torch.uint8, (N, H, W, 3), dev)
@@ -63,6 +75,18 @@ def stem_conv(frame, weight, mean, std, scale, bias, relu=True):
         )
     stem_conv.launches += 1
     return out
+
+
+@_stem_op.register_fake
+def _stem_fake(frame, weight, mean, std, scale, bias, relu):
+    N, H, W, _ = frame.shape
+    return frame.new_empty((N, (H + 1) // 2, (W + 1) // 2, 64), dtype=torch.bfloat16)
+
+
+def stem_conv(frame, weight, mean, std, scale, bias, relu=True):
+    """Fused stem (K2), the op lfd::stem_conv; see stem_conv_plain for the
+    contract."""
+    return torch.ops.lfd.stem_conv(frame, weight, mean, std, scale, bias, bool(relu))
 
 
 stem_conv.launches = 0
@@ -86,10 +110,17 @@ def pair_conv3x3_plain(x, weight, scale, bias, residual=None, relu=True):
     return y.to(torch.bfloat16).contiguous()
 
 
-def pair_conv3x3(x, weight, scale, bias, residual=None, relu=True):
-    """3x3 conv with fused epilogue (K3); see pair_conv3x3_plain."""
-    if not x.is_cuda:
-        return pair_conv3x3_plain(x, weight, scale, bias, residual, relu)
+@torch.library.custom_op("lfd::pair_conv3x3", mutates_args=(), device_types="cpu")
+def _pair_op(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor,
+             bias: torch.Tensor, residual: Optional[torch.Tensor],
+             relu: bool) -> torch.Tensor:
+    """K3's CPU kernel: the plain version."""
+    return pair_conv3x3_plain(x, weight, scale, bias, residual, relu)
+
+
+@_pair_op.register_kernel("cuda")
+def _pair_cuda(x, weight, scale, bias, residual, relu):
+    """K3's CUDA kernel: the launch on the current stream, counted."""
     N, H, W, _ = x.shape
     dev = x.device
     kernel_lib.check_cuda("pair_conv x", x, torch.bfloat16, (N, H, W, 64), dev)
@@ -108,6 +139,17 @@ def pair_conv3x3(x, weight, scale, bias, residual=None, relu=True):
         )
     pair_conv3x3.launches += 1
     return out
+
+
+@_pair_op.register_fake
+def _pair_fake(x, weight, scale, bias, residual, relu):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+def pair_conv3x3(x, weight, scale, bias, residual=None, relu=True):
+    """3x3 conv with fused epilogue (K3), the op lfd::pair_conv3x3; see
+    pair_conv3x3_plain."""
+    return torch.ops.lfd.pair_conv3x3(x, weight, scale, bias, residual, bool(relu))
 
 
 pair_conv3x3.launches = 0

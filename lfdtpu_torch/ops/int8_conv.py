@@ -21,10 +21,15 @@
 # sizes, which no zoo chain has. All three compute the same function,
 # exactly.
 #
-# The wrapper runs the plain version for CPU tensors only; for CUDA tensors it
-# launches the kernel or raises.
+# K4 is the custom op `lfd::int8_conv` (torch.library): its CUDA kernel picks
+# the route from the shapes and launches it, its CPU kernel is the plain
+# version, so an exported engine program calls it and the route is chosen at
+# every call, not frozen by the export. The wrapper calls the op: the plain
+# version for CPU tensors only; for CUDA tensors the kernel, or an error.
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -148,18 +153,44 @@ def int8_conv_plain(x, wpack, mult, bias, kernel_size, stride, relu=False, out_s
     return _epilogue(acc, mult, bias, relu, out_scale, residual, residual_scale)
 
 
-def int8_conv(x, wpack, mult, bias, kernel_size, stride, relu=False, out_scale=None,
-              residual=None, residual_scale=None):
-    """int8 conv with its fused epilogue (K4); see int8_conv_plain."""
-    if not x.is_cuda:
-        return int8_conv_plain(x, wpack, mult, bias, kernel_size, stride, relu, out_scale,
-                               residual, residual_scale)
+@torch.library.custom_op("lfd::int8_conv", mutates_args=(), device_types="cpu")
+def _int8_op(x: torch.Tensor, wpack: torch.Tensor, mult: torch.Tensor, bias: torch.Tensor,
+             kernel_size: int, stride: int, relu: bool, out_scale: Optional[float],
+             residual: Optional[torch.Tensor], residual_scale: Optional[float]) -> torch.Tensor:
+    """K4's CPU kernel: the plain version."""
+    return int8_conv_plain(x, wpack, mult, bias, kernel_size, stride, relu, out_scale,
+                           residual, residual_scale)
+
+
+@_int8_op.register_kernel("cuda")
+def _int8_cuda(x, wpack, mult, bias, kernel_size, stride, relu, out_scale, residual,
+               residual_scale):
+    """K4's CUDA kernel: the route of this shape, launched and counted."""
     route = route_of(x.shape[-1], wpack.shape[0], kernel_size, stride)
     out = launch_on(route, x, wpack, mult, bias, kernel_size, stride, relu, out_scale, residual,
                     residual_scale)
     int8_conv.launches += 1
     int8_conv.routes[route] += 1
     return out
+
+
+@_int8_op.register_fake
+def _int8_fake(x, wpack, mult, bias, kernel_size, stride, relu, out_scale, residual,
+               residual_scale):
+    n, h, w, _ = x.shape
+    ho, wo = out_hw(h, w, kernel_size, stride)
+    return x.new_empty((n, ho, wo, wpack.shape[0]),
+                       dtype=torch.float32 if out_scale is None else torch.int8)
+
+
+def int8_conv(x, wpack, mult, bias, kernel_size, stride, relu=False, out_scale=None,
+              residual=None, residual_scale=None):
+    """int8 conv with its fused epilogue (K4), the op lfd::int8_conv; see
+    int8_conv_plain."""
+    return torch.ops.lfd.int8_conv(
+        x, wpack, mult, bias, int(kernel_size), int(stride), bool(relu),
+        None if out_scale is None else float(out_scale), residual,
+        None if residual_scale is None else float(residual_scale))
 
 
 def launch_on(route, x, wpack, mult, bias, kernel_size, stride, relu=False, out_scale=None,

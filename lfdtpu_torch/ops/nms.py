@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from .nms_kernel import nms_mask_sorted, nms_mask_sorted_plain
+from .nms_kernel import nms_mask_sorted, nms_mask_sorted_plain_op
 
 
 def nms_mask(boxes, scores, iou_thr, valid=None, use_kernel=True):
@@ -15,8 +15,9 @@ def nms_mask(boxes, scores, iou_thr, valid=None, use_kernel=True):
 
     boxes (B, K, 4) xyxy in any order, scores (B, K) for the greedy order,
     valid (B, K) bool: invalid rows never keep nor suppress.
-    use_kernel: route the mask through K1's wrapper (which launches the CUDA
-    kernel for CUDA tensors); False forces the plain version.
+    use_kernel: route the mask through K1's op (which launches the CUDA
+    kernel for CUDA tensors); False forces the plain version, as an op of
+    its own (lfd::nms_mask_sorted_plain) so that an engine exports.
     Returns (B, K) bool in the ORIGINAL order.
 
     Tie order follows `lfdtpu`: a stable ascending argsort, reversed, so among
@@ -28,7 +29,7 @@ def nms_mask(boxes, scores, iou_thr, valid=None, use_kernel=True):
     order = torch.argsort(ranked, dim=-1, stable=True).flip(-1)
     sboxes = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4)).contiguous()
     svalid = torch.gather(valid, 1, order).contiguous()
-    fn = nms_mask_sorted if use_kernel else nms_mask_sorted_plain
+    fn = nms_mask_sorted if use_kernel else nms_mask_sorted_plain_op
     keep_sorted = fn(sboxes, svalid, iou_thr)
     return torch.zeros_like(keep_sorted).scatter(1, order, keep_sorted)
 

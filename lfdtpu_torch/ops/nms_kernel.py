@@ -9,6 +9,14 @@
 #
 # The plain PyTorch version below is the fixpoint of the TPU kernel, batched.
 # Both must give the same mask bit for bit.
+#
+# The kernel is the custom op `lfd::nms_mask_sorted` (torch.library): its CUDA
+# kernel is the launch, its CPU kernel the plain version, so a program
+# exported with torch.export (deploy/engine_io.py) calls it like any aten op.
+# `lfd::nms_mask_sorted_plain` is the plain version as an op of its own, on
+# both devices: what an engine built with nms_use_kernel=False calls, since
+# its convergence loop asks the device whether the mask still changes, which
+# export cannot trace.
 
 from __future__ import annotations
 
@@ -91,14 +99,17 @@ def scratch_words(B, K):
     return B * (cb + cb % 2 + 32 * cb * (cb + 1))
 
 
-def nms_mask_sorted(boxes_sorted, valid_sorted, iou_thr):
-    """Greedy-NMS keep mask for boxes sorted by descending score, batched.
+@torch.library.custom_op("lfd::nms_mask_sorted", mutates_args=(), device_types="cpu")
+def _nms_op(boxes_sorted: torch.Tensor, valid_sorted: torch.Tensor,
+            iou_thr: float) -> torch.Tensor:
+    """K1's CPU kernel: the plain version (a copy: an op's output never
+    aliases its input)."""
+    return nms_mask_sorted_plain(boxes_sorted, valid_sorted, iou_thr).clone()
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel (and
-    raise on anything it does not take). boxes_sorted (B, K, 4) f32,
-    valid_sorted (B, K) bool -> (B, K) bool."""
-    if not boxes_sorted.is_cuda:
-        return nms_mask_sorted_plain(boxes_sorted, valid_sorted, iou_thr)
+
+@_nms_op.register_kernel("cuda")
+def _nms_cuda(boxes_sorted, valid_sorted, iou_thr):
+    """K1's CUDA kernel: the launch on the current stream, counted."""
     B, K = boxes_sorted.shape[:2]
     dev = boxes_sorted.device
     kernel_lib.check_cuda("nms boxes", boxes_sorted, torch.float32, (B, K, 4), dev)
@@ -113,6 +124,39 @@ def nms_mask_sorted(boxes_sorted, valid_sorted, iou_thr):
         )
     nms_mask_sorted.launches += 1
     return keep
+
+
+@_nms_op.register_fake
+def _nms_fake(boxes_sorted, valid_sorted, iou_thr):
+    return boxes_sorted.new_empty(boxes_sorted.shape[:2], dtype=torch.bool)
+
+
+@torch.library.custom_op("lfd::nms_mask_sorted_plain", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def _nms_plain_op(boxes_sorted: torch.Tensor, valid_sorted: torch.Tensor,
+                  iou_thr: float) -> torch.Tensor:
+    """The plain version on either device (K - 1 fixed rounds inside a
+    CUDA-graph capture)."""
+    return nms_mask_sorted_plain(boxes_sorted, valid_sorted, iou_thr).clone()
+
+
+_nms_plain_op.register_fake(_nms_fake)
+
+
+def nms_mask_sorted(boxes_sorted, valid_sorted, iou_thr):
+    """Greedy-NMS keep mask for boxes sorted by descending score, batched:
+    the op lfd::nms_mask_sorted.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel (and
+    raise on anything it does not take). boxes_sorted (B, K, 4) f32,
+    valid_sorted (B, K) bool -> (B, K) bool."""
+    return torch.ops.lfd.nms_mask_sorted(boxes_sorted, valid_sorted, float(iou_thr))
+
+
+def nms_mask_sorted_plain_op(boxes_sorted, valid_sorted, iou_thr):
+    """nms_mask_sorted_plain as the op lfd::nms_mask_sorted_plain, on either
+    device: nms_mask's route with use_kernel=False."""
+    return torch.ops.lfd.nms_mask_sorted_plain(boxes_sorted, valid_sorted, float(iou_thr))
 
 
 nms_mask_sorted.launches = 0

@@ -32,33 +32,41 @@ def predict_with_engine(
     engine_file=None,
 ):
     """precision "fp32", "bf16" or "int8" (the calibrated fused int8 chain on
-    fake-quantized weights, as lfdtpu's script builds it). engine_file
-    (lfdtpu: serialize the built engine on first use, load it on later runs)
-    is not ported yet."""
-    if engine_file is not None:
-        raise NotImplementedError("engine files (deploy/engine_io.py) are not ported yet "
-                                  "(ROADMAP queue 1, item 7)")
+    fake-quantized weights, as lfdtpu's script builds it). engine_file: when
+    set, the built engine is saved there on first use and loaded from it,
+    with no model built, on later runs (deploy/engine_io.py; the reference's
+    `predict_tensorrt.py` deserializes its `*.trt` file the same way)."""
     import cv2
 
     image = cv2.imread(image_path, cv2.IMREAD_UNCHANGED)
     h, w = image.shape[:2]
+    device = os.environ.get("LFD_DEVICE", "cuda")  # without a CUDA device cuda raises
 
-    det = zoo.trafficlight_lfd(model_size)
-    det.net.load_state_dict(load_checkpoint(param_file_path)["state_dict"], strict=True)
-    if precision == "int8":
-        det.net = quantize_net_int8(det.net)
-    padded = pad_to_multiple(image, max(det.point_strides))
-    preprocess = make_device_preprocess(
-        (0.485, 0.456, 0.406), (0.229, 0.224, 0.225), bgr2rgb=True
-    )
-    engine = compile_inference(
-        det, padded.shape[:2], precision=precision, preprocess=preprocess,
-        classification_threshold=classification_threshold,
-        nms_threshold=nms_threshold,
-        class_agnostic=True,
-        device=os.environ.get("LFD_DEVICE", "cuda"),  # without a CUDA device cuda raises
-    )
-    decoded = engine(padded[None], np.asarray([h, w], np.float32))
+    if engine_file is not None and os.path.exists(engine_file):
+        from lfdtpu_torch.deploy.engine_io import load_engine, predict_padded
+
+        decoded = predict_padded(load_engine(engine_file, device=device), image)
+    else:
+        det = zoo.trafficlight_lfd(model_size)
+        det.net.load_state_dict(load_checkpoint(param_file_path)["state_dict"], strict=True)
+        if precision == "int8":
+            det.net = quantize_net_int8(det.net)
+        padded = pad_to_multiple(image, max(det.point_strides))
+        preprocess = make_device_preprocess(
+            (0.485, 0.456, 0.406), (0.229, 0.224, 0.225), bgr2rgb=True
+        )
+        engine = compile_inference(
+            det, padded.shape[:2], precision=precision, preprocess=preprocess,
+            classification_threshold=classification_threshold,
+            nms_threshold=nms_threshold,
+            class_agnostic=True,
+            device=device,
+        )
+        if engine_file is not None:
+            from lfdtpu_torch.deploy.engine_io import save_engine
+
+            save_engine(engine, engine_file)
+        decoded = engine(padded[None], np.asarray([h, w], np.float32))
     results = detections_to_lists({k: v[0] for k, v in decoded.items()})
 
     for bbox in results:

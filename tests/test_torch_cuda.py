@@ -488,7 +488,7 @@ def test_a_capture_that_cannot_succeed_raises(cuda, monkeypatch):
     from lfdtpu_torch.deploy import compile as compile_mod
 
     det = _detector("S")
-    real = compile_mod.Engine._decode
+    real = compile_mod.EngineProgram.decode
     state = {"calls": 0}
 
     def syncing(self, cls_o, reg_o, vhw):
@@ -497,12 +497,12 @@ def test_a_capture_that_cannot_succeed_raises(cuda, monkeypatch):
             cls_o.sum().item()  # a host sync: not permitted in a capture
         return real(self, cls_o, reg_o, vhw)
 
-    monkeypatch.setattr(compile_mod.Engine, "_decode", syncing)
+    monkeypatch.setattr(compile_mod.EngineProgram, "decode", syncing)
     with pytest.raises(RuntimeError, match="capturing the engine"):
         _engine(det, "bf16_kernels")
     assert state["calls"] > 1  # the warmup calls ran eagerly before the capture
     assert _engine(det, "bf16_kernels", captured=False).captured is False  # eager on request
-    monkeypatch.setattr(compile_mod.Engine, "_decode", real)
+    monkeypatch.setattr(compile_mod.EngineProgram, "decode", real)
     engine = _engine(det, "bf16_kernels")
     f = _frames(11)
     assert engine.captured
@@ -864,3 +864,87 @@ def test_int8_engine_on_the_card_matches_the_cpu(cuda):
             n8 += 1
     assert n8 == 17  # stem 2, blocks 10, neck 5: the GroupNorm head runs in float
     assert max_rel(c_gpu, c_cpu) < 1e-3 and max_rel(r_gpu, r_cpu) < 1e-3
+
+
+# ------------------------------------------------- custom ops, engine files
+# K1-K4 as torch.library ops on CUDA tensors (their CUDA kernels are the
+# launches), and engines saved to a file and loaded on the card: captured as
+# the built engine is, bit-equal to it, from uint8 and float frames.
+
+def test_custom_ops_on_the_card(cuda):
+    """opcheck on CUDA tensors: schema, fake tensor and dispatch to the
+    kernels, each op's result equal to its wrapper's; the launch counters
+    tick in the CUDA kernels."""
+    g = torch.Generator().manual_seed(0)
+    boxes = torch.rand(2, 200, 2, generator=g) * 100
+    boxes = torch.cat([boxes, boxes + torch.rand(2, 200, 2, generator=g) * 30 + 1], -1)
+    k1 = (boxes.to(cuda), (torch.rand(2, 200, generator=g) > 0.2).to(cuda), 0.4)
+    frame = torch.randint(0, 256, (1, 64, 96, 3), dtype=torch.uint8, generator=g)
+    k2 = (frame.to(cuda), torch.randn(3, 3, 3, 64, generator=g).to(cuda),
+          torch.tensor([120.0, 110.0, 100.0], device=cuda),
+          torch.tensor([60.0, 55.0, 70.0], device=cuda),
+          (torch.rand(64, generator=g) + 0.5).to(cuda), torch.randn(64, generator=g).to(cuda),
+          True)
+    x = torch.randn(1, 32, 48, 64, generator=g).to(cuda, torch.bfloat16)
+    k3 = (x, (torch.randn(3, 3, 64, 64, generator=g) * 0.05).to(cuda, torch.bfloat16),
+          (torch.rand(64, generator=g) + 0.5).to(cuda), torch.randn(64, generator=g).to(cuda),
+          x.clone(), True)
+    from lfdtpu_torch.ops import int8_conv as k4
+
+    q, _ = k4.quantize_weights(torch.randn(64, 64, 3, 3, generator=g))
+    k4_args = (torch.randint(-127, 128, (1, 32, 48, 64), dtype=torch.int8,
+                             generator=g).to(cuda), k4.pack_int8_weight(q).to(cuda),
+               (torch.rand(64, generator=g) * 1e-3).to(cuda), torch.randn(64, generator=g).to(cuda),
+               3, 1, True, 0.05, None, None)
+    for op, args, counter in ((torch.ops.lfd.nms_mask_sorted, k1, nms_kernel.nms_mask_sorted),
+                              (torch.ops.lfd.stem_conv, k2, conv_kernels.stem_conv),
+                              (torch.ops.lfd.pair_conv3x3, k3, conv_kernels.pair_conv3x3),
+                              (torch.ops.lfd.int8_conv, k4_args, k4.int8_conv)):
+        torch.library.opcheck(op.default, args)
+        before = counter.launches
+        out = op(*args)
+        assert counter.launches == before + 1
+        assert torch.equal(out, counter(*args))
+    ref = nms_kernel.nms_mask_sorted_plain(*k1)
+    assert torch.equal(torch.ops.lfd.nms_mask_sorted_plain(*k1), ref)
+    assert torch.equal(torch.ops.lfd.nms_mask_sorted(*k1), ref)
+
+
+@pytest.mark.parametrize("variant", ["bf16_kernels", "int8"])
+def test_loaded_engine_equals_the_built_one_on_the_card(cuda, variant, tmp_path,
+                                                        monkeypatch):
+    """An engine file loaded on the card is captured (one graph per frame
+    dtype), launches what the built engine's capture launches, and returns
+    its outputs bit for bit from uint8 frames, and from float frames where
+    the engine takes them (the K2 engine refuses them), though the loading
+    process has cuDNN's TF32 on: the engine runs under the switches it was
+    built with (ROADMAP F18; the int8 engine's head is float32)."""
+    from lfdtpu_torch.deploy import (compile_inference, load_engine, make_device_preprocess,
+                                     save_engine)
+
+    det = _detector("S")
+    if variant == "int8":
+        built = compile_inference(det, ENGINE_HW, "int8", batch_size=2,
+                                  preprocess=make_device_preprocess((0.5,) * 3, (0.5,) * 3),
+                                  classification_threshold=1e-4)
+    else:
+        built = _engine(det, variant, classification_threshold=1e-4)
+    path = str(tmp_path / "e.lfde")
+    save_engine(built, path)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)  # PyTorch's default
+    loaded = load_engine(path)
+    assert built.tf32 == loaded.tf32 == (False, False)
+    assert loaded.captured and loaded.captured_launches == built.captured_launches
+    vhw = np.asarray([[256, 320], [200, 311]], np.float32)
+    u = _frames(21)
+    assert int(built(u, vhw)["count"].sum()) > 0
+    assert _same(loaded(u, vhw), built(u, vhw))
+    assert _same(loaded(torch.as_tensor(u, device=cuda), torch.as_tensor(vhw, device=cuda)),
+                 built(u, vhw))
+    f = u.astype(np.float32) / 2
+    if variant == "bf16_kernels":
+        with pytest.raises(ValueError, match="uint8"):
+            loaded(f, vhw)
+    else:
+        assert _same(loaded(f, vhw), built(f, vhw))
+        assert set(loaded._graphs) == {torch.uint8, torch.float32}

@@ -5,7 +5,10 @@
 # neither jax, flax, lfdtpu nor cv2,
 # and the kernel modules import and run their plain versions on a machine
 # with no nvcc and no GPU, building nothing. cv2 is imported only inside the
-# functions that need it (JPEG coding, image paths, the pack checker).
+# functions that need it (JPEG coding, image paths, the pack checker). The
+# serving layer (engine_io, serving, buckets) imports neither jax nor lfdtpu,
+# and a process that imports only engine_io (and serving) to serve an engine
+# file imports none of the port's model code (lfdtpu_torch.models, .zoo).
 import json
 import os
 import re
@@ -26,7 +29,8 @@ import lfdtpu_torch
 from lfdtpu_torch import zoo
 from lfdtpu_torch.data import (augmentation, dataset, dataset_samplers, device_aug, jpeg,
                                loader, pack, parsers, region_samplers, resize, sample)
-from lfdtpu_torch.deploy import compile, int8_net, kernel_net, latency, quantize
+from lfdtpu_torch.deploy import (buckets, compile, engine_io, int8_net, kernel_net, latency,
+                                 quantize, runner, serving)
 from lfdtpu_torch.evaluation import base, coco_eval, tt100k, widerface
 from lfdtpu_torch.execution import (executor, hooks, jax_convert, optim, schedules,
                                     torch_convert, utils)
@@ -125,3 +129,23 @@ def test_no_source_file_imports_cv2_at_module_level():
                 with open(os.path.join(dirpath, f)) as fh:
                     offenders += [(f, m.group(0)) for m in bad.finditer(fh.read())]
     assert not offenders, offenders
+
+
+_SERVE_PROBE = r"""
+import json, sys
+import torch
+torch.set_num_threads(1)
+from lfdtpu_torch.deploy import engine_io, serving
+print(json.dumps(sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "flax", "lfdtpu", "cv2")
+                        or m.startswith(("lfdtpu_torch.models", "lfdtpu_torch.zoo")))))
+"""
+
+
+def test_engine_io_imports_no_model_code():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    proc = subprocess.run([sys.executable, "-c", _SERVE_PROBE], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []

@@ -243,8 +243,20 @@ def test_tt100k_predict_scripts_match_lfdtpus(tmp_path, checkpoints, capsys):
                                    out_path=str(tmp_path / "te.jpg"))
     _assert_rows(eng, eng_ref)
     assert os.path.getsize(tmp_path / "te.jpg") > 0
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        port.predict_with_engine("S", tpath, image, engine_file=str(tmp_path / "e.lfde"))
+    # engine files: the first run builds and saves the engine, the second
+    # loads it (no model built); the port's loaded rows are its built rows
+    # and match lfdtpu's, which runs the same flow
+    files = {"jax": str(tmp_path / "e_jax.lfde"), "port": str(tmp_path / "e.lfde")}
+    jax_script = _load(JAX[TT], "predict_engine.py")
+    ref_runs = [jax_script.predict_with_engine(
+        "S", jpath, image, precision="fp32", classification_threshold=THR[TT],
+        out_path=str(tmp_path / "jf.jpg"), engine_file=files["jax"]) for _ in range(2)]
+    runs = [port.predict_with_engine(
+        "S", tpath, image, precision="fp32", classification_threshold=THR[TT],
+        out_path=str(tmp_path / "tf.jpg"), engine_file=files["port"]) for _ in range(2)]
+    assert os.path.getsize(files["port"]) > 0
+    assert runs[1] == runs[0] == eng
+    _assert_rows(runs[1], ref_runs[1])
     # int8: both scripts fake-quantize the weights and calibrate on lfdtpu's
     # noise frames. The scales differ by the two float32 nets' rounding (rel
     # 1e-6) and the folded BN scales by XLA's rsqrt (1 ulp): one requant moved

@@ -118,8 +118,20 @@ def test_predict_engine_script_matches_lfdtpus(tmp_path, checkpoints):
     bf16 = port.predict_with_engine("XS", tpath, image, classification_threshold=0.05,
                                     out_path=str(tmp_path / "b.jpg"))  # the default precision
     assert abs(len(bf16) - len(ref)) <= max(2, len(ref) // 10)
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        port.predict_with_engine("XS", tpath, image, engine_file=str(tmp_path / "e.lfde"))
+    # engine files: the first run builds and saves the engine, the second
+    # loads it (no model built); the port's loaded rows are its built rows
+    # and match lfdtpu's, which runs the same flow
+    files = {"jax": str(tmp_path / "e_jax.lfde"), "port": str(tmp_path / "e.lfde")}
+    jax_script = _load(JAX_DIR, "predict_engine.py")
+    ref_runs = [jax_script.predict_with_engine(
+        "XS", jpath, image, precision="fp32", classification_threshold=0.05,
+        out_path=str(tmp_path / "jf.jpg"), engine_file=files["jax"]) for _ in range(2)]
+    runs = [port.predict_with_engine(
+        "XS", tpath, image, precision="fp32", classification_threshold=0.05,
+        out_path=str(tmp_path / "tf.jpg"), engine_file=files["port"]) for _ in range(2)]
+    assert os.path.getsize(files["port"]) > 0
+    assert runs[1] == runs[0] == got
+    _assert_rows(runs[1], ref_runs[1])
     # int8: both scripts fake-quantize the weights and calibrate on lfdtpu's
     # noise frames (the scales differ by the two float32 nets' rounding)
     int8_ref = _load(JAX_DIR, "predict_engine.py").predict_with_engine(
