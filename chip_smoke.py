@@ -7,7 +7,8 @@ head Scales, so the BN folding is exercised), captured into a CUDA graph as
 a user gets it on the card, the WIDERFACE-L training step, the training
 entry point with its val loop, and the evaluation script; then the TT100K
 and TrafficLight workloads (serving, training entry points, evaluation) and
-the LFDv2 family, FCOS-R50-FPN, and the int8 engine. It checks them:
+the LFDv2 family, FCOS-R50-FPN, the int8 engine, engine files, and
+learning on synthetic scenes. It checks them:
 
   1. card     the GPU's name and power limit (nvidia-smi);
   2. build    the hand-written kernels from lfdtpu_torch/csrc/*.cu (nvcc);
@@ -266,7 +267,32 @@ the LFDv2 family, FCOS-R50-FPN, and the int8 engine. It checks them:
               float32 stream, its bytes to the host and frames/s); a
               BucketedEngineSet over DEFAULT_BUCKETS (bf16 K1-K3), prewarmed
               (seconds), routing three frames of different sizes, rows equal
-              to engines built directly at each bucket.
+              to engines built directly at each bucket;
+ 15. learning the port learns (`chip_smoke.learning_phase`).
+              multiclass_nms on CUDA tensors (K1) against its plain path
+              on seeded candidates with ties, invalid rows and more
+              survivors than max_num: keep, order and count equal. The
+              WIDERFACE-L train step with remat=True against the plain one
+              at batch 64, crop 480 (fp32 and bf16, A B B A: ms/step, peak
+              GiB; after one step from the same weights the BN statistics
+              equal, the params within TRAIN_TOL). Then lfdtpu's synthetic
+              runs and bars (tests/test_synthetic_e2e.py) through the
+              port's lfdtpu_torch/tools/synthetic_e2e.py on the card: lfd
+              multiscale (80 epochs, mAP_50 > 0.42, every range's recall
+              >= 0.6), lfdv2 (60, > 0.5), lfdv2q (80, lr 0.025, clip the
+              whole run, > 0.5), fcos (60, > 0.5), lfd with its fp32 and
+              int8 engines (60, > 0.5, int8 >= fp32 - 0.05); then
+              WIDERFACE-XS and -L as tools/int8_quality_cell.py trains them
+              (single class, 60 epochs, > 0.2), each scored through the
+              captured fp32, bf16 (K1, K3, and K2 where the stem takes it)
+              and int8 engines with a float32 and a bf16 head, fp32 > 0.2
+              and each other engine >= fp32 - 0.05. Each run is a path
+              (counters zeroed before it, read after; the engines' replays
+              of the 16 val frames counted from profiles, 16 x each
+              capture's launches); every kernel its engines launch is held
+              to its plain version on two val frames (K1 and K4 exact, K2
+              and K3 within K2_TOL / K3_TOL), and the kernels are timed at
+              the trained WIDERFACE-L engines' 128x128 shapes.
 
 The second-to-last line is a JSON object {"kernels": [...]} (K1-K4; each
 kernel's launches on its main path: WIDERFACE-L's bf16 engines for K1-K3,
@@ -274,10 +300,12 @@ its int8 engines for K4; and on every path in
 launches_by_path: an engine path's launches at build and capture and by its
 replays, the FCOS path's eager launches and replayed null (it has no
 engine), the engine files' loaded path's launches at load and capture and
-by its replays, in the fresh processes; K2's and K3's times at the new
-shapes, K1's at the FCOS shape and K4's at its other shapes of a
-WIDERFACE-L frame and its mma.sync route's synthetic shapes in
-other_shapes; K4's main-path launches by route in launches_by_route); a
+by its replays, in the fresh processes, phase 15's paths (multiclass_nms,
+and each synthetic run's val loop and engines: eager_and_capture and
+replayed); K2's and K3's times at the new shapes, K1's at the FCOS shape,
+K4's at its other shapes of a WIDERFACE-L frame and its mma.sync route's
+synthetic shapes, and each kernel's at the trained 128x128 engines' shapes
+in other_shapes; K4's main-path launches by route in launches_by_route); a
 line before it holds K4's rows
 of the WIDERFACE-XS and TL-S frames ({"k4_narrow_rows": ...});
 the last line is {"ok": true, "device": {...}}. Any failed check exits non-zero. Needs a
@@ -295,6 +323,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import faulthandler
+import importlib
 import importlib.util
 import io
 import json
@@ -437,6 +466,27 @@ STREAM_DEPTHS = (1, 2, 4)
 PREDICT_API_FRAMES = 16     # frames timed through predict_for_single_image_with_engine
 F16_TOL = (0.5, 2e-3)       # lfdtpu's output_dtype="f16" tolerances: boxes px, scores
 BUCKET_FRAMES = ((450, 600), (700, 1200), (1000, 1800))  # one per bucket below 4K
+# learning (phase 15): lfdtpu's synthetic runs and bars (tests/test_synthetic_e2e.py)
+LEARNING_RUNS = (
+    ("lfd multiscale", dict(family="lfd", multiscale=True, epochs=80, threshold=0.42,
+                            recall_threshold=0.6)),
+    ("lfdv2", dict(family="lfdv2", epochs=60, threshold=0.5)),
+    ("lfdv2q", dict(family="lfdv2q", epochs=80, threshold=0.5, base_lr=0.025,
+                    clip_whole_run=True)),
+    ("fcos", dict(family="fcos", epochs=60, threshold=0.5)),
+    ("lfd engines", dict(family="lfd", epochs=60, threshold=0.5, engine_quality=True)),
+)
+# the zoo models tools/int8_quality_cell.py trains, and lfdtpu's int8 bound
+# applied to each engine faster than fp32
+QUALITY_MODELS, QUALITY_EPOCHS = ("WIDERFACE-XS", "WIDERFACE-L"), 60
+ENGINE_DELTA = 0.05
+MCNMS_SHAPE, MCNMS_MAX, MCNMS_SCORE_THR, MCNMS_IOU = (4, 1000), 100, 0.05, 0.5
+# the trained WIDERFACE-L engines' shapes timed (time_learned_shapes): K3
+# at its levels of a 128x128 frame, (H, W), residual; K4's plain version and
+# yardstick at its stage-0 3x3
+LEARNED_K3 = (((32, 32), True), ((32, 32), False), ((8, 8), True))
+LEARNED_K4 = (("stage 0 3x3 64->64 at 32x32, mode a", (64, 64, 3, 1, "a")),)
+REMAT_STEPS, REMAT_WARMUP = 10, 2
 
 
 class SmokeFailure(RuntimeError):
@@ -1087,10 +1137,10 @@ def init_weights(seed, name="WIDERFACE-L"):
     return det.net.state_dict()
 
 
-def make_trainer(device, hw, weights, mixed_precision=False, factory=None):
+def make_trainer(device, hw, weights, mixed_precision=False, factory=None, remat=False):
     """A fresh WIDERFACE-L (or factory()) with `weights`, its TrainState on
     `device` and the train step: SGD momentum 0.9, wd 1e-4, clip 10, uint8
-    frames through the (0.5, 0.5) device preprocess."""
+    frames through the (0.5, 0.5) device preprocess, remat as asked."""
     from lfdtpu_torch import zoo
     from lfdtpu_torch.deploy import make_device_preprocess
     from lfdtpu_torch.execution import SGD
@@ -1101,7 +1151,7 @@ def make_trainer(device, hw, weights, mixed_precision=False, factory=None):
     state = create_train_state(det, SGD(momentum=0.9, weight_decay=1e-4), device=device)
     step = make_train_step(det, state.optimizer, hw, clip_max_norm=10.0,
                            preprocess=make_device_preprocess(MEAN, STD),
-                           mixed_precision=mixed_precision)
+                           mixed_precision=mixed_precision, remat=remat)
     return det, step
 
 
@@ -2397,19 +2447,25 @@ def k1_inputs(fn):
     capture calls it on the host, so this reads a captured engine too; there
     the tensors are the graph's buffers, and only their shapes mean
     anything)."""
-    from lfdtpu_torch.ops import nms
+    # the module (the package's attribute `nms` is the host function)
+    out, calls = recorded_calls(importlib.import_module("lfdtpu_torch.ops.nms"),
+                                "nms_mask_sorted", fn)
+    return out, [args for args, _ in calls]
 
-    calls, wrapper = [], nms.nms_mask_sorted
 
-    def recorded(boxes_sorted, valid_sorted, iou_thr):
-        calls.append((boxes_sorted, valid_sorted, iou_thr))
-        return wrapper(boxes_sorted, valid_sorted, iou_thr)
+def recorded_calls(module, name, fn):
+    """(fn(), [(args, kwargs) of each call of module.<name> while fn ran])."""
+    calls, wrapper = [], getattr(module, name)
 
-    nms.nms_mask_sorted = recorded
+    def recorded(*args, **kwargs):
+        calls.append((args, kwargs))
+        return wrapper(*args, **kwargs)
+
+    setattr(module, name, recorded)
     try:
         return fn(), calls
     finally:
-        nms.nms_mask_sorted = wrapper
+        setattr(module, name, wrapper)
 
 
 def lfdv2_detector(cls, device, seed=31, **kw):
@@ -3040,8 +3096,8 @@ def time_k4(calls, card, device, timed=K4_TIMED, on_mma=False, label="one frame"
             row["what"] = picks[shape[3:]]
             row["plain_ms"] = time_ms(lambda: k4.int8_conv_plain(**call), iters=5, warmup=1)
             row["yardstick_ms"], row["yardstick_call"] = k4_yardstick_ms(call, card)
-        if shape[5] == 1 and shape[6] == 1:
-            row["int_mm_ms"] = k4_int_mm_ms(call)
+        if shape[5] == 1 and shape[6] == 1 and shape[0] * shape[1] * shape[2] > 16:
+            row["int_mm_ms"] = k4_int_mm_ms(call)  # (torch._int_mm takes more than 16 rows)
         if on_mma:
             row["first_route"] = first_route(shape)
             row["mma_ms"] = graph_ms([lambda: k4.launch_on("mma", **call)])
@@ -3729,6 +3785,315 @@ def files_phase(det, device, card, counters, tmp):
     return counts
 
 
+# ------------------------------------------------------------ learning
+
+def check_multiclass_nms(device, counters):
+    """multiclass_nms on CUDA tensors (K1) against its plain path
+    (use_kernel=False) on MCNMS_SHAPE seeded candidates offset by class,
+    scores tied in twentieths, invalid rows, and more NMS survivors than
+    max_num in every image: keep, the order over the survivors and count
+    equal. The kernel call runs with the counters zeroed; returns (its
+    launches, K1's max|err| as 0/1)."""
+    import torch
+
+    from lfdtpu_torch.ops.nms import multiclass_nms, nms_mask
+
+    rng = np.random.RandomState(15)
+    B, K = MCNMS_SHAPE
+    xy = rng.rand(B, K, 2) * 12 * K ** 0.5
+    boxes = np.concatenate([xy, xy + rng.rand(B, K, 2) * 60 + 1], -1)
+    labels = rng.randint(0, 3, (B, K))
+    boxes += (labels * (boxes.max() + 1.0))[..., None]
+    boxes = torch.as_tensor(boxes, dtype=torch.float32, device=device)
+    scores = torch.as_tensor(rng.randint(0, 21, (B, K)) / 20.0, dtype=torch.float32,
+                             device=device)
+    valid = torch.as_tensor(rng.rand(B, K) > 0.1, device=device)
+    args = (boxes, scores, MCNMS_SCORE_THR, MCNMS_IOU)
+    zero_counts(counters)
+    keep, order, count = multiclass_nms(*args, max_num=MCNMS_MAX, valid=valid)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    pkeep, porder, pcount = multiclass_nms(*args, max_num=MCNMS_MAX, valid=valid,
+                                           use_kernel=False)
+    survivors = nms_mask(boxes, scores, MCNMS_IOU, valid=valid & (scores > MCNMS_SCORE_THR),
+                         use_kernel=False).sum(-1)
+    same = torch.equal(keep, pkeep) and torch.equal(count, pcount) and all(
+        torch.equal(order[b, :n], porder[b, :n]) for b, n in enumerate(survivors.tolist()))
+    print(f"multiclass_nms (B, K) = {MCNMS_SHAPE}, max_num {MCNMS_MAX}: survivors "
+          f"{survivors.tolist()}, count {count.tolist()}; K1 against the plain path: keep, "
+          f"order over the survivors and count equal={same}; launches {launches}")
+    check(bool((survivors > MCNMS_MAX).all()), "multiclass_nms: an image without more "
+          "survivors than max_num")
+    check(launches["nms_mask_sorted"] == 1, "multiclass_nms did not launch K1 once")
+    check(same, "multiclass_nms with K1 differs from its plain path")
+    return launches, 0.0
+
+
+def remat_step(device, card):
+    """WIDERFACE-L's train step at phase 6's batch (64, crop 480, Nmax 200)
+    with and without remat, fp32 and bf16 autocast, in A B B A order from
+    the same weights and batch: ms/step (CUDA events over REMAT_STEPS after
+    REMAT_WARMUP) and peak GiB allocated. After each run's first step the
+    remat net's BN running statistics equal the plain net's bit for bit (a
+    second update in the recomputation would move running_mean and
+    running_var by a tenth of the batch's statistics and count the batch
+    twice) and its params agree within TRAIN_TOL."""
+    import torch
+
+    weights = init_weights(11)
+    batch = [torch.as_tensor(a, device=device) for a in train_batch(
+        np.random.RandomState(11), TRAIN_BATCH, TRAIN_HW, TRAIN_NMAX)]
+    sched = train_schedule()
+    for mp in (False, True):
+        runs, first = {False: [], True: []}, {}
+        for remat in (False, True, True, False):
+            det, step = make_trainer(device, TRAIN_HW, weights, mixed_precision=mp,
+                                     remat=remat)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            step(*batch, sched(0, 0), True)
+            first.setdefault(remat, {k: v.clone() for k, v in det.net.state_dict().items()})
+            for it in range(1, REMAT_WARMUP):
+                step(*batch, sched(0, it), True)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for it in range(REMAT_WARMUP, REMAT_WARMUP + REMAT_STEPS):
+                loss = step(*batch, sched(0, it), True)["loss"]
+            end.record()
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(loss)), f"remat={remat}: a non-finite loss")
+            runs[remat].append((start.elapsed_time(end) / REMAT_STEPS,
+                                torch.cuda.max_memory_allocated() / 2 ** 30))
+            del det, step
+            torch.cuda.empty_cache()
+        plain, remat = first[False], first[True]
+        stats = [k for k in plain if "running" in k or "num_batches_tracked" in k]
+        bit_equal = all(torch.equal(plain[k], remat[k]) for k in stats)
+        stat_err = max(rel_err(remat[k], plain[k]) for k in stats if "running" in k)
+        tracked = {int(plain[k]) for k in stats if "num_batches_tracked" in k} | \
+            {int(remat[k]) for k in stats if "num_batches_tracked" in k}
+        param_err = max(rel_err(remat[k], plain[k]) for k in plain
+                        if k not in stats and plain[k].is_floating_point())
+        name = "bf16" if mp else "fp32"
+        print(f"train {name} WIDERFACE-L batch {TRAIN_BATCH} {TRAIN_HW[0]}x{TRAIN_HW[1]}, "
+              "A B B A: " + "; ".join(
+                  f"{'remat' if r else 'plain'} " + ", ".join(
+                      f"{ms:.2f} ms/step {gib:.2f} GiB" for ms, gib in runs[r])
+                  for r in (False, True)) + f" [{card}]")
+        print(f"  after one step from the same weights, remat against plain: BN statistics "
+              f"bit-equal={bit_equal} (max|err|/max|ref| {stat_err:.2e}), "
+              f"num_batches_tracked {sorted(tracked)}, params max|err|/max|ref| "
+              f"{param_err:.2e} (tol {TRAIN_TOL})")
+        check(tracked == {1}, f"remat ({name}) counted a batch twice in its BN statistics")
+        check(bit_equal, f"remat ({name}) moved the BN statistics: {stat_err}")
+        check(param_err < TRAIN_TOL, f"remat ({name}) params differ: {param_err}")
+
+
+class EngineWatch:
+    """run_synthetic's on_engine for phase 15: each engine's scoring runs
+    under a profile (its replays counted by kernel name, which must be
+    VAL_IMAGES times its capture's launches, and those what expected_launches
+    counts from the net); the engine is kept for check_kernels."""
+
+    def __init__(self, label):
+        self.label = label
+        self.engines = {}
+        self.replayed = {name: 0 for name in KERNEL_NAMES}
+        self.calls = {}  # {engine: {kernel: its calls on the first frame}}, by check_kernels
+
+    def __call__(self, name, engine, score):
+        from lfdtpu_torch.tools import synthetic_e2e as syn
+
+        det = engine.program.detector
+        size = engine.input_resolution
+        want = expected_launches(det, syn.engine_switches(det, name))
+        prof, mAP = profiled(lambda: engine(np.zeros((1, *size, 3), np.uint8), size), score)
+        replayed, window = kernel_launches_in(prof)
+        print(f"  {self.label} {name} engine {size[0]}x{size[1]}: mAP_50 {mAP:.4f}; launches "
+              f"per capture {engine.captured_launches}, by the {syn.VAL_IMAGES} scored "
+              f"frames' replays {replayed} ({window})")
+        check(engine.captured and engine.captured_launches == want,
+              f"{self.label} {name}: the capture did not record {want}")
+        check(replayed == {k: syn.VAL_IMAGES * v for k, v in want.items()},
+              f"{self.label} {name}: the replays did not launch each kernel as captured")
+        for k, v in replayed.items():
+            self.replayed[k] += v
+        self.engines[name] = (engine, want)
+        return mAP
+
+    def check_kernels(self, frames_, errs):
+        """Every kernel the kept engines launch against its plain version on
+        what an eager pass over each of `frames_` hands it: K1 and K4
+        exactly, K2 and K3 within K2_TOL and K3_TOL (max|err| / max|ref|).
+        Folds each kernel's max|err| into `errs` and keeps the first
+        frame's calls in self.calls."""
+        import torch
+
+        from lfdtpu_torch.deploy import kernel_net
+        from lfdtpu_torch.ops import conv_kernels as ck
+        from lfdtpu_torch.ops import nms_kernel
+
+        for name, (engine, want) in self.engines.items():
+            label = f"{self.label} {name}"
+            size = engine.input_resolution
+            vhw = torch.tensor(size, dtype=torch.float32, device=engine.device)
+            seen = {}
+            for i, frame in enumerate(frames_):
+                x = torch.as_tensor(frame[None], device=engine.device)
+                k2 = k3 = calls = ()
+                if want["int8_conv"]:
+                    dense, calls = check_k4_routes(lambda: k4_inputs(lambda: engine.dense(x)),
+                                                   label)
+                    check(len(calls) == want["int8_conv"], f"{label}: {len(calls)} K4 calls")
+                    errs["int8_conv"] = max(errs["int8_conv"], check_k4(calls, label)[0])
+                else:
+                    (dense, k3), k2 = recorded_calls(kernel_net, "stem_conv", lambda: (
+                        recorded_calls(kernel_net, "pair_conv3x3", lambda: engine.dense(x))))
+                    check((len(k2), len(k3)) == (want["stem_conv"], want["pair_conv3x3"]),
+                          f"{label}: K2/K3 called {len(k2)}/{len(k3)} times, not {want}")
+                    for kernel, plain, calls, tol in (
+                            ("stem_conv", ck.stem_conv_plain, k2, K2_TOL),
+                            ("pair_conv3x3", ck.pair_conv3x3_plain, k3, K3_TOL)):
+                        for args, kw in calls:
+                            got = getattr(ck, kernel)(*args, **kw)
+                            ref = plain(*args, **kw)
+                            e = rel_err(got, ref)
+                            errs[kernel] = max(errs[kernel],
+                                               float((got.float() - ref.float()).abs().max()))
+                            shape = (kernel, tuple(args[0].shape), kw.get("residual") is not None)
+                            seen[shape] = max(seen.get(shape, 0.0), e)
+                            check(e < tol, f"{label}: {kernel} at {shape[1]} disagrees with "
+                                  f"its plain version ({e:.3e}, tol {tol})")
+                _, k1 = k1_inputs(lambda: engine.decode(*dense, vhw))
+                if i == 0:
+                    self.calls[name] = dict(nms_mask_sorted=k1, stem_conv=k2, pair_conv3x3=k3,
+                                            int8_conv=calls)
+                check(len(k1) == want["nms_mask_sorted"], f"{label}: {len(k1)} K1 calls")
+                for b, v, thr in k1:
+                    got = nms_kernel.nms_mask_sorted(b, v, thr)
+                    ref = nms_kernel.nms_mask_sorted_plain(b, v, thr)
+                    bad = int((got != ref).sum())
+                    seen[("nms_mask_sorted", tuple(b.shape), int(v.sum()))] = float(bad)
+                    check(bad == 0, f"{label}: K1 disagrees with its plain version")
+            torch.cuda.synchronize()
+            print(f"  {label}: K1-K3 against their plain versions at (kernel, shape, "
+                  f"residual or valid rows): max|err|/max|ref| (K2, K3) or mismatches (K1) "
+                  + "; ".join(f"{k} {v:.3e}" for k, v in seen.items()))
+
+
+def time_learned_shapes(watch, device, card):
+    """The kernels at the shapes a trained 128x128 engine gave them (phase
+    15, WIDERFACE-L's watch): K1 on the fp32 engine's input (its valid rows
+    this run's), K2 and K3 (LEARNED_K3 levels) on the bf16 engine's calls,
+    K4 at every distinct (shape, mode) of the int8 engine's frame; each
+    beside its bound, its plain version and, for K3, cuDNN. Returns
+    {kernel: [rows]}."""
+    import torch
+
+    from lfdtpu_torch.ops import nms_kernel
+
+    g = torch.Generator(device=device).manual_seed(15)
+    rows = {}
+    b, v, thr = watch.calls["fp32"]["nms_mask_sorted"][0]
+    warm = graph_ms([lambda: nms_kernel.nms_mask_sorted(b, v, thr)])
+    plain = time_ms(lambda: nms_kernel.nms_mask_sorted_plain(b, v, thr))
+    rows["nms_mask_sorted"] = [dict(shape=list(b.shape[:2]), valid=int(v.sum()), **_timing(
+        "nms_mask_sorted", tuple(b.shape[:2]), card, warm, warm, plain, None,
+        note=f" ({int(v.sum())} valid rows, a trained {watch.label} engine)"))]
+    bf16 = watch.calls["bf16"]
+    (k2_args, _), = bf16["stem_conv"]
+    rows["stem_conv"] = [dict(shape=list(k2_args[0].shape[:3]),
+                              **time_k2(device, card, k2_args, g))]
+    _, wk, s, bias = bf16["pair_conv3x3"][0][0]
+    rows["pair_conv3x3"] = time_k3(device, card, (wk, s, bias), g, LEARNED_K3)
+    rows["int8_conv"] = time_k4(watch.calls["int8"]["int8_conv"], card, device,
+                                timed=LEARNED_K4, label=f"a trained {watch.label} frame")[0]
+    for r in rows["int8_conv"]:
+        r["path"] = f"trained {watch.label} int8 128x128"
+    return rows
+
+
+def learning_phase(device, card, counters):
+    """Phase 15: the port learns. multiclass_nms on CUDA tensors against its
+    plain path; the remat train step (remat_step); lfdtpu's synthetic runs
+    and bars (LEARNING_RUNS) through the port's run_synthetic on the card,
+    then WIDERFACE-XS and -L trained as int8_quality_cell.py trains them and
+    scored through four engines each (fp32, bf16 with K1 and K3 plus K2
+    where the stem takes it, int8 with a float32 and with a bf16 head),
+    each faster engine within ENGINE_DELTA of fp32. Each run is a path:
+    counters zeroed before it, read after it (K1 in the val loop's eager
+    decode, the engines' warmups and captures), its engines' replays counted
+    from profiles; then every kernel its engines launch against its plain
+    version (EngineWatch.check_kernels). Any bar missed fails the run.
+    Then the kernels at the trained WIDERFACE-L engines' shapes
+    (time_learned_shapes). Returns ({path: launches}, {kernel: max|err|},
+    {kernel: timing rows})."""
+    import torch
+
+    from lfdtpu_torch.tools import int8_quality_cell
+    from lfdtpu_torch.tools import synthetic_e2e as syn
+
+    errs = {name: 0.0 for name in KERNEL_NAMES}
+    paths = {}
+    launches, errs["nms_mask_sorted"] = check_multiclass_nms(device, counters)
+    paths["multiclass_nms (CUDA tensors)"] = dict(eager=launches, replayed=None)
+    t0 = time.time()
+    remat_step(device, card)
+    print(f"remat steps {time.time() - t0:.1f} s")
+
+    watches = {}
+
+    def path(label, run, multiscale=False, zoo_model=None):
+        watch = watches[label] = EngineWatch(label)
+        zero_counts(counters)
+        t0 = time.time()
+        result = run(watch)
+        seconds = time.time() - t0
+        launches = {c.__name__: c.launches for c in counters}
+        size, buckets, num_classes = syn.scenes(multiscale, zoo_model)
+        val, _ = syn.make_dataset(2, seed=1, size=size, buckets=buckets,
+                                  num_classes=num_classes)
+        watch.check_kernels([s["image"] for s in val.values()], errs)
+        paths[f"synthetic {label} {size}x{size} (val loop, engines)"] = dict(
+            eager_and_capture=launches, replayed=watch.replayed)
+        if label != "WIDERFACE-L":  # its engines' calls are timed at the end
+            watch.engines, watch.calls = {}, {}
+        torch.cuda.empty_cache()
+        return result, seconds, launches
+
+    for label, kw in LEARNING_RUNS:
+        m, seconds, launches = path(
+            label, lambda watch: syn.run_synthetic(device=device, on_engine=watch, **kw),
+            kw.get("multiscale", False))
+        extra = ""
+        if "per_range_recall" in m:
+            extra += f", per-range recall {[round(r, 4) for r in m['per_range_recall']]} " \
+                     f"(bar >= {kw['recall_threshold']})"
+        if "engine_mAP_50" in m:
+            q = m["engine_mAP_50"]
+            extra += f", engines' mAP_50 {q} (bar: int8 >= fp32 - {ENGINE_DELTA})"
+            check(q["int8"] >= q["fp32"] - ENGINE_DELTA, f"{label}: int8 engine {q}")
+        print(f"learning {label}: {kw['epochs']} epochs, mAP_50 {m.get('mAP_50', 0.0):.4f} (bar > "
+              f"{kw['threshold']}){extra}, {seconds:.1f} s, launches {launches} [{card}]")
+    for model in QUALITY_MODELS:
+        res, seconds, launches = path(
+            model, lambda watch: int8_quality_cell.quality_cell(
+                model, QUALITY_EPOCHS, device=device, on_engine=watch), zoo_model=model)
+        print("QUALITY_RESULT " + json.dumps(res))
+        q = {k: res[f"mAP_50_{k}_engine"] for k in ("fp32", "bf16", "int8", "int8_bf16")}
+        print(f"learning {model}: {QUALITY_EPOCHS} epochs, mAP_50 {res['mAP_50_predict']} "
+              f"(bar > {int8_quality_cell.THRESHOLD}), engines' mAP_50 {q} (bars: fp32 > "
+              f"{int8_quality_cell.THRESHOLD}, each other >= fp32 - {ENGINE_DELTA}), "
+              f"{seconds:.1f} s, launches {launches} [{card}]")
+        check(q["fp32"] > int8_quality_cell.THRESHOLD, f"{model}: fp32 engine {q['fp32']}")
+        for k in ("bf16", "int8", "int8_bf16"):
+            check(q[k] >= q["fp32"] - ENGINE_DELTA, f"{model}: the {k} engine {q}")
+    print(f"[15 timings at the trained engines' shapes] {card}")
+    rows = time_learned_shapes(watches["WIDERFACE-L"], device, card)
+    return paths, errs, rows
+
+
 def main(argv=()):
     import torch
 
@@ -3911,6 +4276,15 @@ def main(argv=()):
     paths["WIDERFACE-L engine files loaded in fresh processes"] = dict(
         load_and_capture=loaded_f, replayed=loaded_replayed_f)
     print(f"files phase {time.time() - t0:.1f} s")
+    print(f"[15 learning] {card}")
+    t0 = time.time()
+    paths_l, errs_l, rows_l = learning_phase(device, card, counters)
+    paths.update(paths_l)
+    err1 = max(err1, errs_l["nms_mask_sorted"])
+    k4_err = max(k4_err, errs_l["int8_conv"])
+    for k in ("stem_conv", "pair_conv3x3"):
+        errs[k] = max(errs[k], errs_l[k])
+    print(f"learning phase {time.time() - t0:.1f} s")
 
     sources = {
         "nms_mask_sorted": ("lfdtpu_torch/csrc/nms.cu", "lfdtpu/ops/nms_pallas.py:49", err1),
@@ -3928,6 +4302,8 @@ def main(argv=()):
              "stem_conv": [r for r in new_rows if "residual" not in r],
              "pair_conv3x3": [r for r in new_rows if "residual" in r],
              "int8_conv": k4_rows[1:]}
+    for name, rows in rows_l.items():
+        other[name] += rows
     # each kernel's launches on its main path: WIDERFACE-L's bf16 engines for
     # K1-K3 (phase 5), its int8 engines for K4 (phase 13)
     main = {name: (launches8, replayed8) if name == "int8_conv" else (launches, replayed)

@@ -8,19 +8,26 @@
 # eagerly with no host sync: no .item(), no Python branch on a device value
 # (num_pos, the clip gate). The metrics come back as 0-d device tensors.
 #
-# Not ported yet: `mesh` (data parallel over several devices) and `remat`
-# (under torch.utils.checkpoint the recomputed forward would update the BN
-# running stats a second time).
+# remat (`data_parallel.py:85-93`, jax.checkpoint of the whole forward) runs
+# the net under torch.utils.checkpoint. Its recomputation in backward runs
+# the net in train mode again, which would update every BatchNorm's running
+# statistics a second time (lfdtpu's functional batch_stats never are): the
+# recomputation restores them as it found them.
+#
+# Not ported yet: `mesh` (data parallel over several devices, ROADMAP queue
+# 1, item 8).
 #
 # make_eval_step is the val loop's forward (`data_parallel.py:151-172`).
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..execution.optim import clip_by_global_norm, global_norm, set_lr
@@ -50,8 +57,37 @@ def create_train_state(detector, optimizer, generator=None, device=None):
     return TrainState(net, optimizer.build(net))
 
 
+@contextlib.contextmanager
+def _buffers_kept(buffers):
+    """Restore `buffers` on exit to their values on entry."""
+    saved = [b.clone() for b in buffers]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for b, v in zip(buffers, saved):
+                b.copy_(v)
+
+
+def _rematerialized(net):
+    """net's forward under torch.utils.checkpoint (non-reentrant): its
+    activations are recomputed in backward instead of kept, and the
+    recomputation leaves the BatchNorm running statistics (running_mean,
+    running_var, num_batches_tracked) as the first forward wrote them."""
+    stats = [b for m in net.modules() if isinstance(m, nn.BatchNorm2d)
+             for b in m.buffers()]
+
+    def contexts():
+        return contextlib.nullcontext(), _buffers_kept(stats)
+
+    def forward(x):
+        return checkpoint(net, x, use_reentrant=False, context_fn=contexts)
+
+    return forward
+
+
 def make_train_step(detector, optimizer, input_hw, clip_max_norm=0.0,
-                    preprocess=None, mixed_precision=False):
+                    preprocess=None, mixed_precision=False, remat=False):
     """Build the train step of `detector.net` with `optimizer` (the torch
     optimizer of its TrainState).
 
@@ -69,12 +105,17 @@ def make_train_step(detector, optimizer, input_hw, clip_max_norm=0.0,
       tensor on the device), used only when clip_max_norm > 0.
     mixed_precision: forward and backward under bf16 autocast; master
       weights, BN running stats, assignment, loss and optimizer stay fp32.
+    remat: the net's whole forward as one checkpointed segment
+      (torch.utils.checkpoint, as lfdtpu's jax.checkpoint): its activations
+      are not kept from the forward to the backward, which recomputes them.
+      The step's results equal the plain step's, BN running stats included.
     """
     input_hw = (int(input_hw[0]), int(input_hw[1]))
     net = detector.net
     device = next(net.parameters()).device
     params = list(net.parameters())  # each shared-head parameter once
     level_arrays = detector.level_arrays(input_hw, device)
+    forward = _rematerialized(net) if remat else net
     if preprocess is not None:
         preprocess = copy.deepcopy(preprocess).to(device)
 
@@ -90,7 +131,7 @@ def make_train_step(detector, optimizer, input_hw, clip_max_norm=0.0,
         net.train()
         optimizer.zero_grad(set_to_none=True)
         with torch.autocast(device.type, dtype=torch.bfloat16, enabled=mixed_precision):
-            outs = net(images.to(params[0].dtype))
+            outs = forward(images.to(params[0].dtype))
         if mixed_precision:
             outs = tuple(o.float() for o in outs)
         ld = detector.get_loss(outs, to_device(gt_bboxes),

@@ -948,3 +948,69 @@ def test_loaded_engine_equals_the_built_one_on_the_card(cuda, variant, tmp_path,
     else:
         assert _same(loaded(f, vhw), built(f, vhw))
         assert set(loaded._graphs) == {torch.uint8, torch.float32}
+
+
+# ------------------------------------------------------------ learning
+# multiclass_nms through K1, and a trained synthetic LFD's int8 engine at
+# 128x128, whose levels (K4's smallest tiles) no engine test above reaches.
+
+def test_multiclass_nms_with_k1_equals_plain(cuda):
+    from lfdtpu_torch.ops.nms import multiclass_nms
+
+    rng = np.random.RandomState(9)
+    B, K = 4, 1000
+    xy = rng.rand(B, K, 2) * 12 * K ** 0.5
+    boxes = np.concatenate([xy, xy + rng.rand(B, K, 2) * 60 + 1], -1)
+    boxes += (rng.randint(0, 3, (B, K)) * (boxes.max() + 1.0))[..., None]
+    boxes = torch.as_tensor(boxes, dtype=torch.float32, device=cuda)
+    scores = torch.as_tensor(rng.randint(0, 21, (B, K)) / 20.0, dtype=torch.float32,
+                             device=cuda)
+    valid = torch.as_tensor(rng.rand(B, K) > 0.1, device=cuda)
+    before = nms_kernel.nms_mask_sorted.launches
+    keep, order, count = multiclass_nms(boxes, scores, 0.05, 0.5, max_num=100, valid=valid)
+    torch.cuda.synchronize()
+    assert nms_kernel.nms_mask_sorted.launches == before + 1
+    pkeep, porder, pcount = multiclass_nms(boxes, scores, 0.05, 0.5, max_num=100, valid=valid,
+                                           use_kernel=False)
+    survivors = nms_mask(boxes, scores, 0.5, valid=valid & (scores > 0.05),
+                         use_kernel=False).sum(-1)
+    assert bool((survivors > 100).all())
+    assert torch.equal(keep, pkeep) and torch.equal(count, pcount)
+    for b, n in enumerate(survivors.tolist()):
+        assert torch.equal(order[b, :n], porder[b, :n])
+
+
+def test_trained_synthetic_lfd_int8_engine_k4_is_exact(cuda):
+    """Two epochs of the synthetic LFD on the card, then its captured int8
+    engine at 128x128 (calibrated on training frames): every K4 call of an
+    eager pass over a val frame against the plain version, bit-equal."""
+    from lfdtpu_torch.deploy import int8_net
+    from lfdtpu_torch.ops import int8_conv as k4
+    from lfdtpu_torch.tools import synthetic_e2e as syn
+
+    val, _ = syn.make_dataset(1, seed=1)
+    frame = torch.as_tensor(val[0]["image"][None], device=cuda)
+    checked = []
+
+    def on_engine(name, engine, score):
+        calls, wrapper = [], int8_net.int8_conv
+
+        def recorded(*args, **kwargs):
+            calls.append((args, kwargs))
+            return wrapper(*args, **kwargs)
+
+        int8_net.int8_conv = recorded
+        try:
+            engine.dense(frame)
+        finally:
+            int8_net.int8_conv = wrapper
+        assert engine.captured and len(calls) == int8_net.planned_launches(engine.net)
+        for args, kwargs in calls:
+            got, ref = k4.int8_conv(*args, **kwargs), k4.int8_conv_plain(*args, **kwargs)
+            assert got.dtype == ref.dtype and torch.equal(got, ref), args[0].shape
+        checked.append(len(calls))
+        return score()
+
+    m = syn.run_synthetic("lfd", epochs=2, threshold=-1.0, engine_quality=True,
+                          precisions=("int8",), device="cuda", on_engine=on_engine)
+    assert checked == [14] and 0.0 <= m["engine_mAP_50"]["int8"] <= 1.0

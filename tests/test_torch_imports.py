@@ -1,7 +1,8 @@
 # The port stands alone: importing lfdtpu_torch (every module, the FCOS
 # family's and the int8 engine's included, and every script of the
-# WIDERFACE, TT100K and TrafficLight workloads) and predicting with an LFD
-# (bf16 and int8 engines) and an FCOS pulls in
+# WIDERFACE, TT100K and TrafficLight workloads, and the synthetic learning
+# tools) and predicting with an LFD (bf16 and int8 engines) and an FCOS, and
+# the host and multiclass NMS, pulls in
 # neither jax, flax, lfdtpu nor cv2,
 # and the kernel modules import and run their plain versions on a machine
 # with no nvcc and no GPU, building nothing. cv2 is imported only inside the
@@ -39,7 +40,7 @@ from lfdtpu_torch.ops import (assign, boxes, conv_kernels, decode, int8_conv, ke
 from lfdtpu_torch.parallel import data_parallel, prefetch
 from lfdtpu_torch import device
 from lfdtpu_torch.models import fcos, heads, lfdv2, necks, resnet
-from lfdtpu_torch.tools import kernel_trace
+from lfdtpu_torch.tools import int8_quality_cell, kernel_trace, synthetic_e2e
 common = ("_common", "predict", "predict_engine", "evaluation", "timing_inference_latency")
 for task, scripts in (
         ("WIDERFACE_train", common + ("pack_widerface", "generate_neg_images")),
@@ -69,6 +70,10 @@ fdet = fcos.FCOS(rn, necks.FPN(rn.num_output_channels_list, rn.num_output_stride
                  heads.FCOSHead(2, 16, 5, 16, 1), num_classes=2)
 fdet.init(torch.Generator().manual_seed(0))
 fcos_rows = fdet.predict_for_single_image(torch.zeros(60, 70, 3).numpy())
+from lfdtpu_torch import ops
+mc_keep, _, mc_count = ops.multiclass_nms(torch.tensor([[0., 0, 10, 10], [1, 1, 11, 11]]),
+                                          torch.tensor([0.9, 0.8]), 0.05, 0.5)
+host_kept = ops.nms(ops.soft_nms(torch.zeros(0, 5).numpy(), 0.5)[0], 0.5)[1]
 print(json.dumps({
     "foreign": sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "flax", "lfdtpu", "cv2")),
@@ -83,6 +88,8 @@ print(json.dumps({
     "result_lists": len(rows),
     "fcos_rows": isinstance(fcos_rows, list),
     "fcos_launches": nms_kernel.nms_mask_sorted.launches,
+    "multiclass_nms": [mc_keep.tolist(), int(mc_count), len(host_kept)],
+    "scenes": synthetic_e2e.scenes(zoo_model="WIDERFACE-L")[2],
 }))
 """
 
@@ -105,6 +112,7 @@ def test_port_imports_without_jax_and_builds_nothing_on_cpu():
     assert res["captured"] is False and res["method"] == "perf_counter_per_call"
     assert res["result_lists"] == 1
     assert res["fcos_rows"] and res["fcos_launches"] == 0
+    assert res["multiclass_nms"] == [[True, False], 1, 0] and res["scenes"] == 1
 
 
 def test_no_source_file_imports_jax():
