@@ -8,7 +8,7 @@ a user gets it on the card, the WIDERFACE-L training step, the training
 entry point with its val loop, and the evaluation script; then the TT100K
 and TrafficLight workloads (serving, training entry points, evaluation) and
 the LFDv2 family, FCOS-R50-FPN, the int8 engine, engine files, and
-learning on synthetic scenes. It checks them:
+learning on synthetic scenes, and data-parallel training. It checks them:
 
   1. card     the GPU's name and power limit (nvidia-smi);
   2. build    the hand-written kernels from lfdtpu_torch/csrc/*.cu (nvcc);
@@ -293,6 +293,31 @@ learning on synthetic scenes. It checks them:
               to its plain version on two val frames (K1 and K4 exact, K2
               and K3 within K2_TOL / K3_TOL), and the kernels are timed at
               the trained WIDERFACE-L engines' 128x128 shapes.
+ 16. data     data parallelism (`chip_smoke.ddp_phase`), counters zeroed
+     parallel before each path and read after it. WIDERFACE-L's train
+              step at phase 6's shape (batch 64, crop 480, Nmax 200) in a
+              process group of one rank over NCCL (opened in process on a
+              free 127.0.0.1 port): make_train_step(mesh=make_mesh()),
+              DistributedDataParallel at world size 1, against the plain
+              step from the same weights, fp32 (TF32 off) and bf16, params
+              and BN statistics within TRAIN_TOL after one step, ms/step A
+              B B A. Then two ranks on the one card, each a fresh process
+              (`chip_smoke.py --ddp-rank R DIR`, gloo with CUDA tensors:
+              NCCL refuses two ranks on one device) on its 32 rows of the
+              same seeded batch of 64: after 1 and 3 steps the global
+              loss, params and BN statistics within TRAIN_TOL of the
+              one-process batch-64 step in fp32 and with remat; in bf16
+              the loss within TRAIN_TOL and the state no farther from the
+              fp32 step than BF16_BAND times the one-process bf16 step
+              (each rank rounds its bf16 weight gradients before the
+              ranks' sum); every rank's state equal; ms/step per rank.
+              Then Executor.run() of WIDERFACE_LFD_L on phase 8's pack, two
+              ranks, one epoch and a val pass: rank 0 alone checkpoints,
+              its checkpoint equals rank 1's weights, its val rows (each
+              rank decodes its rows, K1 on every rank, gathered in order)
+              equal a one-process val pass of that checkpoint, K1's
+              launches counted per rank. A rank that fails, dies or hangs
+              past DDP_CHILD_TIMEOUT fails the run.
 
 The second-to-last line is a JSON object {"kernels": [...]} (K1-K4; each
 kernel's launches on its main path: WIDERFACE-L's bf16 engines for K1-K3,
@@ -302,7 +327,8 @@ replays, the FCOS path's eager launches and replayed null (it has no
 engine), the engine files' loaded path's launches at load and capture and
 by its replays, in the fresh processes, phase 15's paths (multiclass_nms,
 and each synthetic run's val loop and engines: eager_and_capture and
-replayed); K2's and K3's times at the new shapes, K1's at the FCOS shape,
+replayed), phase 16's paths (the train steps, and each rank's Executor run
+with K1 in its val decode; replayed null); K2's and K3's times at the new shapes, K1's at the FCOS shape,
 K4's at its other shapes of a WIDERFACE-L frame and its mma.sync route's
 synthetic shapes, and each kernel's at the trained 128x128 engines' shapes
 in other_shapes; K4's main-path launches by route in launches_by_route); a
@@ -315,7 +341,8 @@ freshly captured engine (see there).
 
 Run from the root of a checkout:  python3 chip_smoke.py
 (phase 14 runs it again as `python3 chip_smoke.py --serve-file FILE DIR` in
-its fresh processes)
+its fresh processes, phase 16 as `python3 chip_smoke.py --ddp-rank R DIR` in
+its ranks)
 """
 
 from __future__ import annotations
@@ -487,6 +514,19 @@ MCNMS_SHAPE, MCNMS_MAX, MCNMS_SCORE_THR, MCNMS_IOU = (4, 1000), 100, 0.05, 0.5
 LEARNED_K3 = (((32, 32), True), ((32, 32), False), ((8, 8), True))
 LEARNED_K4 = (("stage 0 3x3 64->64 at 32x32, mode a", (64, 64, 3, 1, "a")),)
 REMAT_STEPS, REMAT_WARMUP = 10, 2
+# data parallelism (phase 16): the two-rank step is held to the one-process
+# step after DDP_CHECKED[0] and DDP_CHECKED[1] steps; then DDP_TIMED steps
+# are timed per rank (world size 1: A B B A, DDP_TIMED after REMAT_WARMUP)
+DDP_CHECKED, DDP_TIMED = (1, 3), 5
+DDP_MODES = {"fp32": dict(), "bf16": dict(mixed_precision=True),
+             "fp32 remat": dict(remat=True)}
+DDP_WORLD = 2               # ranks on the one card, over gloo
+DDP_CHILD_TIMEOUT = 600     # seconds a rank may take, its start included
+DDP_ROW_TOL = 1e-3          # val rows of two ranks against one process, max |err|
+# bf16: two ranks round each rank's weight gradients to bf16 before their
+# sum, one process once. The two-rank bf16 step is held to the fp32 step:
+# at most BF16_BAND times as far from it as the one-process bf16 step is
+BF16_BAND = 2.0
 
 
 class SmokeFailure(RuntimeError):
@@ -1137,10 +1177,12 @@ def init_weights(seed, name="WIDERFACE-L"):
     return det.net.state_dict()
 
 
-def make_trainer(device, hw, weights, mixed_precision=False, factory=None, remat=False):
+def make_trainer(device, hw, weights, mixed_precision=False, factory=None, remat=False,
+                 mesh=None):
     """A fresh WIDERFACE-L (or factory()) with `weights`, its TrainState on
-    `device` and the train step: SGD momentum 0.9, wd 1e-4, clip 10, uint8
-    frames through the (0.5, 0.5) device preprocess, remat as asked."""
+    `device` (or the rank's device of a data `mesh`) and the train step:
+    SGD momentum 0.9, wd 1e-4, clip 10, uint8 frames through the (0.5, 0.5)
+    device preprocess, remat and the mesh as asked."""
     from lfdtpu_torch import zoo
     from lfdtpu_torch.deploy import make_device_preprocess
     from lfdtpu_torch.execution import SGD
@@ -1148,10 +1190,11 @@ def make_trainer(device, hw, weights, mixed_precision=False, factory=None, remat
 
     det = factory() if factory else zoo.widerface_lfd("L")
     det.net.load_state_dict(weights)
-    state = create_train_state(det, SGD(momentum=0.9, weight_decay=1e-4), device=device)
+    state = create_train_state(det, SGD(momentum=0.9, weight_decay=1e-4), device=device,
+                               mesh=mesh)
     step = make_train_step(det, state.optimizer, hw, clip_max_norm=10.0,
                            preprocess=make_device_preprocess(MEAN, STD),
-                           mixed_precision=mixed_precision, remat=remat)
+                           mixed_precision=mixed_precision, remat=remat, mesh=mesh)
     return det, step
 
 
@@ -4094,11 +4137,376 @@ def learning_phase(device, card, counters):
     return paths, errs, rows
 
 
+# ---------------------------------------------------------- data parallelism
+
+def free_port():
+    """A free TCP port on 127.0.0.1 for a process group's rendezvous."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def cpu_state(net):
+    return {k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
+
+
+def state_errs(got, ref, worst=False):
+    """max|err| / max|ref| over the params and over the BN running
+    statistics of two CPU state_dicts: (params, statistics), or with
+    `worst` ((params, its worst tensor), (statistics, its worst))."""
+    out = []
+    for stats in (False, True):
+        errs = {k: rel_err(got[k], v) for k, v in ref.items()
+                if v.is_floating_point() and ("running" in k) == stats}
+        name = max(errs, key=errs.get)
+        out.append((errs[name], name) if worst else errs[name])
+    return tuple(out)
+
+
+def timed_steps(step, batch, sched, first, n):
+    """ms/step of n steps from iteration `first` (CUDA events)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for it in range(first, first + n):
+        loss = step(*batch, sched(0, it), True)["loss"]
+    end.record()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(loss)), "a non-finite loss in the timed steps")
+    return start.elapsed_time(end) / n
+
+
+def ddp_batch(device):
+    """Phase 16's weights (randomized norms: a parameter that starts at zero
+    would be held to the relative error of its update alone) and
+    WIDERFACE-L batch (phase 6's shape), seeded."""
+    import torch
+
+    weights = build_detector("cpu", seed=13).net.state_dict()
+    batch = train_batch(np.random.RandomState(13), TRAIN_BATCH, TRAIN_HW, TRAIN_NMAX)
+    return weights, batch, [torch.as_tensor(a, device=device) for a in batch]
+
+
+def ddp_world_size_1(device, card):
+    """The train step through make_train_step(mesh=make_mesh()) in a process
+    group of one rank over NCCL (DistributedDataParallel at world size 1)
+    against the plain step, fp32 and bf16, from the same weights and batch:
+    after one step the params and BN statistics within TRAIN_TOL (and
+    whether bit-equal), then ms/step of each in A B B A order."""
+    import torch
+    import torch.distributed as dist
+
+    from lfdtpu_torch.parallel import make_mesh
+
+    weights, _, batch = ddp_batch(device)
+    sched = train_schedule()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh()
+        check(mesh.size == 1 and mesh.group is not None and dist.get_backend() == "nccl"
+              and mesh.device == torch.device("cuda", 0), f"the NCCL mesh is {mesh}")
+        for mode in ("fp32", "bf16"):
+            runs, first = {False: [], True: []}, {}
+            for ddp in (False, True, True, False):
+                det, step = make_trainer(device, TRAIN_HW, weights, mesh=mesh if ddp else None,
+                                         mixed_precision=mode == "bf16")
+                loss = step(*batch, sched(0, 0), True)["loss"]
+                first.setdefault(ddp, (cpu_state(det.net), float(loss)))
+                for it in range(1, REMAT_WARMUP):
+                    step(*batch, sched(0, it), True)
+                runs[ddp].append(timed_steps(step, batch, sched, REMAT_WARMUP, DDP_TIMED))
+                del det, step
+                torch.cuda.empty_cache()
+            (plain, plain_loss), (ddp_state, ddp_loss) = first[False], first[True]
+            perr, serr = state_errs(ddp_state, plain)
+            lerr = abs(ddp_loss - plain_loss) / abs(plain_loss)
+            bit = all(torch.equal(ddp_state[k], v) for k, v in plain.items())
+            print(f"train {mode} WIDERFACE-L batch {TRAIN_BATCH} {TRAIN_HW[0]}x{TRAIN_HW[1]}, "
+                  "world size 1 over NCCL (DDP), A B B A: plain "
+                  + ", ".join(f"{ms:.2f}" for ms in runs[False]) + " ms/step, DDP "
+                  + ", ".join(f"{ms:.2f}" for ms in runs[True]) + f" ms/step [{card}]")
+            print(f"  after one step from the same weights, DDP against plain: loss "
+                  f"{lerr:.2e}, params {perr:.2e}, BN statistics {serr:.2e} max|err|/max|ref| "
+                  f"(tol {TRAIN_TOL}), bit-equal={bit}")
+            check(max(perr, serr, lerr) < TRAIN_TOL,
+                  f"world size 1 ({mode}): the DDP step disagrees with the plain step")
+    finally:
+        dist.destroy_process_group()
+
+
+def ddp_rank(rank, out_dir):
+    """One rank of phase 16's two (`chip_smoke.py --ddp-rank R DIR`), on the
+    one card over gloo with CUDA tensors. The train step on its 32 rows of
+    the seeded batch of 64 in every DDP_MODES mode: the state after each
+    DDP_CHECKED step count and the global losses, then DDP_TIMED steps
+    timed; then Executor.run() of WIDERFACE_LFD_L on DIR's pack for one
+    epoch with a val pass, its K1 launches counted. Writes DIR/rank{R}.pt."""
+    import torch
+    import torch.distributed as dist
+
+    from lfdtpu_torch.ops import conv_kernels, int8_conv, kernel_lib, nms_kernel
+    from lfdtpu_torch.parallel import (initialize_distributed, local_batch_slice,
+                                       make_mesh)
+
+    faulthandler.enable(all_threads=False)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(out_dir, "job.json")) as f:
+        job = json.load(f)
+    initialize_distributed("gloo", f"tcp://127.0.0.1:{job['port']}", job["world"], rank)
+    mesh = make_mesh()
+    check(mesh.device.type == "cuda" and dist.get_backend() == "gloo"
+          and (mesh.rank, mesh.size) == (rank, job["world"]), f"rank {rank}: mesh {mesh}")
+    kernel_lib.library()  # the parent built it
+    counters = (nms_kernel.nms_mask_sorted, conv_kernels.stem_conv,
+                conv_kernels.pair_conv3x3, int8_conv.int8_conv)
+    card = card_line()
+    weights = torch.load(os.path.join(out_dir, "weights.pt"), weights_only=True)
+    arrays = np.load(os.path.join(out_dir, "batch.npz"))
+    lo, hi = local_batch_slice(TRAIN_BATCH, mesh.rank, mesh.size)
+    batch = [torch.as_tensor(arrays[f"arr_{i}"][lo:hi], device=mesh.device) for i in range(4)]
+    sched = train_schedule()
+    out = dict(states={}, losses={}, ms={}, rows=(lo, hi))
+    zero_counts(counters)
+    for mode, kw in DDP_MODES.items():
+        det, step = make_trainer(mesh.device, TRAIN_HW, weights, mesh=mesh, **kw)
+        states, losses = {}, []
+        for it in range(max(DDP_CHECKED)):
+            losses.append(float(step(*batch, sched(0, it), True)["loss"]))
+            if it + 1 in DDP_CHECKED and (rank == 0 or it + 1 == max(DDP_CHECKED)):
+                states[it + 1] = cpu_state(det.net)
+        out["states"][mode], out["losses"][mode] = states, losses
+        out["ms"][mode] = timed_steps(step, batch, sched, max(DDP_CHECKED), DDP_TIMED)
+        print(f"[rank {rank}] train {mode} WIDERFACE-L, rows {lo}-{hi} of {TRAIN_BATCH}, "
+              f"{hi - lo} a rank over gloo (CUDA tensors): {out['ms'][mode]:.2f} ms/step "
+              f"over {DDP_TIMED} steps [{card}]", flush=True)
+        del det, step
+        torch.cuda.empty_cache()
+    out["train_launches"] = {c.__name__: c.launches for c in counters}
+
+    work = os.path.join(out_dir, f"work{rank}")
+    os.makedirs(work)
+    os.chdir(work)
+    cfg = workload_config("WIDERFACE_train", "WIDERFACE_LFD_L.py", job["pack"],
+                          device_aug=True, epochs=1)
+    watch, _ = add_val_loop(cfg, work)
+    zero_counts(counters)
+    ex, _ = run_workload(cfg, card, f"rank {rank} of {mesh.size}, device aug, 1 epoch, "
+                         "a val pass", watch)
+    torch.cuda.synchronize()
+    out["executor_launches"] = {c.__name__: c.launches for c in counters}
+    check(ex.mesh is not None and ex.mesh.size == mesh.size
+          and cfg["train_data_loader"].batch_size == TRAIN_BATCH // mesh.size
+          and cfg["batch_size"] == TRAIN_BATCH, f"rank {rank}: the Executor is not sharded")
+    out["val"] = watch.passes[0]["results"]
+    out["ckpts"] = sorted(os.path.abspath(os.path.join(cfg["work_dir"], f))
+                          for f in os.listdir(cfg["work_dir"]) if f.endswith(".pth"))
+    out["weights"] = cpu_state(ex.state.net)
+    out["train_iter"] = cfg["train_iter"]
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def same_rows(got, ref, tol=DDP_ROW_TOL):
+    """(equal row counts per image, max |err| over rows sorted by score):
+    the rows of two val passes, {image_id: rows}."""
+    if sorted(got) != sorted(ref) or any(len(got[i]) != len(ref[i]) for i in ref):
+        return False, float("inf")
+    worst = 0.0
+    for i, rows in ref.items():
+        if len(rows):
+            key = lambda r: (-r[1], r[2], r[3])  # noqa: E731  (score, then the box)
+            a = np.asarray(sorted(map(list, got[i]), key=key), np.float64)
+            b = np.asarray(sorted(map(list, rows), key=key), np.float64)
+            worst = max(worst, float(np.abs(a - b).max()))
+    return worst <= tol, worst
+
+
+def ddp_two_ranks(device, card, counters, tmp):
+    """DDP_WORLD fresh processes on the one card (ddp_rank), each on its
+    share of the seeded batch: after DDP_CHECKED steps rank 0's global loss,
+    params and BN statistics within TRAIN_TOL of the one-process batch-64
+    step (fp32 and bf16; remat against fp32), every rank's weights equal;
+    then their Executor run: rank 0's checkpoint equal to rank 1's weights,
+    rank 0's val rows equal to a one-process val pass of that checkpoint
+    (counts exact, values within DDP_ROW_TOL), K1 launched on every rank.
+    Returns {rank: K1-K4 launches of its Executor run} and the train steps'
+    launches."""
+    import torch
+
+    from lfdtpu_torch.execution import Executor
+
+    weights, arrays, batch = ddp_batch(device)
+    torch.save(weights, os.path.join(tmp, "weights.pt"))
+    np.savez(os.path.join(tmp, "batch.npz"), *arrays)
+    sched = train_schedule()
+    refs = {}
+    for mode in ("fp32", "bf16"):
+        det, step = make_trainer(device, TRAIN_HW, weights, mixed_precision=mode == "bf16")
+        states, losses = {}, []
+        for it in range(max(DDP_CHECKED)):
+            losses.append(float(step(*batch, sched(0, it), True)["loss"]))
+            if it + 1 in DDP_CHECKED:
+                states[it + 1] = cpu_state(det.net)
+        refs[mode] = (states, losses)
+        del det, step
+    del batch
+    torch.cuda.empty_cache()
+    pack = os.path.join(tmp, "pack.pkl")
+    build_pack(pack)
+    with open(os.path.join(tmp, "job.json"), "w") as f:
+        json.dump(dict(port=free_port(), world=DDP_WORLD, pack=pack), f)
+
+    t0 = time.time()
+    procs, logs = [], []
+    for r in range(DDP_WORLD):
+        logs.append(os.path.join(tmp, f"rank{r}.log"))
+        with open(logs[-1], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--ddp-rank", str(r), tmp],
+                stdout=log, stderr=subprocess.STDOUT))
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, DDP_CHILD_TIMEOUT - (time.time() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:  # a hung rank fails the run; none outlives it
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        with open(logs[r]) as f:
+            log = f.read()
+        for line in log.splitlines():
+            if line.startswith(("[rank", "workload rank")):
+                print(line)
+        check(p.returncode == 0, f"rank {r} of {DDP_WORLD} exited {p.returncode} "
+              f"(killed after {DDP_CHILD_TIMEOUT} s if negative):\n{log[-4000:]}")
+    print(f"{DDP_WORLD} ranks on one card, each in a fresh process: "
+          f"{time.time() - t0:.1f} s")
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+             for r in range(DDP_WORLD)]
+
+    failures = []
+    for mode in DDP_MODES:
+        states, losses = refs["bf16" if "bf16" in mode else "fp32"]
+        got = ranks[0]
+        errs = []
+        for n in DDP_CHECKED:
+            (perr, pname), (serr, sname) = state_errs(got["states"][mode][n], states[n], True)
+            lerr = abs(got["losses"][mode][n - 1] - losses[n - 1]) / abs(losses[n - 1])
+            band = None
+            if "bf16" in mode:  # distances from the fp32 step: two ranks', one process's
+                fp32_states, fp32_losses = refs["fp32"]
+                band = (state_errs(got["states"][mode][n], fp32_states[n])
+                        + state_errs(states[n], fp32_states[n])
+                        + tuple(abs(x - fp32_losses[n - 1]) / abs(fp32_losses[n - 1])
+                                for x in (got["losses"][mode][n - 1], losses[n - 1])))
+            errs.append((n, lerr, perr, pname, serr, sname, band))
+        last = max(DDP_CHECKED)
+        ranks_equal = all(torch.equal(r["states"][mode][last][k], v) for r in ranks[1:]
+                          for k, v in got["states"][mode][last].items())
+        print(f"train {mode}, {DDP_WORLD} ranks x {TRAIN_BATCH // DDP_WORLD} rows against one "
+              f"process x {TRAIN_BATCH} ({'plain' if 'remat' in mode else 'the same mode'}), "
+              "max|err|/max|ref|: " + "; ".join(
+                  f"after {n} step{'s' if n > 1 else ''}: global loss {le:.2e}, params "
+                  f"{pe:.2e} ({pn}), BN statistics {se:.2e} ({sn})"
+                  + ("" if band is None else "; against the fp32 step, two ranks / one "
+                     f"process: params {band[0]:.2e} / {band[2]:.2e}, BN statistics "
+                     f"{band[1]:.2e} / {band[3]:.2e}, global loss {band[4]:.2e} / "
+                     f"{band[5]:.2e}")
+                  for n, le, pe, pn, se, sn, band in errs)
+              + f" (tol {TRAIN_TOL}); every rank's state equal={ranks_equal}; ms/step by rank "
+              + ", ".join(f"{r['ms'][mode]:.2f}" for r in ranks) + f" [{card}]")
+        if not ranks_equal:
+            failures.append(f"{mode}: the ranks' states differ")
+        if "bf16" in mode:
+            far = [b[i] > BF16_BAND * max(b[i + j], TRAIN_TOL)
+                   for *_, b in errs for i, j in ((0, 2), (1, 2), (4, 1))]
+            if any(far):
+                failures.append(f"{mode}: the two-rank step is farther from fp32 than "
+                                f"{BF16_BAND} x the one-process step")
+        elif max(max(e[1], e[2], e[4]) for e in errs) >= TRAIN_TOL:
+            failures.append(f"{mode}: the two-rank step disagrees with the one-process step")
+
+    # the Executor: rank 0 alone checkpoints; its val rows against one process
+    ckpts = ranks[0]["ckpts"]
+    check([os.path.basename(c) for c in ckpts] == ["epoch_1.pth"]
+          and all(not r["ckpts"] for r in ranks[1:]), "rank 0 alone must checkpoint")
+    saved = torch.load(ckpts[0], map_location="cpu", weights_only=True)["state_dict"]
+    check(all(torch.equal(saved[k], v) for r in ranks[1:] for k, v in r["weights"].items()),
+          "rank 0's checkpoint differs from another rank's weights")
+    os.chdir(tmp)
+    cfg = workload_config("WIDERFACE_train", "WIDERFACE_LFD_L.py", pack, device_aug=True,
+                          epochs=1)
+    watch, _ = add_val_loop(cfg, tmp)
+    cfg["weight_path"] = ckpts[0]
+    single = Executor(cfg)
+    zero_counts(counters)
+    single.val()
+    torch.cuda.synchronize()
+    single_k1 = counters[0].launches
+    ok, worst = same_rows(ranks[0]["val"], watch.passes[0]["results"])
+    n_rows = sum(len(v) for v in watch.passes[0]["results"].values())
+    launches = {f"rank {r}": x["executor_launches"] for r, x in enumerate(ranks)}
+    print(f"Executor WIDERFACE_LFD_L on {DDP_WORLD} ranks: rank 0's checkpoint equals every "
+          f"rank's weights; its val rows ({len(ranks[0]['val'])} images, {n_rows} rows) against "
+          f"a one-process val pass of that checkpoint: counts equal={ok or worst < float('inf')}, "
+          f"max|err| {worst:.2e} (tol {DDP_ROW_TOL}); K1 launches by rank "
+          f"{[x['nms_mask_sorted'] for x in launches.values()]}, one process {single_k1} "
+          f"[{card}]")
+    check(ok, f"rank 0's val rows differ from a one-process val pass: {worst}")
+    check(all(x["nms_mask_sorted"] > 0 for x in launches.values()),
+          "a rank's val pass launched no K1")
+    check(not failures, "; ".join(failures))
+    del single
+    torch.cuda.empty_cache()
+    return launches, {f"rank {r}": x["train_launches"] for r, x in enumerate(ranks)}
+
+
+def ddp_phase(device, card, counters):
+    """Phase 16: data parallelism. The WIDERFACE-L train step at world size
+    1 over NCCL (ddp_world_size_1), then two ranks on the card over gloo
+    (ddp_two_ranks). Returns its paths' launches."""
+    import torch
+
+    zero_counts(counters)
+    ddp_world_size_1(device, card)
+    torch.cuda.synchronize()
+    world1 = {c.__name__: c.launches for c in counters}
+    tmp = tempfile.mkdtemp(prefix="lfd_ddp_")
+    cwd, hook, env = os.getcwd(), sys.excepthook, dict(os.environ)
+    try:
+        executor, train = ddp_two_ranks(device, card, counters, tmp)
+    finally:
+        os.chdir(cwd)
+        sys.excepthook = hook
+        os.environ.clear()
+        os.environ.update(env)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"data parallel: train step, world size 1 over NCCL (DDP and plain)":
+            dict(eager=world1, replayed=None),
+            f"data parallel: train steps, {DDP_WORLD} ranks over gloo": dict(
+                **{f"{r} eager": n for r, n in train.items()}, replayed=None),
+            f"data parallel: WIDERFACE_LFD_L Executor, {DDP_WORLD} ranks (train, val decode)":
+            dict(**{f"{r} eager": n for r, n in executor.items()}, replayed=None)}
+
+
 def main(argv=()):
     import torch
 
     if argv[:1] == ["--serve-file"]:
         return serve_file(*argv[1:3])
+    if argv[:1] == ["--ddp-rank"]:
+        return ddp_rank(int(argv[1]), argv[2])
 
     # a crash in native code prints the crashing thread's Python stack (the
     # loaders' idle worker threads would crowd it out of an all-threads dump)
@@ -4285,6 +4693,10 @@ def main(argv=()):
     for k in ("stem_conv", "pair_conv3x3"):
         errs[k] = max(errs[k], errs_l[k])
     print(f"learning phase {time.time() - t0:.1f} s")
+    print(f"[16 data parallel] {card}")
+    t0 = time.time()
+    paths.update(ddp_phase(device, card, counters))
+    print(f"data parallel phase {time.time() - t0:.1f} s")
 
     sources = {
         "nms_mask_sorted": ("lfdtpu_torch/csrc/nms.cu", "lfdtpu/ops/nms_pallas.py:49", err1),

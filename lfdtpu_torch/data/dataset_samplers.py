@@ -118,10 +118,20 @@ class ShardedDatasetSampler(BaseDatasetSampler):
     Every process constructs the SAME underlying sampler with the SAME seed
     and wraps it; process i then yields rows [i*per, (i+1)*per) of every
     global batch, so the processes' rows make up the batch one process
-    would see. Pass the wrapped sampler to DataLoader. process_index and
-    process_count are explicit: the port runs on one device so far."""
+    would see. Pass the wrapped sampler to DataLoader (or call
+    DataLoader.shard). process_index and process_count default to the
+    torch.distributed process group's rank and size, and to (0, 1) without
+    one (`lfdtpu/data/dataset_samplers.py:124-129`)."""
 
-    def __init__(self, sampler, process_index, process_count):
+    def __init__(self, sampler, process_index=None, process_count=None):
+        if process_index is None or process_count is None:
+            import torch.distributed as dist
+
+            grouped = dist.is_available() and dist.is_initialized()
+            if process_index is None:
+                process_index = dist.get_rank() if grouped else 0
+            if process_count is None:
+                process_count = dist.get_world_size() if grouped else 1
         global_bs = sampler.get_batch_size()
         assert global_bs % process_count == 0, (
             f"global batch {global_bs} not divisible by {process_count} hosts"

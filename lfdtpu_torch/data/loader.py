@@ -12,6 +12,9 @@
 # A worker's error reaches the consumer, which raises it: a silently dead
 # worker would starve the batch queue and hang the train loop.
 #
+# shard(): a rank of a data mesh loads only its rows of each global batch
+# (data.ShardedDatasetSampler), before the loader's first iteration.
+#
 # Process workers are forked from a parent that may hold a CUDA context and
 # torch's thread pools: they run numpy only (no torch op, no CUDA).
 
@@ -23,6 +26,7 @@ import threading
 
 import numpy as np
 
+from .dataset_samplers import ShardedDatasetSampler
 from .device_aug import AUG_KEYS
 from .jpeg import decode as jpeg_decode
 from .sample import reserved_keys
@@ -228,6 +232,19 @@ class DataLoader:
     def batch_size(self):
         return self._batch_size
 
+    def shard(self, process_index=None, process_count=None):
+        """Yield process_index's rows of every batch of process_count
+        processes (ShardedDatasetSampler over the dataset sampler; the
+        defaults come from the process group). Before the first iteration
+        only. Returns self."""
+        if self._started:
+            raise RuntimeError("shard a DataLoader before its first iteration")
+        self._dataset_sampler = ShardedDatasetSampler(self._dataset_sampler, process_index,
+                                                      process_count)
+        self._loops = len(self._dataset_sampler)
+        self._batch_size = self._dataset_sampler.get_batch_size()
+        return self
+
     def close(self):
         """Stop the worker processes (threads are daemons and stay)."""
         for p in self._processes:
@@ -269,12 +286,23 @@ class ShmDataLoader(DataLoader):
             num_workers=num_workers, max_boxes_per_image=max_boxes_per_image,
             image_dtype=image_dtype, use_processes=True,
         )
+        self._crop = int(crop_size)
+        self._num_slots = num_slots or (num_workers + 2)
+        self._shm = None
+        self._allocate_slots()
+        self._free_slots = self._ctx.Queue()
+        for i in range(self._num_slots):
+            self._free_slots.put(i)
+
+    def _allocate_slots(self):
+        """The shared-memory slots for batches of the current batch size."""
         from multiprocessing import shared_memory
 
-        self._crop = int(crop_size)
+        if self._shm is not None:
+            self._shm.close()
+            self._shm.unlink()
         B, S, N = self._batch_size, self._crop, self._max_boxes
-        self._num_slots = num_slots or (num_workers + 2)
-        itemsize = np.dtype(image_dtype).itemsize
+        itemsize = np.dtype(self._image_dtype).itemsize
         self._img_bytes = B * S * S * 3 * itemsize
         self._gt_bytes = B * N * 4 * 4
         self._lb_bytes = B * N * 4
@@ -284,9 +312,11 @@ class ShmDataLoader(DataLoader):
                       + self._mk_bytes + self._aug_bytes)
         self._shm = shared_memory.SharedMemory(create=True, size=slot_bytes * self._num_slots)
         self._slot_bytes = slot_bytes
-        self._free_slots = self._ctx.Queue()
-        for i in range(self._num_slots):
-            self._free_slots.put(i)
+
+    def shard(self, process_index=None, process_count=None):
+        super().shard(process_index, process_count)
+        self._allocate_slots()  # slots of the rank's batch
+        return self
 
     def _slot_views(self, slot):
         B, S, N = self._batch_size, self._crop, self._max_boxes

@@ -29,8 +29,9 @@
 # deploy/engine_io.py exports with torch.export. The hand-written kernels are custom ops (torch.ops.lfd.*), so
 # the exported program calls them.
 #
-# The split, s2d_stem, mesh and approx_topk options of the JAX engine are not
-# ported (ROADMAP queue 1, item 10).
+# The split, s2d_stem and approx_topk options of the JAX engine are TPU
+# workarounds, decided not to port (ROADMAP queue 1, item 10); its mesh
+# option, the multi-chip engine, is item 8b.
 
 from __future__ import annotations
 

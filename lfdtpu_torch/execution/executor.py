@@ -10,6 +10,23 @@
 # and the metrics stay 0-d device tensors until display time, so the loop
 # makes no host sync per step.
 #
+# Data parallel: config_dict["mesh"] (a parallel.Mesh), or a process group
+# of several ranks (torchrun; parallel.initialize_distributed), makes the
+# Executor one rank of a data mesh, one process per device, as lfdtpu's
+# Executor over its `data` mesh:
+#   - the rank's device (cuda:LOCAL_RANK for "cuda", or the mesh's);
+#   - batch_size stays the global batch; the train loader yields this rank's
+#     rows of each global batch (DataLoader.shard), every rank drawing rank
+#     0's index stream;
+#   - the mesh step (sync-BN, global loss normalizers, DDP) from rank 0's
+#     weights; the metrics are the global batch's;
+#   - the val loop: each rank runs and decodes its rows of each val batch
+#     and the rows are gathered in the global order, so the evaluator (on
+#     rank 0) sees what a one-process pass sees;
+#   - only rank 0 writes checkpoints, the log file and the evaluation.
+# A list of devices in one process raises: a torch process drives one
+# device (a list would be DataParallel, which lfdtpu replaced).
+#
 # config_dict keys consumed (as lfdtpu's):
 #   model (LFD from zoo / models), optimizer (execution.optim config),
 #   lr_schedule, optimizer_grad_clip_cfg {max_norm, duration}?,
@@ -21,17 +38,18 @@
 # The val loop (every val_interval epochs, over val_data_loader) runs the net
 # in eval mode without touching its BN statistics, decodes each batch once
 # and hands the per-image rows to the evaluator through EvaluationHook.
-# Not ported yet (it raises NotImplementedError): several devices (ROADMAP
-# queue 1, item 8).
 
 from __future__ import annotations
 
 import os
 
 import torch
+import torch.distributed as dist
 
 from ..data.device_aug import AUG_KEYS
 from ..device import resolve_device
+from ..parallel.distributed import rank_device
+from ..parallel.mesh import make_mesh
 from .hooks import (CheckpointHook, EvaluationHook, Hook, LoggerHook, LrSchedulerHook,
                     OptimizerHook, SpeedHook, get_priority)
 from .utils import (AverageMeter, get_root_logger, load_checkpoint, load_weights,
@@ -52,12 +70,33 @@ def _basic(v):
     return False
 
 
-def _device(cfg):
+def _placement(cfg):
+    """(device, mesh or None): config_dict['mesh'], else a mesh over a
+    process group of several ranks on the rank's device, else one device."""
     device = cfg.get("device", "cuda")
-    if cfg.get("mesh") is not None or isinstance(device, (list, tuple)):
-        raise NotImplementedError("training on several devices is not ported yet "
-                                  "(ROADMAP queue 1, item 8)")
-    return resolve_device(device, "config_dict['device']")
+    if isinstance(device, (list, tuple)):
+        raise ValueError("config_dict['device'] is a list: a torch process drives one "
+                         "device; launch one process per device (torchrun)")
+    mesh = cfg.get("mesh")
+    if mesh is None and dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        device = resolve_device(device, "config_dict['device']")
+        mesh = make_mesh(rank_device() if device == torch.device("cuda") else device)
+    if mesh is not None:
+        return mesh.device, mesh
+    return resolve_device(device, "config_dict['device']"), None
+
+
+def _shard(loader, mesh):
+    """The train loader yields this rank's rows of each global batch. Every
+    rank draws the index batches from rank 0's sampler stream, so the
+    ranks' rows make up one global batch however the sampler was seeded."""
+    rng = getattr(loader._dataset_sampler, "_rng", None)
+    if rng is not None:
+        state = [rng.getstate()]
+        dist.broadcast_object_list(state, src=0, group=mesh.group)
+        rng.setstate(state[0])
+    loader.shard(mesh.rank, mesh.size)
 
 
 class Executor:
@@ -68,7 +107,8 @@ class Executor:
 
         self.config_dict = config_dict
         cfg = self.config_dict
-        self.device = _device(cfg)
+        self.device, self.mesh = _placement(cfg)
+        self.rank = self.mesh.rank if self.mesh is not None else 0
 
         cfg.setdefault("work_dir", "./work_dir")
         os.makedirs(cfg["work_dir"], exist_ok=True)
@@ -93,8 +133,10 @@ class Executor:
         if input_hw is None:
             raise ValueError("config_dict['input_hw'] (train crop size) is required")
         self.input_hw = (int(input_hw[0]), int(input_hw[1]))
+        if self.mesh is not None and self.mesh.size > 1 and "train_data_loader" in cfg:
+            _shard(cfg["train_data_loader"], self.mesh)
         self.state = create_train_state(self.detector, cfg["optimizer"], generator,
-                                        self.device)
+                                        self.device, mesh=self.mesh)
 
         # weight init / resume (`executor.py:32-36,134-176`)
         if cfg.get("resume_path"):
@@ -116,6 +158,7 @@ class Executor:
             self.detector, self.state.optimizer, self.input_hw,
             clip_max_norm=float(clip_cfg["max_norm"]) if clip_cfg else 0.0,
             preprocess=cfg.get("device_augment") or cfg.get("device_preprocess"),
+            mesh=self.mesh,
         )
 
         self._eval_step = None
@@ -147,7 +190,7 @@ class Executor:
         )
         self.register_hook(SpeedHook())
         self.register_hook(CheckpointHook())
-        if cfg.get("evaluator") is not None:
+        if cfg.get("evaluator") is not None and self.rank == 0:
             self.register_hook(EvaluationHook())
         self.register_hook(LoggerHook())
 
@@ -227,14 +270,28 @@ class Executor:
         for inner, batch in enumerate(cfg["val_data_loader"]):
             cfg["inner_val_iter"] = inner
             self.call_hooks("before_val_iter")
-            outs = self._eval_step(self.state, batch["images"])
-            input_hw = (batch["images"].shape[1], batch["images"].shape[2])
-            cfg["eval_results"] = self.detector.results_from_outputs(
-                outs, input_hw, batch["meta"])
+            cfg["eval_results"] = self._val_rows(batch["images"], batch["meta"])
             cfg["eval_meta"] = batch["meta"]
             self.call_hooks("after_val_iter")
         self.call_hooks("after_val_epoch")
         cfg["mode"] = "train"
+
+    def _val_rows(self, images, meta):
+        """The per-image rows of one val batch. Over a mesh each rank runs
+        and decodes its share of the rows, and every rank gets all of them
+        back in the batch's order."""
+        input_hw = (images.shape[1], images.shape[2])
+        if self.mesh is None or self.mesh.size == 1:
+            return self.detector.results_from_outputs(self._eval_step(self.state, images),
+                                                      input_hw, meta)
+        n, r, size = len(images), self.mesh.rank, self.mesh.size
+        lo, hi = n * r // size, n * (r + 1) // size
+        rows = (self.detector.results_from_outputs(
+            self._eval_step(self.state, images[lo:hi]), input_hw, meta[lo:hi])
+            if hi > lo else [])
+        parts = [None] * size
+        dist.all_gather_object(parts, rows, group=self.mesh.group)
+        return [row for part in parts for row in part]
 
     def run(self):
         """Epochs of train + periodic val (`executor.py:249-259`)."""

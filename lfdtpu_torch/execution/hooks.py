@@ -124,7 +124,8 @@ class SpeedHook(Hook):
     over the display interval. lfdtpu records the batch size weighted by
     the seconds, which reads batch x seconds (ROADMAP F12). The step is
     asynchronous on a GPU, so this times the host's enqueue, not the
-    device's work."""
+    device's work. batch_size is the global batch: over a data mesh each
+    rank reads the global images/s."""
 
     def __init__(self):
         super().__init__()
@@ -156,8 +157,12 @@ class SpeedHook(Hook):
 
 
 class CheckpointHook(Hook):
+    """Saves every save_interval epochs; over a data mesh rank 0 alone
+    writes (the ranks hold one model)."""
+
     def after_train_epoch(self, executor):
-        if executor.config_dict["epoch"] % executor.config_dict["save_interval"] == 0:
+        if (executor.config_dict["epoch"] % executor.config_dict["save_interval"] == 0
+                and executor.rank == 0):
             executor.save()
 
 
@@ -246,7 +251,7 @@ class LoggerHook(Hook):
 
     def after_val_epoch(self, executor):
         cfg = executor.config_dict
-        if cfg.get("evaluator") is not None:
+        if cfg.get("evaluator") is not None and executor.rank == 0:
             cfg["logger"].info(cfg["evaluator"].get_eval_display_str())
 
 

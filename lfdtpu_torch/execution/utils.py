@@ -115,7 +115,9 @@ def _card_line():
 
 def collect_envs():
     """Environment summary (`utils.py:125-145`), PyTorch edition: torch,
-    CUDA and cuDNN versions, the devices, and the cards' power limits."""
+    CUDA and cuDNN versions, the devices, the cards' power limits and the
+    process group's world size (1 without one)."""
+    dist = torch.distributed
     envs = {
         "python": sys.version.replace("\n", ""),
         "torch": torch.__version__,
@@ -124,6 +126,8 @@ def collect_envs():
         "cudnn": torch.backends.cudnn.version() if torch.backends.cudnn.is_available() else None,
         "cuda_device_count": torch.cuda.device_count(),
         "cpu_count": os.cpu_count(),
+        "world_size": (dist.get_world_size()
+                       if dist.is_available() and dist.is_initialized() else 1),
     }
     if torch.cuda.is_available():
         envs["devices"] = ", ".join(torch.cuda.get_device_name(i)
@@ -147,7 +151,9 @@ def customize_exception_hook(exception_log_path):
 
 def set_random_seed(seed):
     """Seed `random` (the region samplers draw from it), numpy and torch;
-    returns a torch.Generator seeded with `seed` for the weight init."""
+    returns a torch.Generator seeded with `seed` for the weight init. Every
+    rank of a data mesh takes the same seed: one init (rank 0's weights are
+    broadcast as well) and one sampler stream, which the ranks shard."""
     random.seed(seed)
     np.random.seed(seed)
     torch.manual_seed(seed)

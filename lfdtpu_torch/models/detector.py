@@ -19,6 +19,7 @@ from ..ops import points as point_ops
 from ..ops.decode import DecodeSpec, decode_predictions, detections_to_lists
 from ..ops.loss_wrappers import (CLASSIFICATION_LOSSES, INDEPENDENT_REGRESSION_LOSSES,
                                  UNION_REGRESSION_LOSSES)
+from ..parallel.distributed import global_sum, global_sums
 from .heads import FCOS_PRIOR_BIAS, FCOSHead
 from .layers import Scale, kaiming_out_, xavier_uniform_
 
@@ -340,7 +341,7 @@ class LFD(DenseDetector):
             normalize_by_range=self.regression_loss_type == "independent")
 
     def get_loss(self, outputs, gt_bboxes, gt_labels, gt_mask, input_hw,
-                 level_arrays=None):
+                 level_arrays=None, mesh=None):
         """Loss with on-device target assignment (`lfdtpu` get_loss,
         `lfd/model/lfd.py:284-395` semantics), in the outputs' dtype (float32
         from the train step; float64 works too), with no host sync.
@@ -353,8 +354,12 @@ class LFD(DenseDetector):
           input_hw: (h, w) of the network input.
           level_arrays: the per-point constants on the outputs' device
             (default: level_arrays(input_hw, device), cached).
-        Returns {"loss": 0-d tensor, "loss_values": {loss,
-          classification_loss, regression_loss, num_pos}}.
+          mesh: a parallel.Mesh whose ranks hold the other rows of the
+            global batch: the normalizers (num_pos, the weight sums) are
+            global sums, clamped after the sum, so that the ranks' losses
+            add up to lfdtpu's loss of the global batch.
+        Returns {"loss": 0-d tensor (this rank's share), "loss_values":
+          {loss, classification_loss, regression_loss, num_pos}, global}.
         """
         cls_pred, reg_pred = outputs
         B, P = cls_pred.shape[:2]
@@ -374,9 +379,11 @@ class LFD(DenseDetector):
         valid_row = (cls_t_f.amin(dim=-1) >= 0).to(cls_pred.dtype)
         max_scores, max_idx = cls_t_f.max(dim=-1)
         pos_row = valid_row * (max_scores >= 0.001).to(cls_pred.dtype)
-        num_pos = pos_row.sum()
+        num_pos = global_sum(pos_row.sum(), mesh)
         weight = max_scores * pos_row
-        cls_avg = weight.sum() if self.enable_classification_weight else num_pos + 1.0
+        weight_sum = (global_sum(weight.sum(), mesh) if self.enable_classification_weight
+                      or self.enable_regression_weight else None)
+        cls_avg = weight_sum if self.enable_classification_weight else num_pos + 1.0
 
         cname = self.classification_loss_type
         if cname == "BCEWithLogitsLoss":  # soft score targets
@@ -392,7 +399,7 @@ class LFD(DenseDetector):
                 cls_pred_f, target, weight=valid_row, avg_factor=cls_avg)
 
         reg_weight_rows = weight if self.enable_regression_weight else pos_row
-        reg_avg = (weight.sum() if self.enable_regression_weight else num_pos).clamp(min=1e-6)
+        reg_avg = (weight_sum if self.enable_regression_weight else num_pos).clamp(min=1e-6)
 
         if self.regression_loss_type == "independent":
             reg_loss = self.regression_loss_func(
@@ -413,9 +420,9 @@ class LFD(DenseDetector):
                 pred_xyxy, target_xyxy, weight=reg_weight_rows, avg_factor=reg_avg)
 
         loss = cls_loss + reg_loss
-        return dict(loss=loss, loss_values=dict(
-            loss=loss, classification_loss=cls_loss, regression_loss=reg_loss,
-            num_pos=num_pos))
+        values = global_sums(dict(loss=loss, classification_loss=cls_loss,
+                                  regression_loss=reg_loss), mesh)
+        return dict(loss=loss, loss_values=dict(values, num_pos=num_pos))
 
     # ------------------------------------------------------------ decode
     def decode_spec(self, classification_threshold=None, nms_threshold=None,

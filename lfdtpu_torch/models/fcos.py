@@ -21,7 +21,13 @@ from ..ops import assign as assign_ops
 from ..ops import boxes as box_ops
 from ..ops.decode import DecodeSpec
 from ..ops.losses import binary_cross_entropy_loss
+from ..parallel.distributed import global_sum, global_sums
 from .detector import DenseDetector, DetectionNet
+
+
+def _global_batch(cls_pred, mesh):
+    """The global batch size: every rank holds as many rows as this one."""
+    return cls_pred.shape[0] * (mesh.size if mesh is not None else 1)
 
 
 class FCOS(DenseDetector):
@@ -49,51 +55,54 @@ class FCOS(DenseDetector):
         self._level_array_cache = {}
 
     # -------------------------------------------------------------- loss
-    def _classification_loss(self, cls_pred, info, gt_bboxes, gt_labels, gt_mask):
-        """(classification loss, reg targets (B*P, 4), pos (B*P,)) with
-        fcos_assign's hard labels; the average is num_pos + B."""
-        B = cls_pred.shape[0]
+    def _classification_loss(self, cls_pred, info, gt_bboxes, gt_labels, gt_mask, mesh):
+        """(classification loss, reg targets (B*P, 4), pos (B*P,), global
+        num_pos) with fcos_assign's hard labels; the average is num_pos + B
+        over the global batch."""
         labels, reg_t = assign_ops.fcos_assign(info["points"], info["ranges"], gt_bboxes,
                                                gt_labels, gt_mask, self.num_classes)
         labels = labels.reshape(-1).long()
         pos = (labels != self.num_classes).to(cls_pred.dtype)
+        num_pos = global_sum(pos.sum(), mesh)
         loss = self.classification_loss_func(cls_pred.reshape(-1, self.num_classes), labels,
-                                             avg_factor=pos.sum() + B)
-        return loss, reg_t.reshape(-1, 4), pos
+                                             avg_factor=num_pos + _global_batch(cls_pred, mesh))
+        return loss, reg_t.reshape(-1, 4), pos, num_pos
 
     def get_loss(self, outputs, gt_bboxes, gt_labels, gt_mask, input_hw,
-                 level_arrays=None):
+                 level_arrays=None, mesh=None):
         """`lfd/model/fcos.py:243-330` with padded-GT masking, LFD.get_loss's
         arguments with outputs (cls (B, P, C), reg (B, P, 4) in pixels, ctr
         (B, P, 1)). The classification averages over num_pos + B; the
         regression is weighted by the centerness targets of the positives
         and averages over their sum; the centerness BCE averages over the
-        positives. Returns {"loss", "loss_values": {loss,
+        positives. Under a data `mesh` every normalizer is a global sum
+        (LFD.get_loss). Returns {"loss", "loss_values": {loss,
         classification_loss, regression_loss, centerness_loss, num_pos}}."""
         cls_pred, reg_pred, ctr_pred = outputs
         B, P = cls_pred.shape[:2]
         info = (level_arrays if level_arrays is not None
                 else self.level_arrays(input_hw, cls_pred.device))
         assert info["points"].shape[0] == P, (info["points"].shape, P)
-        classification_loss, reg_t, pos = self._classification_loss(
-            cls_pred, info, gt_bboxes.to(info["points"].dtype), gt_labels, gt_mask.bool())
-        num_pos = pos.sum()
+        classification_loss, reg_t, pos, num_pos = self._classification_loss(
+            cls_pred, info, gt_bboxes.to(info["points"].dtype), gt_labels, gt_mask.bool(),
+            mesh)
 
         ctr_t = assign_ops.centerness_target(reg_t) * pos
         points = info["points"].repeat(B, 1)
         pred_xyxy = box_ops.distance2bbox(points, reg_pred.reshape(-1, 4).float())
         target_xyxy = box_ops.distance2bbox(points, reg_t)
         regression_loss = self.regression_loss_func(
-            pred_xyxy, target_xyxy, weight=ctr_t, avg_factor=ctr_t.sum().clamp(min=1e-6))
+            pred_xyxy, target_xyxy, weight=ctr_t,
+            avg_factor=global_sum(ctr_t.sum(), mesh).clamp(min=1e-6))
         centerness_loss = binary_cross_entropy_loss(
             ctr_pred.reshape(-1, 1), ctr_t[:, None], weight=pos[:, None],
             avg_factor=num_pos.clamp(min=1.0))
 
         loss = classification_loss + regression_loss + centerness_loss
-        return dict(loss=loss, loss_values=dict(
-            loss=loss, classification_loss=classification_loss,
-            regression_loss=regression_loss, centerness_loss=centerness_loss,
-            num_pos=num_pos))
+        values = global_sums(dict(loss=loss, classification_loss=classification_loss,
+                                  regression_loss=regression_loss,
+                                  centerness_loss=centerness_loss), mesh)
+        return dict(loss=loss, loss_values=dict(values, num_pos=num_pos))
 
     # ------------------------------------------------------------ decode
     def decode_spec(self, classification_threshold=None, nms_threshold=None,
@@ -126,8 +135,7 @@ class FCOSv1(FCOS):
 
     detector_name = "FCOSv1"
 
-    def _classification_loss(self, cls_pred, info, gt_bboxes, gt_labels, gt_mask):
-        B = cls_pred.shape[0]
+    def _classification_loss(self, cls_pred, info, gt_bboxes, gt_labels, gt_mask, mesh):
         fg, reg_t = assign_ops.fcos_v1_assign(info["points"], info["ranges"], gt_bboxes,
                                               gt_labels, gt_mask, self.num_classes)
         fg = fg.reshape(-1, self.num_classes)
@@ -135,6 +143,7 @@ class FCOSv1(FCOS):
         # the binary view (`fcos.py:711-739`): logits (B*P*C, 1), label 0 for
         # foreground and 1 (its num_classes) for background
         labels = (~fg.reshape(-1)).long()
+        num_pos = global_sum(pos.sum(), mesh)
         loss = self.classification_loss_func(cls_pred.reshape(-1, 1), labels,
-                                             avg_factor=pos.sum() + B)
-        return loss, reg_t.reshape(-1, 4), pos
+                                             avg_factor=num_pos + _global_batch(cls_pred, mesh))
+        return loss, reg_t.reshape(-1, 4), pos, num_pos

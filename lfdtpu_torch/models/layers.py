@@ -50,11 +50,22 @@ class BatchNorm2d(nn.BatchNorm2d):
     activation: with torch's rv' = (1-m) rv + m u and u = v n/(n-1),
     the wanted (1-m) rv + m v equals rv' (1 - 1/n) + (1-m) rv / n. torch
     writes rv' into a copy: the op saves its running_var for backward, so
-    the buffer itself must not change in place after it."""
+    the buffer itself must not change in place after it.
+
+    Sync-BN: with a data mesh of several ranks attached (`mesh`, set by
+    parallel.sync_batchnorm; not part of the state_dict), a training
+    forward normalizes by the moments of the global batch, as lfdtpu's one
+    program over the whole batch does (`lfdtpu/parallel/data_parallel.py:
+    7-10`): see _synced_forward. Without one (and in eval mode, as FCOS's
+    norm_eval stages run) the layer is the one-device layer above."""
+
+    mesh = None
 
     def forward(self, x):
         if not (self.training and self.track_running_stats):
             return super().forward(x)
+        if self.mesh is not None and self.mesh.size > 1:
+            return self._synced_forward(x)
         self._check_input_dim(x)
         self.num_batches_tracked.add_(1)
         n = x.numel() // x.shape[1]
@@ -65,6 +76,42 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_var.mul_((1.0 - self.momentum) / n).add_(updated,
                                                                    alpha=1.0 - 1.0 / n)
         return out
+
+    def _synced_forward(self, x):
+        """Each rank's per-channel sums of d = x - running_mean and of d^2
+        and its element count go through one all-reduce
+        (parallel.distributed.all_reduce_sum, whose backward all-reduces
+        the gradient); mean = running_mean + S1/n and the biased var =
+        S2/n - (S1/n)^2, clamped at 0: flax's E[x^2] - E[x]^2 (ROADMAP F8)
+        about a shift that every rank holds, which keeps the two terms
+        from cancelling where a channel's mean dwarfs its spread. float32
+        (float64 for a float64 input). running_var takes the biased var of
+        the n global elements (F5)."""
+        from ..parallel.distributed import all_reduce_sum
+
+        self._check_input_dim(x)
+        self.num_batches_tracked.add_(1)
+        dtype = torch.float64 if x.dtype == torch.float64 else torch.float32
+        shift = self.running_mean.detach().to(dtype).clone()
+        c = x.shape[1]
+        d = x.to(dtype) - shift[None, :, None, None]
+        moments = all_reduce_sum(torch.cat([
+            d.sum((0, 2, 3)), (d * d).sum((0, 2, 3)), d.new_full((1,), d.numel() // c)]),
+            self.mesh)
+        centred = moments[:c] / moments[-1]
+        mean = shift + centred
+        var = (moments[c:2 * c] / moments[-1] - centred * centred).clamp(min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean.to(self.running_mean.dtype), alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var.to(self.running_var.dtype), alpha=m)
+        scale = torch.rsqrt(var + self.eps)
+        if self.affine:
+            scale = scale * self.weight
+        y = (d - centred[None, :, None, None]) * scale[None, :, None, None]
+        if self.affine:
+            y = y + self.bias[None, :, None, None]
+        return y.to(x.dtype)
 
 
 def norm_from_cfg(cfg, channels):

@@ -23,6 +23,7 @@ import torch
 
 from ..ops import assign as assign_ops
 from ..ops import boxes as box_ops
+from ..parallel.distributed import global_sum, global_sums
 from .detector import LFD
 
 
@@ -68,9 +69,9 @@ class LFDv2Q(LFDv2):
         self.enable_iou_score_coupling = enable_iou_score_coupling
 
     def get_loss(self, outputs, gt_bboxes, gt_labels, gt_mask, input_hw,
-                 level_arrays=None):
+                 level_arrays=None, mesh=None):
         """`lfdv2.py:1254-1328` with padded-GT masking; the arguments and
-        returns of LFD.get_loss."""
+        returns of LFD.get_loss (under a mesh, global normalizers)."""
         cls_pred, reg_pred = outputs
         B, P = cls_pred.shape[:2]
         info = (level_arrays if level_arrays is not None
@@ -102,7 +103,8 @@ class LFDv2Q(LFDv2):
         probs = torch.sigmoid(cls_pred_f).detach()
         reg_w = probs.gather(1, max_idx[:, None])[:, 0] * pos
         regression_loss = self.regression_loss_func(
-            pred_xyxy, target_xyxy, weight=reg_w, avg_factor=reg_w.sum().clamp(min=1.0))
+            pred_xyxy, target_xyxy, weight=reg_w,
+            avg_factor=global_sum(reg_w.sum(), mesh).clamp(min=1.0))
 
         iou = box_ops.bbox_overlaps(pred_xyxy.detach(), target_xyxy, is_aligned=True)
         iou_score = iou * pos
@@ -112,9 +114,9 @@ class LFDv2Q(LFDv2):
                              torch.full_like(max_idx, self.num_classes))
         classification_loss = self.classification_loss_func(
             cls_pred_f, (labels, score_targets),
-            avg_factor=score_targets.sum().clamp(min=1.0))
+            avg_factor=global_sum(score_targets.sum(), mesh).clamp(min=1.0))
 
         loss = classification_loss + regression_loss
-        return dict(loss=loss, loss_values=dict(
-            loss=loss, classification_loss=classification_loss,
-            regression_loss=regression_loss, num_pos=pos.sum()))
+        values = global_sums(dict(loss=loss, classification_loss=classification_loss,
+                                  regression_loss=regression_loss), mesh)
+        return dict(loss=loss, loss_values=dict(values, num_pos=global_sum(pos.sum(), mesh)))

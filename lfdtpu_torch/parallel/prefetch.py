@@ -1,5 +1,7 @@
-# Host batches onto the device ahead of the step, the one-device port of
-# `lfdtpu/parallel/mesh.py:58-92::prefetch_to_device`.
+# Host batches onto the device ahead of the step, the port of
+# `lfdtpu/parallel/mesh.py:58-92::prefetch_to_device`. Under a data mesh the
+# loader already yields this rank's rows (data.ShardedDatasetSampler), so
+# they go to the rank's device as they are.
 #
 # On a CUDA device each batch's arrays are copied into pinned host memory
 # and from there to the device with non_blocking copies on a side stream,
@@ -29,11 +31,12 @@ BATCH_KEYS = ("images", "gt_bboxes", "gt_labels", "gt_mask")
 
 def prefetch_to_device(batch_iterator, device, size=2, keys=BATCH_KEYS):
     """Wrap a host batch iterator: yields the batch dicts with `keys`
-    replaced by tensors on `device`, copied `size` batches ahead.
+    replaced by tensors on `device` (a device, or a parallel.Mesh: its
+    rank's device), copied `size` batches ahead.
 
     A shared-memory slot is released as soon as its arrays are copied out
     (on the CPU into new tensors; there is nothing to overlap)."""
-    device = torch.device(device)
+    device = torch.device(getattr(device, "device", device))
     cuda = device.type == "cuda"
     stream = torch.cuda.Stream(device) if cuda else None
 

@@ -31,6 +31,7 @@ from lfdtpu_torch.execution import (  # noqa: E402
     customize_exception_hook,
     set_random_seed,
 )
+from lfdtpu_torch.parallel import initialize_distributed  # noqa: E402
 from lfdtpu_torch.workloads.TT100K_train.TT100K_augmentation_pipeline import (  # noqa: E402
     tt100k_train_pipeline,
 )
@@ -41,6 +42,9 @@ def _env_int(name, default):
 
 
 def prepare_common_settings(config_dict, script_path):
+    # under `torchrun --nproc_per_node N`: one process per card joins the
+    # process group, and the Executor trains data parallel (alone: a no-op)
+    initialize_distributed()
     config_dict["timestamp"] = time.strftime("%Y%m%d_%H%M%S", time.localtime())
     base = os.path.basename(script_path).split(".")[0]
     config_dict["work_dir"] = "./" + base + "_work_dir_" + config_dict["timestamp"]

@@ -12,8 +12,8 @@
 # tests/test_execution.py:240-300. Also: checkpoint save / resume /
 # weight_path (counters, params and momentum exact), a port checkpoint read
 # by lfdtpu.execution.load_reference_checkpoint, hook priority order,
-# AverageMeter modes, the speed reading (ROADMAP F12) and the refusals
-# (no CUDA device, several devices).
+# AverageMeter modes, the speed reading (ROADMAP F12), the refusals (no CUDA
+# device, a device list in one process) and a mesh taken.
 import os
 
 import jax
@@ -306,10 +306,14 @@ def test_executor_refuses_what_it_cannot_run(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         texe.Executor(base())  # the workload default device is cuda
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
+    # a device list would be DataParallel: one process drives one device
+    with pytest.raises(ValueError, match="launch one process per device"):
         texe.Executor(base(device=["cuda:0", "cuda:1"]))
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        texe.Executor(base(device="cpu", mesh=object()))
+    # a real mesh is taken: its device is the run's (ROADMAP item 8)
+    from lfdtpu_torch.parallel import Mesh
+
+    ex = texe.Executor(base(device="cuda", mesh=Mesh(1, 0, torch.device("cpu"))))
+    assert ex.device == torch.device("cpu") and ex.mesh.size == 1 and ex.rank == 0
     # a val loop and an evaluator are taken now (tests/test_torch_val.py runs them)
     ex = texe.Executor(base(device="cpu", val_interval=1, val_data_loader=object(),
                             evaluator=object()))

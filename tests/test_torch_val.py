@@ -5,7 +5,8 @@
 #     of rows per image, each row within ROW_TOL of lfdtpu's (float32 convs
 #     summed in another order);
 #   - make_eval_step: lfdtpu's dense outputs, the BN statistics untouched,
-#     the net left in the mode it was found in; mesh and spatial refuse;
+#     the net left in the mode it was found in; a one-device mesh gives the
+#     same outputs, spatial (ROADMAP item 8b) refuses;
 #   - the val loop (tests/test_execution.py::test_executor_val_loop, over 2
 #     epochs): both Executors from the same initial state, val_interval 1, a
 #     COCOEvaluator each; the per-image results of every val pass and the
@@ -91,9 +92,14 @@ def test_eval_step_matches_lfdtpu_and_leaves_the_net_alone():
         net.eval()
     assert all(torch.equal(v, before[k]) for k, v in net.state_dict().items())
     assert not tc.requires_grad
-    for kw in (dict(mesh=object()), dict(spatial=True)):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            make_eval_step(tdet, **kw)
+    # a mesh without a process group is one device: the same outputs
+    from lfdtpu_torch.parallel import Mesh
+
+    mesh = Mesh(1, 0, torch.device("cpu"))
+    tc1, tr1 = make_eval_step(tdet, mesh)(state, images)
+    assert torch.equal(tc1, tc) and torch.equal(tr1, tr)
+    with pytest.raises(NotImplementedError, match="item 8b"):
+        make_eval_step(tdet, mesh, spatial=True)
 
 
 class _ValDataset(_ArrayDataset):
