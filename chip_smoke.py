@@ -8,7 +8,9 @@ a user gets it on the card, the WIDERFACE-L training step, the training
 entry point with its val loop, and the evaluation script; then the TT100K
 and TrafficLight workloads (serving, training entry points, evaluation) and
 the LFDv2 family, FCOS-R50-FPN, the int8 engine, engine files, and
-learning on synthetic scenes, and data-parallel training. It checks them:
+learning on synthetic scenes, data-parallel training, and the spatial
+mesh (the image height split over ranks) of the engine and the eval step.
+It checks them:
 
   1. card     the GPU's name and power limit (nvidia-smi);
   2. build    the hand-written kernels from lfdtpu_torch/csrc/*.cu (nvcc);
@@ -147,7 +149,8 @@ learning on synthetic scenes, and data-parallel training. It checks them:
  10. traffic  the TT100K_LFD_L and TL_LFD_L configs (their _common, as the
      train    scripts build them) trained end to end: 2 epochs with device
               augmentation, a resume from epoch_1.pth (exact), 2 epochs
-              with host augmentation; losses finite, lr on the warmup. The
+              (TT100K: TT_HOST_EPOCHS, 1) with host augmentation; losses
+              finite, lr on the warmup. The
               packs are made by the port's own scripts from seeded files
               written here. TT100K: 100 2048x2048 JPEGs with 1-8 signs of
               8-200 px over the 45 classes, 8 without one, and the margins
@@ -318,6 +321,34 @@ learning on synthetic scenes, and data-parallel training. It checks them:
               equal a one-process val pass of that checkpoint, K1's
               launches counted per rank. A rank that fails, dies or hangs
               past DDP_CHILD_TIMEOUT fails the run.
+ 17. spatial  the image height split over a mesh's spatial axis
+              (`chip_smoke.spatial_phase`), counters zeroed before each path
+              and read after it. First compile_inference(mesh=make_mesh())
+              in a process group of one rank over NCCL, WIDERFACE-L at
+              1088x1920, bf16 with K1-K3 and int8: captured, the same
+              launches per capture and every output bit-equal to mesh=None.
+              The one-process eager engines at 3840x2160 (the sweep's 4K
+              bucket) timed alone. Then gloo ranks sharing the card, each a
+              fresh process (`chip_smoke.py --spatial-rank R DIR`), in
+              SPATIAL_SHAPES: 2 ranks (spatial 2, one frame) and 4 ranks (2
+              data x 2 spatial, a batch of 2). Each rank builds WIDERFACE-L
+              at full width and its eager mesh engines (fp32, bf16 with
+              K1-K3, int8 with a float32 and a bf16 head: the default
+              calibration on each rank's whole noise frames, rank 0's
+              scales), serves the 4K frames (one warm call, SPATIAL_FRAMES
+              timed: ms a call, peak memory, launches), times one call with
+              its collectives synchronized apart (their ms and count), holds
+              every K1-K4 launch of one call on its strips to the plain
+              version (K1, K4 exact; K2, K3 within K2_TOL / K3_TOL), then the
+              one-process eager engine of the same build on the same frames:
+              counts equal, rows and dense outputs within SPATIAL_ROW_TOL /
+              SPATIAL_DENSE_TOL, every int8 edge of the rank's rows
+              bit-equal, and that engine's peak memory. Then
+              make_eval_step(spatial=True) of WIDERFACE-L at 1088x1920 and
+              FCOS-R50-FPN at 800x1333 (fp32) against the one-process
+              forward (DENSE_FP32_TOL), ms and peak memory of each. A rank
+              that fails, dies or hangs past SPATIAL_CHILD_TIMEOUT fails the
+              run.
 
 The second-to-last line is a JSON object {"kernels": [...]} (K1-K4; each
 kernel's launches on its main path: WIDERFACE-L's bf16 engines for K1-K3,
@@ -328,7 +359,9 @@ engine), the engine files' loaded path's launches at load and capture and
 by its replays, in the fresh processes, phase 15's paths (multiclass_nms,
 and each synthetic run's val loop and engines: eager_and_capture and
 replayed), phase 16's paths (the train steps, and each rank's Executor run
-with K1 in its val decode; replayed null); K2's and K3's times at the new shapes, K1's at the FCOS shape,
+with K1 in its val decode; replayed null), phase 17's paths (the one-rank
+NCCL mesh engines' build and capture; each 4K mesh engine's and eval
+step's launches by rank, replayed null: eager); K2's and K3's times at the new shapes, K1's at the FCOS shape,
 K4's at its other shapes of a WIDERFACE-L frame and its mma.sync route's
 synthetic shapes, and each kernel's at the trained 128x128 engines' shapes
 in other_shapes; K4's main-path launches by route in launches_by_route); a
@@ -341,8 +374,8 @@ freshly captured engine (see there).
 
 Run from the root of a checkout:  python3 chip_smoke.py
 (phase 14 runs it again as `python3 chip_smoke.py --serve-file FILE DIR` in
-its fresh processes, phase 16 as `python3 chip_smoke.py --ddp-rank R DIR` in
-its ranks)
+its fresh processes, phase 16 as `python3 chip_smoke.py --ddp-rank R DIR` and
+phase 17 as `python3 chip_smoke.py --spatial-rank R DIR` in its ranks)
 """
 
 from __future__ import annotations
@@ -435,6 +468,7 @@ TRAFFIC = {  # zoo name: (frame, the workload's normalize and BGR -> RGB, engine
 SERVED_FRAMES = 3           # frames each traffic main path serves
 TT_PACK_POS, TT_PACK_BARE = 100, 8  # 2 iterations of 58 positives (+ 6 negatives) at batch 64
 TL_PACK_IMAGES = 20         # 16 with lights: 4 iterations at batch 4
+TT_HOST_EPOCHS = 1          # TT100K's host-aug run (2 iterations at its 5-6 images/s)
 EVAL_IMAGES = 4             # TT100K images scored by evaluation.py
 TRAIN_SERVE_HW = (768, 1280)  # the trained traffic nets' engines
 TT_TRAIN_HW, TT_TRAIN_NMAX = (512, 512), 100  # the TT100K workload's crop and GT rows
@@ -527,6 +561,38 @@ DDP_ROW_TOL = 1e-3          # val rows of two ranks against one process, max |er
 # sum, one process once. The two-rank bf16 step is held to the fp32 step:
 # at most BF16_BAND times as far from it as the one-process bf16 step is
 BF16_BAND = 2.0
+# spatial parallelism (phase 17): WIDERFACE-L at the sweep's 4K bucket
+# (DEFAULT_BUCKETS) on SPATIAL_SHAPES of gloo ranks sharing the card, each
+# engine variant eager (several ranks: host collectives), one warm call
+# then SPATIAL_FRAMES timed; the eval step at each model's test size
+SPATIAL_HW = (2160, 3840)
+SPATIAL_VHW = ((2160, 3840), (2100, 3712))  # each frame's valid extent
+SPATIAL_SHAPES = (  # (label, ranks, spatial axis, global batch)
+    ("2 ranks: spatial 2", 2, 2, 1),
+    ("4 ranks: 2 data x 2 spatial", 4, 2, 2))
+SPATIAL_ENGINES = ("fp32", "bf16_kernels", "int8", "int8_bf16")
+SPATIAL_FRAMES = 3
+SPATIAL_EVAL = (("WIDERFACE-L", (1088, 1920)), ("FCOS-R50-FPN", (800, 1333)))
+SPATIAL_SEED = 23
+SPATIAL_CHILD_TIMEOUT = 900  # seconds a rank may take, its start included
+# strips against the whole frame on one card: the strips' convs run other
+# cuDNN algorithms than the whole frame's, which sum in another order. fp32
+# (TF32 off) and the int8 engine's float32 head: the dense outputs within
+# DENSE_FP32_TOL (max|err| / max|ref|), every row matched (same label, box
+# within 0.1 px, score within 1e-3). bf16 (and int8's bf16 head): a bf16
+# rounding that falls the other way moves what follows by 2^-8 and more
+# (tests/test_torch_spatial.py's BF16_DENSE_TOL, 2^-4), and at the max_det
+# cut dozens of candidates share a few score values (sigmoid of bf16
+# logits), so which of the tied ones make the cut turns on that rounding:
+# rows within 1 px and 0.02, and a row of one process without a twin only
+# with a score within SPATIAL_CUT_TOL of the lowest kept score. Counts
+# equal in every engine.
+SPATIAL_DENSE_TOL = {"fp32": DENSE_FP32_TOL, "int8": DENSE_FP32_TOL,
+                     "bf16_kernels": 2.0 ** -4, "int8_bf16": 2.0 ** -4}
+SPATIAL_ROW_TOL = {"fp32": (0.1, 1e-3), "int8": (0.1, 1e-3), "bf16_kernels": (1.0, 0.02),
+                   "int8_bf16": (1.0, 0.02)}
+SPATIAL_CUT_TOL = 1e-3
+SPATIAL_CUT_VARIANTS = ("bf16_kernels", "int8_bf16")  # the engines whose cut may trade rows
 
 
 class SmokeFailure(RuntimeError):
@@ -2386,11 +2452,11 @@ def build_tl_pack(tmp, seed=23):
     return pack, ann, root
 
 
-def train_entry_point(task, script, size, pack, card):
+def train_entry_point(task, script, size, pack, card, host_epochs=2):
     """A port workload script's config trained end to end through the
     Executor: 2 epochs with device augmentation, a resume from epoch_1.pth
-    (counters and params exact) for the last epoch, then 2 epochs with host
-    augmentation. Returns the final checkpoint."""
+    (counters and params exact) for the last epoch, then `host_epochs` with
+    host augmentation. Returns the final checkpoint."""
     import torch
 
     from lfdtpu_torch.execution import Executor
@@ -2418,8 +2484,10 @@ def train_entry_point(task, script, size, pack, card):
     final = os.path.join(cfg2["work_dir"], "final.pth")
     resumed.save(final)
     del resumed
-    host_cfg = workload_config(task, script, pack, device_aug=False, size=size)
-    host_ex, _ = run_workload(host_cfg, card, f"{label}, host aug, 2 epochs")
+    host_cfg = workload_config(task, script, pack, device_aug=False, size=size,
+                               epochs=host_epochs)
+    host_ex, _ = run_workload(host_cfg, card, f"{label}, host aug, {host_epochs} epoch"
+                              + "s" * (host_epochs > 1))
     del host_ex
     torch.cuda.empty_cache()
     return final
@@ -2439,7 +2507,8 @@ def train_traffic(device, card, counters, tmp):
     tt_pack, tt_root = build_tt100k_pack(tmp)
     print(f"TT100K data written and packed in {time.time() - t0:.1f} s")
     zero_counts(counters)
-    final = train_entry_point("TT100K_train", "TT100K_LFD_L.py", "L", tt_pack, card)
+    final = train_entry_point("TT100K_train", "TT100K_LFD_L.py", "L", tt_pack, card,
+                              host_epochs=TT_HOST_EPOCHS)
     print("hand-written kernel launches during TT100K training (its path runs none): "
           f"{ {c.__name__: c.launches for c in counters} }")
     det = zoo.tt100k_lfd("L")
@@ -4500,6 +4569,439 @@ def ddp_phase(device, card, counters):
             dict(**{f"{r} eager": n for r, n in executor.items()}, replayed=None)}
 
 
+# ------------------------------------------------------ spatial (phase 17)
+
+def spatial_world_size_1(device, card):
+    """compile_inference(mesh=make_mesh()) in a process group of one rank
+    over NCCL against mesh=None, both captured, WIDERFACE-L at HW, bf16 with
+    K1-K3 and int8: the same launches per capture and every output
+    bit-equal on two frames."""
+    import torch
+    import torch.distributed as dist
+
+    from lfdtpu_torch.parallel import make_mesh
+
+    det = build_detector(device, seed=SPATIAL_SEED)
+    rng = np.random.RandomState(SPATIAL_SEED)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh()
+        check(mesh.world_size == 1 and dist.get_backend() == "nccl"
+              and mesh.device.type == "cuda", f"the NCCL mesh is {mesh}")
+        for variant in ("bf16_kernels", "int8"):
+            plain = compile_engine(det, HW, device, variant)
+            kw = dict(act_scales=plain.int8_chain.amax) if variant == "int8" else {}
+            meshed = compile_engine(det, HW, device, variant, mesh=mesh, **kw)
+            same = []
+            for _ in range(2):
+                imgs = frames(rng, 1, HW)
+                a, b = plain(imgs, HW), meshed(imgs, HW)
+                same.append(all(torch.equal(a[k], b[k]) for k in a))
+            print(f"spatial: {variant} WIDERFACE-L {HW[0]}x{HW[1]} through compile_inference("
+                  "mesh=make_mesh()), one rank over NCCL, against mesh=None: captured="
+                  f"{meshed.captured}, launches per capture {meshed.captured_launches} "
+                  f"(mesh=None {plain.captured_launches}), two frames bit-equal={same} [{card}]")
+            check(meshed.captured and meshed.mesh is None and all(same)
+                  and meshed.captured_launches == plain.captured_launches,
+                  f"the one-rank mesh engine ({variant}) is not the engine of mesh=None")
+            del plain, meshed
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+
+def match_rows(got, ref, px, score):
+    """Rows of two engines' detections matched in any order: (counts equal,
+    one process's rows without a twin in `got` (same label, box within
+    `px`, score within `score`): each as its image, row, score, the lowest
+    kept score and the nearest box's distance and score; the largest box
+    and score errors of the matched rows)."""
+    got = {k: v.float().cpu().numpy() for k, v in got.items()}
+    ref = {k: v.float().cpu().numpy() for k, v in ref.items()}
+    counts = bool(np.array_equal(got["count"], ref["count"]))
+    missed, box_err, score_err = [], 0.0, 0.0
+    for b, n in enumerate(ref["count"].astype(int).reshape(-1)):
+        free = list(range(int(got["count"].reshape(-1)[b])))
+        for i in range(n):
+            cand = [j for j in free if got["labels"][b, j] == ref["labels"][b, i]
+                    and np.abs(got["boxes"][b, j] - ref["boxes"][b, i]).max() <= px
+                    and abs(got["scores"][b, j] - ref["scores"][b, i]) <= score]
+            if not cand:
+                near = min(range(int(got["count"].reshape(-1)[b])), default=None,
+                           key=lambda j: np.abs(got["boxes"][b, j] - ref["boxes"][b, i]).max())
+                missed.append(dict(
+                    image=b, row=i, score=float(ref["scores"][b, i]),
+                    cut=float(ref["scores"][b, n - 1]),
+                    nearest_box_px=None if near is None else float(
+                        np.abs(got["boxes"][b, near] - ref["boxes"][b, i]).max()),
+                    nearest_score=None if near is None else float(got["scores"][b, near])))
+                continue
+            j = min(cand, key=lambda j: np.abs(got["boxes"][b, j] - ref["boxes"][b, i]).max())
+            box_err = max(box_err, float(np.abs(got["boxes"][b, j] - ref["boxes"][b, i]).max()))
+            score_err = max(score_err, float(abs(got["scores"][b, j] - ref["scores"][b, i])))
+            free.remove(j)
+    return counts, missed, box_err, score_err
+
+
+def strip_kernels(engine, imgs, vhw, label):
+    """Every kernel the mesh engine launches on one call, held to its plain
+    version on the inputs it was given on this rank's strips: K1 and K4
+    exact, K2 within K2_TOL and K3 within K3_TOL (max|err| / max|ref|).
+    Returns {kernel: (calls, max error)}."""
+    import torch
+
+    from lfdtpu_torch.deploy import kernel_net
+    from lfdtpu_torch.ops import conv_kernels, nms_kernel
+
+    (((_, k4calls), k3calls), k2calls) = recorded_calls(
+        kernel_net, "stem_conv", lambda: recorded_calls(
+            kernel_net, "pair_conv3x3", lambda: k4_inputs(lambda: engine(imgs, vhw))))
+    _, k1calls = k1_inputs(lambda: engine(imgs, vhw))
+    out = {}
+    for name, calls, run, plain, tol in (
+            ("stem_conv", k2calls, conv_kernels.stem_conv, conv_kernels.stem_conv_plain, K2_TOL),
+            ("pair_conv3x3", k3calls, conv_kernels.pair_conv3x3,
+             conv_kernels.pair_conv3x3_plain, K3_TOL)):
+        errs = [rel_err(run(*a, **kw), plain(*a, **kw)) for a, kw in calls]
+        out[name] = (len(calls), max(errs, default=0.0))
+        check(out[name][1] < tol, f"{label}: {name} on strips disagrees with its plain version")
+    if k4calls:
+        out["int8_conv"] = (len(k4calls), check_k4(k4calls, label)[0])
+    errs = []
+    for boxes, valid, thr in k1calls:
+        got = nms_kernel.nms_mask_sorted(boxes, valid, thr)
+        errs.append(float((got != nms_kernel.nms_mask_sorted_plain(boxes, valid, thr)).sum()))
+    out["nms_mask_sorted"] = (len(k1calls), max(errs, default=0.0))
+    check(out["nms_mask_sorted"][1] == 0, f"{label}: K1 disagrees with its plain version")
+    torch.cuda.synchronize()
+    return out
+
+
+def spatial_engine(det, variant, mesh, imgs, vhw, counters, label, device):
+    """One mesh engine of phase 17 on this rank: built and served (the path:
+    counters zeroed before, read after), then timed, its collectives timed,
+    its kernels held to their plain versions, and the one-process eager
+    engine of the same build on the same frames (rows, dense outputs, int8
+    edges, peak memory). Returns the rank's record."""
+    import torch
+
+    from lfdtpu_torch.parallel import local_batch_slice, owned_rows
+    from lfdtpu_torch.parallel.spatial import SpatialNet
+
+    batch = len(imgs)
+    rec = {}
+    zero_counts(counters)
+    engine = compile_engine(det, SPATIAL_HW, device, variant, batch_size=batch, mesh=mesh)
+    check(not engine.captured and isinstance(engine.spatial, SpatialNet),
+          f"{label}: the mesh engine is not an eager spatial engine")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    got = engine(imgs, vhw)  # the plan, cuDNN's algorithms
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(SPATIAL_FRAMES):
+        t0 = time.perf_counter()
+        engine(imgs, vhw)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    rec["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
+    rec["launches"] = {c.__name__: c.launches for c in counters}
+    rec["ms_per_call"] = ms
+    strips = engine.spatial.strips
+    strips.timed, strips.collective_seconds, strips.collectives = True, 0.0, 0
+    t0 = time.perf_counter()
+    engine(imgs, vhw)
+    torch.cuda.synchronize()
+    rec["timed_call_ms"] = (time.perf_counter() - t0) * 1e3
+    rec["collective_ms"], rec["collectives"] = strips.collective_seconds * 1e3, strips.collectives
+    strips.timed = False
+    rec["kernels"] = strip_kernels(engine, imgs, vhw, label)
+    dense = [d.float() for d in engine.dense(imgs)]
+    amax, edges = None, None
+    if variant.startswith("int8"):
+        amax = engine.spatial.module.amax
+        capture = dict.fromkeys(engine.spatial.module.int8_edges())
+        x, _ = engine._local(imgs, vhw)
+        with torch.inference_mode():
+            engine.spatial(engine.program.preprocess(x).float(), capture=capture)
+        edges = {k: v[0].cpu() for k, v in capture.items()}
+    got = {k: v.cpu() for k, v in got.items()}
+    del engine
+    torch.cuda.empty_cache()
+
+    one = compile_engine(det, SPATIAL_HW, device, variant, batch_size=batch, captured=False,
+                         **(dict(act_scales=amax) if amax is not None else {}))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ref = one(imgs, vhw)
+    torch.cuda.synchronize()
+    rec["one_peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
+    rec["dense_err"] = max(rel_err(a, b.float()) for a, b in zip(dense, one.dense(imgs)))
+    rec["rows"] = match_rows(got, ref, *SPATIAL_ROW_TOL[variant])
+    rec["count"] = ref["count"].tolist()
+    if edges is not None:
+        b0, b1 = local_batch_slice(batch, mesh.rank, mesh.size)
+        capture = dict.fromkeys(edges)
+        with torch.inference_mode():
+            one.int8_chain(one.program.preprocess(torch.as_tensor(imgs, device=device)).float(),
+                           capture=capture)
+        equal = 0
+        for name, a in edges.items():
+            b = capture[name][0][b0:b1]
+            lo, hi = owned_rows(b.shape[1], mesh.spatial, mesh.spatial_rank)
+            equal += int(torch.equal(a, b[:, lo:hi].cpu()))
+        rec["edges"] = (equal, len(edges))
+    del one
+    torch.cuda.empty_cache()
+    return rec
+
+
+def spatial_eval(name, hw, mesh, batch, counters, label, device):
+    """make_eval_step(spatial=True) of `name` at `hw` on this rank's rows of
+    a seeded global batch (fp32, TF32 off), against the one-process eval
+    forward: ms a call, peak memory of each, the dense outputs' max|err| /
+    max|ref|, the launches (counters zeroed before, read after)."""
+    import torch
+
+    from lfdtpu_torch.models.detector import eval_forward
+    from lfdtpu_torch.parallel import make_eval_step
+    from lfdtpu_torch.parallel.data_parallel import TrainState
+
+    det = (build_detector(device, seed=SPATIAL_SEED) if name == "WIDERFACE-L"
+           else fcos_r50_fpn(device, seed=SPATIAL_SEED))
+    images = np.random.RandomState(SPATIAL_SEED).uniform(
+        -1.0, 1.0, (batch,) + tuple(hw) + (3,)).astype(np.float32)
+    state = TrainState(det.net, None)
+    zero_counts(counters)
+    step = make_eval_step(det, mesh, spatial=True)
+    step(state, images)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    outs = step(state, images)
+    torch.cuda.synchronize()
+    rec = dict(ms=(time.perf_counter() - t0) * 1e3,
+               peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
+               launches={c.__name__: c.launches for c in counters})
+    torch.cuda.reset_peak_memory_stats()
+    refs = eval_forward(det.net, images)
+    torch.cuda.synchronize()
+    rec["one_peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
+    rec["err"] = max(rel_err(a, b) for a, b in zip(outs, refs))
+    check(len(outs) == len(refs) and all(a.shape == b.shape for a, b in zip(outs, refs)),
+          f"{label}: the spatial eval step's outputs are not one process's shapes")
+    del det, step, outs, refs
+    torch.cuda.empty_cache()
+    return rec
+
+
+def spatial_rank(rank, out_dir):
+    """One rank of phase 17 (`chip_smoke.py --spatial-rank R DIR`), on the
+    one card over gloo with CUDA tensors, on the mesh of DIR/job.json: the
+    spatial engines of SPATIAL_ENGINES at SPATIAL_HW (spatial_engine), then
+    the eval steps of SPATIAL_EVAL. Writes DIR/rank{R}.json."""
+    import torch
+    import torch.distributed as dist
+
+    from lfdtpu_torch.ops import conv_kernels, int8_conv, kernel_lib, nms_kernel
+    from lfdtpu_torch.parallel import initialize_distributed, make_mesh
+
+    faulthandler.enable(all_threads=False)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(out_dir, "job.json")) as f:
+        job = json.load(f)
+    initialize_distributed("gloo", f"tcp://127.0.0.1:{job['port']}", job["world"], rank)
+    mesh = make_mesh(spatial=job["spatial"])
+    device = job["device"]
+    check(mesh.device.type == torch.device(device).type and dist.get_backend() == "gloo"
+          and mesh.world_size == job["world"] and mesh.spatial == job["spatial"],
+          f"rank {rank}: mesh {mesh}")
+    kernel_lib.library()  # the parent built it
+    counters = (nms_kernel.nms_mask_sorted, conv_kernels.stem_conv,
+                conv_kernels.pair_conv3x3, int8_conv.int8_conv)
+    card = card_line()
+    batch = job["batch"]
+    imgs = frames(np.random.RandomState(SPATIAL_SEED), batch, SPATIAL_HW)
+    vhw = np.asarray(SPATIAL_VHW[:batch], np.float32)
+    det = build_detector(device, seed=SPATIAL_SEED)
+    where = f"rank {rank} (data {mesh.rank}, spatial {mesh.spatial_rank})"
+    out = dict(coords=(mesh.rank, mesh.spatial_rank), engines={}, eval={})
+    for variant in SPATIAL_ENGINES:
+        rec = spatial_engine(det, variant, mesh, imgs, vhw, counters, f"{where} {variant}",
+                             device)
+        out["engines"][variant] = rec
+        print(f"[rank {rank}] {variant} WIDERFACE-L {SPATIAL_HW[1]}x{SPATIAL_HW[0]} batch "
+              f"{batch}, {where} of {job['label']}: eager "
+              + ", ".join(f"{v:.1f}" for v in rec["ms_per_call"]) + " ms a call; a call "
+              f"with its {rec['collectives']} collectives timed apart: {rec['timed_call_ms']:.1f}"
+              f" ms, of which the collectives {rec['collective_ms']:.1f}; peak "
+              f"{rec['peak_mib']:.0f} MiB (one process, whole frames: {rec['one_peak_mib']:.0f});"
+              f" launches {rec['launches']} [{card}]", flush=True)
+    for name, hw in SPATIAL_EVAL:
+        rec = spatial_eval(name, hw, mesh, batch, counters, f"{where} {name}", device)
+        out["eval"][name] = rec
+        print(f"[rank {rank}] make_eval_step(spatial=True) {name} {hw[1]}x{hw[0]} batch {batch}, "
+              f"{where}: {rec['ms']:.1f} ms a call, peak {rec['peak_mib']:.0f} MiB (one "
+              f"process {rec['one_peak_mib']:.0f}), max|err|/max|ref| against one process "
+              f"{rec['err']:.2e}, launches {rec['launches']} [{card}]", flush=True)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def spatial_baselines(device, card):
+    """The one-process eager engines of SPATIAL_ENGINES at SPATIAL_HW, at
+    each shape's batch, alone on the card: ms a call (one warm call, then
+    SPATIAL_FRAMES timed)."""
+    import torch
+
+    det = build_detector(device, seed=SPATIAL_SEED)
+    out = {}
+    for batch in sorted({b for *_, b in SPATIAL_SHAPES}):
+        imgs = frames(np.random.RandomState(SPATIAL_SEED), batch, SPATIAL_HW)
+        vhw = np.asarray(SPATIAL_VHW[:batch], np.float32)
+        for variant in SPATIAL_ENGINES:
+            engine = compile_engine(det, SPATIAL_HW, device, variant, batch_size=batch,
+                                    captured=False)
+            engine(imgs, vhw)
+            torch.cuda.synchronize()
+            ms = []
+            for _ in range(SPATIAL_FRAMES):
+                t0 = time.perf_counter()
+                engine(imgs, vhw)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            out[(variant, batch)] = ms
+            print(f"spatial baseline: {variant} WIDERFACE-L {SPATIAL_HW[1]}x{SPATIAL_HW[0]} "
+                  f"batch {batch}, one process, eager: " + ", ".join(f"{v:.1f}" for v in ms)
+                  + f" ms a call [{card}]")
+            del engine
+            torch.cuda.empty_cache()
+    return out
+
+
+def spatial_ranks(label, world, spatial, batch, card, tmp, device):
+    """`world` fresh processes on the one card (spatial_rank), each must
+    exit 0 within SPATIAL_CHILD_TIMEOUT; prints their lines and checks
+    their records. Returns {rank: record}."""
+    with open(os.path.join(tmp, "job.json"), "w") as f:
+        json.dump(dict(port=free_port(), world=world, spatial=spatial, batch=batch,
+                       label=label, device=device), f)
+    t0 = time.time()
+    procs, logs = [], []
+    for r in range(world):
+        logs.append(os.path.join(tmp, f"rank{r}.log"))
+        with open(logs[-1], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--spatial-rank", str(r), tmp],
+                stdout=log, stderr=subprocess.STDOUT))
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, SPATIAL_CHILD_TIMEOUT - (time.time() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:  # a hung rank fails the run; none outlives it
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        with open(logs[r]) as f:
+            log = f.read()
+        for line in log.splitlines():
+            if line.startswith("[rank"):
+                print(line)
+        check(p.returncode == 0, f"spatial rank {r} of {world} exited {p.returncode} "
+              f"(killed after {SPATIAL_CHILD_TIMEOUT} s if negative):\n{log[-4000:]}")
+    print(f"spatial: {label}, each rank a fresh process on the one card: "
+          f"{time.time() - t0:.1f} s")
+    ranks = {}
+    for r in range(world):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            ranks[r] = json.load(f)
+    failures = []
+    for r, rec in ranks.items():
+        for variant, e in rec["engines"].items():
+            counts, missed, box_err, score_err = e["rows"]
+            n = sum(e["count"])
+            at_cut = [m for m in missed if m["score"] - m["cut"] <= SPATIAL_CUT_TOL]
+            cut_ok = len(at_cut) == len(missed) and (not missed or variant in SPATIAL_CUT_VARIANTS)
+            print(f"  rank {r} {variant}: counts {e['count']} equal={counts}, rows without a "
+                  f"twin {len(missed)} of {n} ({len(at_cut)} within {SPATIAL_CUT_TOL} of the "
+                  f"max_det cut's score), matched rows' max box err "
+                  f"{box_err:.3g} px, score {score_err:.3g}; dense max|err|/max|ref| "
+                  f"{e['dense_err']:.2e} (tol {SPATIAL_DENSE_TOL[variant]:.3g})"
+                  + (f"; int8 edges equal {e['edges'][0]} of {e['edges'][1]}"
+                     if "edges" in e else "")
+                  + "; on strips against plain (calls, max err): "
+                  + ", ".join(f"{k} {v[0]} {v[1]:.2e}" for k, v in e["kernels"].items()))
+            for m in missed:
+                print(f"    without a twin: {m}")
+            if not (counts and cut_ok and e["dense_err"] < SPATIAL_DENSE_TOL[variant]):
+                failures.append(f"rank {r} {variant}: the mesh engine disagrees with one process")
+            if "edges" in e and e["edges"][0] != e["edges"][1]:
+                failures.append(f"rank {r} {variant}: an int8 edge differs from one process's")
+            want = ("pair_conv3x3", "stem_conv") if variant == "bf16_kernels" else \
+                ("int8_conv",) if variant.startswith("int8") else ()
+            if not (e["launches"]["nms_mask_sorted"] > 0
+                    and all(e["launches"][k] > 0 and e["kernels"][k][0] > 0 for k in want)):
+                failures.append(f"rank {r} {variant}: a kernel of the path launched no time")
+        for name, ev in rec["eval"].items():
+            if ev["err"] >= DENSE_FP32_TOL:
+                failures.append(f"rank {r}: the {name} eval step disagrees with one process")
+    check(not failures, f"spatial, {label}: " + "; ".join(failures))
+    return ranks
+
+
+def spatial_phase(device, card, counters):
+    """Phase 17: the spatial axis. The one-rank mesh engine over NCCL
+    (spatial_world_size_1), the one-process eager baselines at SPATIAL_HW,
+    then each SPATIAL_SHAPES of gloo ranks on the card (spatial_ranks).
+    Returns (its paths' launches, {kernel: max error on strips})."""
+    import torch
+
+    zero_counts(counters)
+    spatial_world_size_1(device, card)
+    torch.cuda.synchronize()
+    paths = {"spatial: one-rank mesh engines over NCCL (bf16 K1-K3, int8) and mesh=None":
+             dict(build_and_capture={c.__name__: c.launches for c in counters},
+                  replayed=None)}
+    base = spatial_baselines(device, card)
+    errs = {}
+    for label, world, spatial, batch in SPATIAL_SHAPES:
+        tmp = tempfile.mkdtemp(prefix="lfd_spatial_")
+        try:
+            ranks = spatial_ranks(label, world, spatial, batch, card, tmp, device)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        for variant in SPATIAL_ENGINES:
+            one = float(np.median(base[(variant, batch)]))
+            per = [float(np.median(rec["engines"][variant]["ms_per_call"]))
+                   for rec in ranks.values()]
+            peaks = [rec["engines"][variant]["peak_mib"] / rec["engines"][variant]["one_peak_mib"]
+                     for rec in ranks.values()]
+            print(f"spatial {variant}, {label}: median ms a call by rank "
+                  + ", ".join(f"{v:.1f}" for v in per) + f" (one process alone {one:.1f}); "
+                  "peak memory by rank / one process's " + ", ".join(f"{v:.3f}" for v in peaks)
+                  + f" [{card}]")
+            paths[f"spatial: WIDERFACE-L {SPATIAL_HW[1]}x{SPATIAL_HW[0]} {variant} engine, "
+                  f"{label} over gloo"] = dict(
+                **{f"rank {r} eager": rec["engines"][variant]["launches"]
+                   for r, rec in ranks.items()}, replayed=None)
+            for rec in ranks.values():
+                for k, (_, e) in rec["engines"][variant]["kernels"].items():
+                    errs[k] = max(errs.get(k, 0.0), e)
+        for name, hw in SPATIAL_EVAL:
+            paths[f"spatial: make_eval_step {name} {hw[1]}x{hw[0]}, {label} over gloo"] = dict(
+                **{f"rank {r} eager": rec["eval"][name]["launches"] for r, rec in ranks.items()},
+                replayed=None)
+    return paths, errs
+
+
 def main(argv=()):
     import torch
 
@@ -4507,6 +5009,8 @@ def main(argv=()):
         return serve_file(*argv[1:3])
     if argv[:1] == ["--ddp-rank"]:
         return ddp_rank(int(argv[1]), argv[2])
+    if argv[:1] == ["--spatial-rank"]:
+        return spatial_rank(int(argv[1]), argv[2])
 
     # a crash in native code prints the crashing thread's Python stack (the
     # loaders' idle worker threads would crowd it out of an all-threads dump)
@@ -4697,6 +5201,15 @@ def main(argv=()):
     t0 = time.time()
     paths.update(ddp_phase(device, card, counters))
     print(f"data parallel phase {time.time() - t0:.1f} s")
+    print(f"[17 spatial] {card}")
+    t0 = time.time()
+    paths_s, errs_s = spatial_phase(device, card, counters)
+    paths.update(paths_s)
+    err1 = max(err1, errs_s.get("nms_mask_sorted", 0.0))
+    k4_err = max(k4_err, errs_s.get("int8_conv", 0.0))
+    for k in ("stem_conv", "pair_conv3x3"):
+        errs[k] = max(errs[k], errs_s.get(k, 0.0))
+    print(f"spatial phase {time.time() - t0:.1f} s")
 
     sources = {
         "nms_mask_sorted": ("lfdtpu_torch/csrc/nms.cu", "lfdtpu/ops/nms_pallas.py:49", err1),

@@ -29,9 +29,22 @@
 # deploy/engine_io.py exports with torch.export. The hand-written kernels are custom ops (torch.ops.lfd.*), so
 # the exported program calls them.
 #
+# The multi-chip engine (`mesh`, `lfdtpu/deploy/compile.py:168-175,252-270,
+# 443-455`): lfdtpu runs ONE program over its mesh, weights and point grids
+# replicated, the frames sharded (batch over `data`, height over `spatial`)
+# and the detections replicated. Here every rank of the process group runs
+# its share: its batch rows (the data axis) and, with a spatial axis, its
+# rows of the height through a spatial copy of the net or int8 chain
+# (parallel/spatial.py: halo exchanges, GroupNorm moments summed across
+# ranks, the level maps gathered before the flatten); then the decode and
+# K1 on every rank in global coordinates, and the detections gathered over
+# the data axis. Its collectives are host calls (gloo), which a CUDA graph
+# cannot hold, so a mesh engine of several ranks is eager; one of one rank
+# is the engine above. It is not serializable (lfdtpu's export_parts
+# refuses it too).
+#
 # The split, s2d_stem and approx_topk options of the JAX engine are TPU
-# workarounds, decided not to port (ROADMAP queue 1, item 10); its mesh
-# option, the multi-chip engine, is item 8b.
+# workarounds, decided not to port (ROADMAP queue 1, item 10).
 
 from __future__ import annotations
 
@@ -40,12 +53,15 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..device import resolve_device
+from ..parallel.distributed import global_batch_from_local, local_batch_slice
+from ..parallel.spatial import SpatialNet, spatial_parallel
 from .int8_net import Int8Chain, calibrate_module_amax
 from .kernel_net import attach_kernels, prepack_stem
-from .runner import GraphRunner
+from .runner import GraphRunner, frame_dtype
 
 # the float dtype of each precision's net (int8: its float remainder's default)
 _DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16, "int8": torch.float32}
@@ -160,6 +176,12 @@ class EngineProgram(nn.Module):
         for k, v in levels.items():
             self.register_buffer(f"level_{k}", v)
 
+    def net_input_dtype(self):
+        """The dtype a frame reaches the net (or the int8 chain) in."""
+        if self.int8_chain is not None:
+            return torch.float32
+        return torch.uint8 if self.kernel_stem else self.compute_dtype
+
     def dense(self, x):
         if self.int8_chain is not None:
             # preprocess in float32, quantize with __input__#out, the chain,
@@ -207,7 +229,10 @@ class Engine(GraphRunner):
     static buffers and a call replays it: the counterpart of lfdtpu's jitted
     program. The call, the graphs (one per frame dtype) and their pinned
     staging are GraphRunner's (deploy/runner.py). `program` and
-    `example_args` are the export hook of deploy/engine_io.py."""
+    `example_args` are the export hook of deploy/engine_io.py. `mesh` is
+    None: a mesh engine of several ranks is a MeshEngine."""
+
+    mesh = None
 
     def __init__(self, program, precision, batch_size, device, captured=False):
         self.program = program
@@ -253,6 +278,67 @@ class Engine(GraphRunner):
                 torch.zeros(vhw_shape, dtype=torch.float32, device=self.device))
 
 
+class MeshEngine(Engine):
+    """compile_inference's engine over a mesh of several ranks, eager.
+    Every rank calls it, in the same order, with the same GLOBAL inputs
+    (lfdtpu's caller hands its SPMD engine the global batch): (B, H, W, 3)
+    frames at input_resolution, B the batch_size, and (2,) or (B, 2) valid
+    extents. A rank uploads its batch rows (local_batch_slice over the data
+    axis) and, with a spatial axis, only its rows of the height with its
+    first conv's halo (SpatialNet.input_rows); the spatial net returns the
+    dense outputs of its batch rows for the whole frames, the decode (K1)
+    runs on them in global coordinates, and the detections of every batch
+    row come back on every rank (all_gather over the data axis). `dense`
+    returns the global dense outputs the same way; `decode` is Engine's.
+    `spatial` is the program's SpatialNet (None without a spatial axis)."""
+
+    def __init__(self, program, precision, batch_size, device, mesh):
+        super().__init__(program, precision, batch_size, device, captured=False)
+        self.mesh = mesh
+        root = program.int8_chain if program.int8_chain is not None else program.net
+        self.spatial = root if isinstance(root, SpatialNet) else None
+
+    def _local(self, images, valid_hw):
+        """This rank's share of a call's global inputs, on its device."""
+        x = images if isinstance(images, torch.Tensor) else np.asarray(images)
+        self._check_images(x)
+        b0, b1 = local_batch_slice(self.batch_size, self.mesh.rank, self.mesh.size)
+        r0, r1 = 0, x.shape[1]
+        if self.spatial is not None:
+            r0, r1 = self.spatial.input_rows((b1 - b0,) + tuple(x.shape[1:]),
+                                             self.program.net_input_dtype(), self.device)
+        x = torch.as_tensor(x[b0:b1, r0:r1]).to(self.device, frame_dtype(x.dtype),
+                                                  non_blocking=True)
+        vhw = torch.as_tensor(valid_hw, dtype=torch.float32).reshape(-1, 2)
+        return x, vhw.expand(self.batch_size, 2)[b0:b1].to(self.device)
+
+    def __call__(self, images, valid_hw):
+        out = self._run(*self._local(images, valid_hw))
+        if isinstance(out, dict):
+            return dict(zip(out, global_batch_from_local(self.mesh, list(out.values()))))
+        return global_batch_from_local(self.mesh, [out])
+
+    @torch.inference_mode()
+    def dense(self, images):
+        """The global frames -> the global dense outputs, on every rank."""
+        x, _ = self._local(images, self.input_resolution)
+        return global_batch_from_local(self.mesh, self.program.dense(x))
+
+    def example_args(self):
+        raise ValueError("a mesh engine of several ranks is bound to its process group and "
+                         "cannot be exported; save an engine built with mesh=None")
+
+
+def _same_device(a, b):
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    current = torch.cuda.current_device()
+    return (a.index if a.index is not None else current) == \
+        (b.index if b.index is not None else current)
+
+
 def compile_inference(
     detector,
     input_hw,
@@ -274,6 +360,7 @@ def compile_inference(
     act_scales=None,
     int8_head_dtype=None,
     output_dtype=None,
+    mesh=None,
 ):
     """Build one inference engine from `detector` (its net's current
     weights) on `device`: the card ("cuda") unless the caller asks for
@@ -317,6 +404,18 @@ def compile_inference(
       nothing. With pack_output the packed tensor is cast. The cast is
       the last step of the captured graph: it halves the result's bytes from
       the device (boxes exact to 0.5 px below 2048, scores within 1e-3).
+
+    mesh (`lfdtpu/deploy/compile.py:168-175`): a parallel.Mesh (make_mesh,
+      make_mesh(spatial=k)) to run the engine over every rank of the
+      process group as one: each rank its batch rows and its rows of the
+      height, the detections replicated (MeshEngine; the header says how).
+      Every rank builds it, with the same arguments. Weights and point
+      grids are whole on every rank; the default int8 calibration runs on
+      each rank's whole frames and takes rank 0's scales. batch_size must
+      divide over the data axis. Its collectives are host calls, so on
+      several ranks the engine is eager: captured=None means eager there,
+      and captured=True raises. A mesh of one rank builds the engine above
+      (captured on the card). `device` must be the mesh's, or omitted.
     """
     input_hw = (int(input_hw[0]), int(input_hw[1]))
     if precision not in _DTYPES:
@@ -328,7 +427,21 @@ def compile_inference(
         spec = dataclasses.replace(spec, pre_nms_points=int(pre_nms_points))
     if nms_budget is not None:
         spec = dataclasses.replace(spec, nms_budget=int(nms_budget))
+    if mesh is not None:
+        if device is not None and not _same_device(resolve_device(device), mesh.device):
+            raise ValueError(f"device {device} is not the mesh's device {mesh.device}")
+        device = mesh.device
     device = resolve_device(device)
+    several = mesh is not None and mesh.world_size > 1
+    if several:
+        if captured:
+            raise ValueError("a mesh engine of several ranks cannot be captured: its "
+                             "collectives (gloo) are host calls that a CUDA graph cannot "
+                             "hold; build it eager (captured=None or False)")
+        captured = False
+        if batch_size % mesh.size:
+            raise ValueError(f"batch_size {batch_size} does not divide over the mesh's "
+                             f"{mesh.size} data shards")
     if int8_head_dtype not in _HEAD_DTYPES:
         raise ValueError(f"unknown int8_head_dtype {int8_head_dtype}")
     output_dtype = output_dtype_of(output_dtype)
@@ -347,6 +460,10 @@ def compile_inference(
             calib = [rng.randint(0, 255, (batch_size,) + input_hw + (3,), dtype=np.uint8)
                      for _ in range(CALIBRATION_FRAMES)]
             act_scales = calibrate_module_amax(net, calib, preprocess=preprocess)
+            if several:  # one set of scales for the whole mesh: rank 0's
+                box = [act_scales]
+                dist.broadcast_object_list(box, src=0)
+                act_scales = box[0]
         head_dtype = _HEAD_DTYPES[int8_head_dtype]
         net = net.to(head_dtype)  # the chain quantizes from these weights
         int8_chain = Int8Chain(net, act_scales, dequant_dtype=head_dtype, device=device)
@@ -366,8 +483,15 @@ def compile_inference(
                              "conv 3x3/s2 3 -> 64 + BatchNorm + ReLU")
     attach_kernels(net, block_kernels=kernel_convs and precision == "bf16",
                    stem_pack=stem_pack)
+    if several and mesh.spatial > 1:
+        if int8_chain is not None:
+            int8_chain = spatial_parallel(int8_chain, mesh, height=input_hw[0])
+        else:
+            net = spatial_parallel(net, mesh, height=input_hw[0])
     if captured is None:
         captured = device.type == "cuda"
     program = EngineProgram(detector, net, preprocess, int8_chain, spec, input_hw, precision,
                             stem_pack is not None, pack_output, output_dtype, device)
+    if several:
+        return MeshEngine(program, precision, batch_size, device, mesh)
     return Engine(program, precision, batch_size, device, captured=bool(captured))

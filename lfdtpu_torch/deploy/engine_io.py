@@ -68,7 +68,13 @@ def export_engine(engine):
 
 def save_engine(engine, path):
     """Serialize a compiled inference engine (compile_inference's) to one
-    file at `path`. Returns path."""
+    file at `path`. Returns path. A mesh engine of several ranks is bound to
+    its process group and raises ValueError, as lfdtpu's export_parts
+    refuses an SPMD engine."""
+    mesh = getattr(engine, "mesh", None)
+    if mesh is not None and mesh.world_size > 1:
+        raise ValueError("a mesh engine of several ranks is bound to its process group and "
+                         "cannot be saved; save an engine built with mesh=None")
     program = export_engine(engine)
     frames, vhw = engine.example_args()
     meta = dict(

@@ -396,7 +396,11 @@ class Int8Chain(nn.Module):
     `dequant_dtype` (the float remainder's). `units` lists every K4 launch
     of one call in order: the plan's count of launches per frame. The units
     are its submodules (`kernels`), so their constants are its buffers; the
-    float remainder runs the net's own modules, which it does not hold."""
+    float remainder runs the net's own modules, which it does not hold.
+    gather_levels: as DetectionNet's, on the head's (cls, reg) level maps
+    before flatten_levels."""
+
+    gather_levels = None
 
     def __init__(self, net, amax, dequant_dtype=torch.float32, device=None):
         super().__init__()
@@ -469,6 +473,15 @@ class Int8Chain(nn.Module):
             self.head.append((merge, paths[0], paths[1], lv.scale))
         self.kernels = nn.ModuleList(self.units)
 
+    def int8_edges(self):
+        """The names of the steps whose outputs stay int8 (units and blocks
+        run by K4), in the chain's order: the capture keys of its int8
+        edges."""
+        steps = list(self.stem) + [step for step, _ in self.blocks] + list(self.neck)
+        for merge, cls_path, reg_path, _ in self.head:
+            steps += list(merge) + list(cls_path) + list(reg_path)
+        return [name for name, fn in steps if isinstance(fn, (_UnitStep, _BlockStep))]
+
     def forward(self, images_f32, capture=None):
         """images_f32: preprocessed (B, H, W, 3) float frames. capture: a dict
         whose keys name units or blocks (the amax keys without #in/#out);
@@ -504,6 +517,8 @@ class Int8Chain(nn.Module):
                 outs.append(y)
             cls_outs.append(outs[0])
             reg_outs.append(scale(outs[1]) if scale is not None else outs[1])
+        if self.gather_levels is not None:
+            cls_outs, reg_outs = self.gather_levels((cls_outs, reg_outs))
         return flatten_levels(cls_outs, reg_outs)
 
 

@@ -27,7 +27,13 @@ from .layers import Scale, kaiming_out_, xavier_uniform_
 class DetectionNet(nn.Module):
     """backbone -> neck -> head -> dense (B, P, C) / (B, P, 4) outputs.
     Takes NHWC input; row p of the output is level-major, then (y, x)
-    row-major within a level (the order of ops/points.py)."""
+    row-major within a level (the order of ops/points.py).
+
+    gather_levels: None, or a callable that takes the head's outputs (a
+    tuple of per-level NCHW lists) and returns them as whole level maps
+    before the flatten: parallel.spatial sets it on a net run on strips."""
+
+    gather_levels = None
 
     def __init__(self, backbone, neck, head):
         super().__init__()
@@ -39,11 +45,14 @@ class DetectionNet(nn.Module):
         feats = self._backbone(x.permute(0, 3, 1, 2))
         if self._neck is not None:
             feats = self._neck(feats)
+        outs = self._head(feats)
+        if self.gather_levels is not None:
+            outs = self.gather_levels(outs)
         flat = []
-        for outs in self._head(feats):
+        for kind in outs:
             flat.append(torch.cat(
                 [o.permute(0, 2, 3, 1).reshape(o.shape[0], -1, o.shape[1])
-                 for o in outs], dim=1))
+                 for o in kind], dim=1))
         return tuple(flat)
 
 

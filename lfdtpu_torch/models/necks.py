@@ -46,6 +46,14 @@ def nearest_upsample_to(x, target_hw):
     return F.interpolate(x, size=tuple(int(v) for v in target_hw), mode="nearest-exact")
 
 
+class NearestUpsample(nn.Module):
+    """nearest_upsample_to as a module (no weights): the FPNs call it
+    through one, which parallel.spatial swaps for its row-split form."""
+
+    def forward(self, x, target_hw):
+        return nearest_upsample_to(x, target_hw)
+
+
 def fpn_output_strides(num_input_strides_list, num_outputs):
     """`fpn.py:104-109` / `simple_fpn.py:120-126`."""
     s = list(num_input_strides_list)
@@ -74,6 +82,9 @@ class FPN(nn.Module):
         self.extra_type = extra_type
         self.relu_before_extra = relu_before_extra
         self.num_output_strides_list = fpn_output_strides(num_input_strides_list, num_outputs)
+        self.upsample = NearestUpsample()
+        if extra_type != "conv":
+            self.extra_pool = nn.MaxPool2d(3, 2, padding=1)
         c = num_output_channels
         for i, cin in enumerate(num_input_channels_list):
             layers = [nn.Conv2d(cin, c, 1, bias=not norm_on_lateral)]
@@ -94,7 +105,7 @@ class FPN(nn.Module):
         """Top-down: each level adds the upsampled (already merged) level
         above it."""
         for i in range(len(laterals) - 1, 0, -1):
-            laterals[i - 1] = laterals[i - 1] + nearest_upsample_to(
+            laterals[i - 1] = laterals[i - 1] + self.upsample(
                 laterals[i], laterals[i - 1].shape[-2:])
 
     def _extra_level(self, x, i):
@@ -102,7 +113,7 @@ class FPN(nn.Module):
             x = F.relu(x)
         if self.extra_type == "conv":
             return getattr(self, f"fpn_out{i}")(x)
-        return F.max_pool2d(x, 3, 2, padding=1)
+        return self.extra_pool(x)
 
     def forward(self, inputs):
         n_in = len(inputs)
@@ -138,5 +149,5 @@ class SimpleFPN(FPN):
         if not self.neighbouring_mode:
             return super()._merge(laterals)
         for i in range(len(laterals) - 1):
-            laterals[i] = laterals[i] + nearest_upsample_to(laterals[i + 1],
-                                                            laterals[i].shape[-2:])
+            laterals[i] = laterals[i] + self.upsample(laterals[i + 1],
+                                                      laterals[i].shape[-2:])

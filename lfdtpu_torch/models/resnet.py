@@ -133,6 +133,7 @@ class ResNet(nn.Module):
         else:
             self.conv1 = nn.Conv2d(in_channels, base_channels, 7, 2, padding=3, bias=False)
             self.bn1 = norm_from_cfg(ncfg, base_channels)
+        self.maxpool = nn.MaxPool2d(3, 2, padding=1)  # no weights (torchvision's name)
         self.num_stages = max(st for st, _ in self.out_indices)
         cin, planes = base_channels, base_channels
         for i in range(self.num_stages):
@@ -170,7 +171,7 @@ class ResNet(nn.Module):
             x = self.stem(x)
         else:
             x = F.relu(self.bn1(self.conv1(x)))
-        x = F.max_pool2d(x, 3, 2, padding=1)
+        x = self.maxpool(x)
         if self.frozen_stages >= 0:
             x = x.detach()
         outs = []

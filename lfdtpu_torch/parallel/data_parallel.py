@@ -32,7 +32,10 @@
 # parameters equal; the BN buffers stay equal by construction
 # (broadcast_buffers=False).
 #
-# make_eval_step is the val loop's forward (`data_parallel.py:151-172`).
+# make_eval_step is the val loop's forward (`data_parallel.py:151-172`);
+# with spatial=True on a mesh with a spatial axis it runs the net with the
+# image height split over that axis (parallel/spatial.py), as lfdtpu's step
+# does with spatial_image_sharding.
 
 from __future__ import annotations
 
@@ -50,7 +53,8 @@ from ..device import resolve_device
 from ..execution.optim import clip_by_global_norm, global_norm, set_lr
 from ..models.detector import eval_forward
 from ..models.layers import BatchNorm2d
-from .distributed import global_batch_from_local
+from .distributed import global_batch_from_local, local_batch_slice
+from .spatial import spatial_parallel
 
 
 @dataclasses.dataclass
@@ -236,14 +240,40 @@ def make_eval_step(detector, mesh=None, spatial=False):
     mesh: this rank's images are its rows of the global batch (shard_batch),
       and the step returns the global (B, P, C) / (B, P, 4), gathered in
       rank order on every rank: lfdtpu's data-sharded eval step.
-    spatial (lfdtpu: the image height sharded over the mesh) is ROADMAP
-      queue 1, item 8b."""
-    if spatial:
-        raise NotImplementedError("evaluating with the image height sharded (spatial) is "
-                                  "not ported yet (ROADMAP queue 1, item 8b)")
+    spatial: on a mesh with a spatial axis (make_mesh(spatial=k)), every
+      rank is handed the GLOBAL batch (as lfdtpu's caller hands it to its
+      sharding) and uploads only its batch rows (the data axis) and its
+      rows of the height with its first conv's halo (SpatialNet.input_rows);
+      the net runs on strips (parallel.spatial_parallel, a copy that shares
+      the net's weights, made once per net), and the step returns the
+      global (B, P, C) / (B, P, 4) on every rank. On a mesh without one it
+      is the step above."""
+    if spatial and mesh is not None and mesh.spatial > 1:
+        return _spatial_eval_step(mesh)
 
     def step(state, images):
         outs = eval_forward(state.net, images)
         return global_batch_from_local(mesh, outs) if _grouped(mesh) else outs
+
+    return step
+
+
+def _spatial_eval_step(mesh):
+    made = {}  # the state's net -> its spatial copy (the net kept alive: ids stay unique)
+
+    def step(state, images):
+        net = state.net
+        if id(net) not in made:
+            made.clear()
+            made[id(net)] = (net, spatial_parallel(net, mesh))
+        spatial = made[id(net)][1].eval()
+        p = next(net.parameters())
+        b0, b1 = local_batch_slice(len(images), mesh.rank, mesh.size)
+        shape = (b1 - b0,) + tuple(images.shape[1:])
+        r0, r1 = spatial.input_rows(shape, p.dtype, p.device)
+        with torch.inference_mode():
+            x = torch.as_tensor(images[b0:b1, r0:r1]).to(p.device, non_blocking=True)
+            outs = spatial(x.to(p.dtype), shape[1])
+        return global_batch_from_local(mesh, outs)
 
     return step

@@ -105,9 +105,14 @@ def global_batch_from_local(mesh, local_arrays):
     for a in local_arrays:
         t = torch.as_tensor(a).to(mesh.device).contiguous()
         if _synced(mesh):
-            parts = [torch.empty_like(t) for _ in range(mesh.size)]
-            dist.all_gather(parts, t, group=mesh.group)
-            t = torch.cat(parts)
+            # a 16-bit float travels as its bytes (whatever 16-bit types
+            # the backend takes)
+            half = t.dtype in (torch.float16, torch.bfloat16)
+            wire = t.reshape(-1).view(torch.uint8) if half else t
+            parts = [torch.empty_like(wire) for _ in range(mesh.size)]
+            dist.all_gather(parts, wire, group=mesh.group)
+            whole = torch.cat(parts)
+            t = whole.view(t.dtype).reshape((-1,) + tuple(t.shape[1:])) if half else whole
         out.append(t)
     return tuple(out) if len(out) > 1 else out[0]
 

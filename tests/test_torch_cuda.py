@@ -1014,3 +1014,36 @@ def test_trained_synthetic_lfd_int8_engine_k4_is_exact(cuda):
     m = syn.run_synthetic("lfd", epochs=2, threshold=-1.0, engine_quality=True,
                           precisions=("int8",), device="cuda", on_engine=on_engine)
     assert checked == [14] and 0.0 <= m["engine_mAP_50"]["int8"] <= 1.0
+
+
+@pytest.mark.parametrize("variant", ["bf16_kernels", "int8"])
+def test_one_rank_mesh_engine_equals_the_engine_without_a_mesh(cuda, variant):
+    """compile_inference(mesh=make_mesh()) in a process group of one rank
+    (NCCL) builds the engine of mesh=None, captured: the same launches per
+    capture (K1-K3, or K1 and K4) and bit-equal rows."""
+    import torch.distributed as dist
+
+    from chip_smoke import free_port
+    from lfdtpu_torch.deploy import compile_inference, make_device_preprocess
+    from lfdtpu_torch.parallel import make_mesh
+
+    det = _detector("L")
+    kw = dict(ENGINE_VARIANTS.get(variant, dict(precision=variant)), batch_size=2,
+              preprocess=make_device_preprocess((0.5,) * 3, (0.5,) * 3))
+    plain = compile_inference(det, ENGINE_HW, **kw)
+    if variant == "int8":
+        kw["act_scales"] = plain.int8_chain.amax
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh()
+        meshed = compile_inference(det, ENGINE_HW, mesh=mesh, **kw)
+        assert meshed.captured and meshed.mesh is None and mesh.device.type == "cuda"
+        assert meshed.captured_launches == plain.captured_launches
+        vhw = np.asarray([[256, 320], [200, 311]], np.float32)
+        for seed in (1, 2):
+            f = _frames(seed)
+            ref = plain(f, vhw)
+            assert int(ref["count"].sum()) > 0 and _same(meshed(f, vhw), ref)
+    finally:
+        dist.destroy_process_group()

@@ -37,7 +37,7 @@ from lfdtpu_torch.execution import (executor, hooks, jax_convert, optim, schedul
                                     torch_convert, utils)
 from lfdtpu_torch.ops import (assign, boxes, conv_kernels, decode, int8_conv, kernel_lib,
                               loss_wrappers, losses, nms, nms_kernel, points)
-from lfdtpu_torch.parallel import data_parallel, distributed, mesh, prefetch
+from lfdtpu_torch.parallel import data_parallel, distributed, mesh, prefetch, spatial
 from lfdtpu_torch import device
 from lfdtpu_torch.models import fcos, heads, lfdv2, necks, resnet
 from lfdtpu_torch.tools import int8_quality_cell, kernel_trace, synthetic_e2e

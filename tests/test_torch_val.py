@@ -98,8 +98,10 @@ def test_eval_step_matches_lfdtpu_and_leaves_the_net_alone():
     mesh = Mesh(1, 0, torch.device("cpu"))
     tc1, tr1 = make_eval_step(tdet, mesh)(state, images)
     assert torch.equal(tc1, tc) and torch.equal(tr1, tr)
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        make_eval_step(tdet, mesh, spatial=True)
+    # spatial=True on a mesh without a spatial axis is that step (lfdtpu: the
+    # plain jit at mesh size 1); the split itself: tests/test_torch_spatial.py
+    tc2, tr2 = make_eval_step(tdet, mesh, spatial=True)(state, images)
+    assert torch.equal(tc2, tc) and torch.equal(tr2, tr)
 
 
 class _ValDataset(_ArrayDataset):
