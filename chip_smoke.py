@@ -117,7 +117,8 @@ It checks them:
               evaluation on the final checkpoint over 6 JPEGs written from
               the pack into event folders (one txt per image, in the
               WIDERFACE format). Printed beside the card: loader-alone
-              images/s of both paths (4 batches per worker thread with
+              images/s of both paths, the batches handed out in the
+              sampler's order (4 batches per worker thread with
               device augmentation, 2 with host augmentation, every
               image over the time from the workers' start to the last
               batch), Executor images/s after one warmup
@@ -319,8 +320,15 @@ It checks them:
               its checkpoint equals rank 1's weights, its val rows (each
               rank decodes its rows, K1 on every rank, gathered in order)
               equal a one-process val pass of that checkpoint, K1's
-              launches counted per rank. A rank that fails, dies or hangs
-              past DDP_CHILD_TIMEOUT fails the run.
+              launches counted per rank. The loader order (F21): the ranks'
+              train loaders run the config's 12 workers, their crops seeded
+              by sample index (seed_by_sample); each rank records every
+              train and val batch it hands out, row by row; every train
+              step's rows, rank 0's then rank 1's, equal a one-worker
+              loader's global batch k from rank 0's sampler state, and every
+              rank's val step k is the one-worker val loader's batch k with
+              its own image ids. A rank that fails, dies or hangs past
+              DDP_CHILD_TIMEOUT fails the run.
  17. spatial  the image height split over a mesh's spatial axis
               (`chip_smoke.spatial_phase`), counters zeroed before each path
               and read after it. First compile_inference(mesh=make_mesh())
@@ -346,9 +354,13 @@ It checks them:
               bit-equal, and that engine's peak memory. Then
               make_eval_step(spatial=True) of WIDERFACE-L at 1088x1920 and
               FCOS-R50-FPN at 800x1333 (fp32) against the one-process
-              forward (DENSE_FP32_TOL), ms and peak memory of each. A rank
-              that fails, dies or hangs past SPATIAL_CHILD_TIMEOUT fails the
-              run.
+              forward (DENSE_FP32_TOL), ms and peak memory of each. Memory
+              (F20): on a spatial axis of 2 every rank's engine peak at most
+              SPATIAL_PEAK_SHARE of one process's, every variant, and every
+              rank's eval-step peak at most one process's; beside them
+              cuDNN's fp32 3x3 conv against the strips' GEMM at the named
+              shapes of tools/cudnn_workspace.py. A rank that fails, dies or
+              hangs past SPATIAL_CHILD_TIMEOUT fails the run.
 
 The second-to-last line is a JSON object {"kernels": [...]} (K1-K4; each
 kernel's launches on its main path: WIDERFACE-L's bf16 engines for K1-K3,
@@ -383,16 +395,19 @@ from __future__ import annotations
 import contextlib
 import copy
 import faulthandler
+import hashlib
 import importlib
 import importlib.util
 import io
 import json
 import os
+import random
 import re
 import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -557,6 +572,7 @@ DDP_MODES = {"fp32": dict(), "bf16": dict(mixed_precision=True),
 DDP_WORLD = 2               # ranks on the one card, over gloo
 DDP_CHILD_TIMEOUT = 600     # seconds a rank may take, its start included
 DDP_ROW_TOL = 1e-3          # val rows of two ranks against one process, max |err|
+DDP_SAMPLE_SEED = 31        # the per-sample crop draws of phase 16's order check
 # bf16: two ranks round each rank's weight gradients to bf16 before their
 # sum, one process once. The two-rank bf16 step is held to the fp32 step:
 # at most BF16_BAND times as far from it as the one-process bf16 step is
@@ -592,6 +608,9 @@ SPATIAL_DENSE_TOL = {"fp32": DENSE_FP32_TOL, "int8": DENSE_FP32_TOL,
 SPATIAL_ROW_TOL = {"fp32": (0.1, 1e-3), "int8": (0.1, 1e-3), "bf16_kernels": (1.0, 0.02),
                    "int8_bf16": (1.0, 0.02)}
 SPATIAL_CUT_TOL = 1e-3
+# F20: on a spatial axis of 2, every rank's peak memory at most this share of
+# one process's (engines; the eval step's at most one process's)
+SPATIAL_PEAK_SHARE = 0.65
 SPATIAL_CUT_VARIANTS = ("bf16_kernels", "int8_bf16")  # the engines whose cut may trade rows
 
 
@@ -1582,8 +1601,8 @@ def loader_alone(cfg, card, label):
     for batch in loader:
         n += len(batch["images"])
     seconds = time.perf_counter() - t0
-    print(f"loader alone, {label}: {n / seconds:.1f} images/s ({n} images in "
-          f"{len(loader)} batches of {cfg['batch_size']}, {seconds:.2f} s from the start "
+    print(f"loader alone, {label}, in the sampler's order: {n / seconds:.1f} images/s ({n} "
+          f"images in {len(loader)} batches of {cfg['batch_size']}, {seconds:.2f} s from the start "
           f"of the iteration to the last batch), {workers} worker threads, "
           f"os.cpu_count() {os.cpu_count()} [{card}]")
     return batch
@@ -4309,6 +4328,97 @@ def ddp_world_size_1(device, card):
         dist.destroy_process_group()
 
 
+class _SampleIndexed:
+    """A dataset whose samples carry their index as the meta key
+    `row_index` (the loader hands it out in the batch's meta)."""
+
+    def __init__(self, dataset):
+        self._ds = dataset
+
+    def __getitem__(self, i):
+        return dict(self._ds[i], row_index=int(i))
+
+    def __len__(self):
+        return len(self._ds)
+
+    def get_indexes(self):
+        return self._ds.get_indexes()
+
+
+class _SeededBySample:
+    """A region sampler whose draws from `random` are seeded by the sample's
+    row_index, under a lock: the loader's worker threads share `random` and
+    draw in whatever order they run, so only this makes a row's crop a
+    function of its index alone, whatever worker makes it."""
+
+    _lock = threading.Lock()
+
+    def __init__(self, inner, seed):
+        self._inner, self._seed = inner, seed
+
+    def __call__(self, sample):
+        with self._lock:
+            random.seed(f"{self._seed}:{sample['row_index']}")
+            return self._inner(sample)
+
+
+def seed_by_sample(loader):
+    """Phase 16's order check on a train loader: its samples indexed, its
+    crops seeded by sample (before its first iteration)."""
+    loader._dataset = _SampleIndexed(loader._dataset)
+    loader._region_sampler = _SeededBySample(loader._region_sampler, DDP_SAMPLE_SEED)
+    return loader
+
+
+AUG_PARAMS = ("aug_scale", "aug_translation", "aug_flip")
+
+
+def train_rows(batch):
+    """(sample index, digest of its image bytes, padded boxes, labels, mask
+    and aug params) of each row of a train batch."""
+    keys = ("images", "gt_bboxes", "gt_labels", "gt_mask") + AUG_PARAMS
+    out = []
+    for i, meta in enumerate(batch["meta"]):
+        h = hashlib.sha1()
+        for k in keys:
+            if k in batch:
+                h.update(np.ascontiguousarray(batch[k][i]).tobytes())
+        out.append((meta["row_index"], h.hexdigest()[:16]))
+    return out
+
+
+def val_rows(batch):
+    """(image id, digest of its image bytes) of each row of a val batch."""
+    return [(meta["image_id"], hashlib.sha1(np.ascontiguousarray(im).tobytes()).hexdigest()[:16])
+            for im, meta in zip(batch["images"], batch["meta"])]
+
+
+def recorded(loader, steps, rows):
+    """loader, made to append rows(batch) of every batch it hands out to
+    steps."""
+    base = type(loader)
+
+    class Recorded(base):
+        def __iter__(self):
+            for batch in base.__iter__(self):
+                steps.append(rows(batch))
+                yield batch
+
+    loader.__class__ = Recorded
+    return loader
+
+
+def one_worker(loader):
+    """A DataLoader over loader's dataset, sampler, region sampler and
+    pipeline with one worker: the reference order."""
+    from lfdtpu_torch.data import DataLoader
+
+    return DataLoader(loader._dataset, loader._dataset_sampler, loader._region_sampler,
+                      loader._augmentation_pipeline, num_workers=1,
+                      max_boxes_per_image=loader._max_boxes, pad_divisor=loader._pad_divisor,
+                      image_dtype=loader._image_dtype)
+
+
 def ddp_rank(rank, out_dir):
     """One rank of phase 16's two (`chip_smoke.py --ddp-rank R DIR`), on the
     one card over gloo with CUDA tensors. The train step on its 32 rows of
@@ -4365,11 +4475,18 @@ def ddp_rank(rank, out_dir):
     cfg = workload_config("WIDERFACE_train", "WIDERFACE_LFD_L.py", job["pack"],
                           device_aug=True, epochs=1)
     watch, _ = add_val_loop(cfg, work)
+    # the order check (F21): each rank records every train and val batch it
+    # hands out, row by row, and the sampler's state the epoch starts from
+    steps = dict(train=[], val=[])
+    recorded(seed_by_sample(cfg["train_data_loader"]), steps["train"], train_rows)
+    recorded(cfg["val_data_loader"], steps["val"], val_rows)
+    cfg["extra_hooks"] = cfg.get("extra_hooks", []) + [_sampler_state_hook(out)]
     zero_counts(counters)
     ex, _ = run_workload(cfg, card, f"rank {rank} of {mesh.size}, device aug, 1 epoch, "
                          "a val pass", watch)
     torch.cuda.synchronize()
     out["executor_launches"] = {c.__name__: c.launches for c in counters}
+    out["steps"], out["train_workers"] = steps, cfg["train_data_loader"]._num_workers
     check(ex.mesh is not None and ex.mesh.size == mesh.size
           and cfg["train_data_loader"].batch_size == TRAIN_BATCH // mesh.size
           and cfg["batch_size"] == TRAIN_BATCH, f"rank {rank}: the Executor is not sharded")
@@ -4381,6 +4498,50 @@ def ddp_rank(rank, out_dir):
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     dist.destroy_process_group()
     return 0
+
+
+def _sampler_state_hook(out):
+    from lfdtpu_torch.execution import Hook
+
+    class SamplerState(Hook):
+        """The train sampler's random state when the run starts (after the
+        Executor shared rank 0's), into out["sampler_state"]."""
+
+        def before_run(self, executor):
+            sharded = executor.config_dict["train_data_loader"]._dataset_sampler
+            out["sampler_state"] = sharded._sampler._rng.getstate()
+
+    return SamplerState()
+
+
+def check_loader_order(ranks, cfg, card):
+    """F21 on the card's run: every train step's rows, rank 0's then rank
+    1's, equal the one-process, one-worker loader's global batch k from the
+    same sampler state (sample index and digest of each row); every rank's
+    val step k holds val batch k's rows with their own image ids, so the
+    rows rank 0 evaluates carry their own images' ids."""
+    train = seed_by_sample(one_worker(cfg["train_data_loader"]))
+    train._dataset_sampler._rng.setstate(ranks[0]["sampler_state"])
+    ref_train = [train_rows(b) for b in train]
+    ref_val = [val_rows(b) for b in one_worker(cfg["val_data_loader"])]
+    steps = [r["steps"] for r in ranks]
+    train_ok = all(len(s["train"]) == len(ref_train) for s in steps) and all(
+        sum((s["train"][k] for s in steps), []) == want for k, want in enumerate(ref_train))
+    val_ok = all(s["val"] == ref_val for s in steps)
+    workers = [r["train_workers"] for r in ranks]
+    print(f"loader order (F21): {len(ref_train)} train steps, {workers} train loader workers "
+          f"by rank: each step's rows, rank by rank, are the one-process, one-worker loader's "
+          f"global batch k (sample index; image bytes, padded boxes and aug params): "
+          f"{train_ok}; {len(ref_val)} val steps, each rank's val step k the one-worker val "
+          f"loader's batch k with its own image ids: {val_ok} [{card}]")
+    if not train_ok:
+        for k, want in enumerate(ref_train):
+            print(f"  step {k}: one process {[i for i, _ in want]}; ranks "
+                  f"{[[i for i, _ in s['train'][k]] for s in steps if k < len(s['train'])]}")
+    check(all(w == int(os.environ.get("LFD_NUM_WORKERS", 12)) for w in workers),
+          f"the ranks' train loaders run {workers} workers, not the config's default")
+    check(train_ok, "a train step's rows on the ranks are not the global batch of that step")
+    check(val_ok, "a rank's val rows are not the val batch of that step, or carry other ids")
 
 
 def same_rows(got, ref, tol=DDP_ROW_TOL):
@@ -4517,6 +4678,7 @@ def ddp_two_ranks(device, card, counters, tmp):
     cfg = workload_config("WIDERFACE_train", "WIDERFACE_LFD_L.py", pack, device_aug=True,
                           epochs=1)
     watch, _ = add_val_loop(cfg, tmp)
+    check_loader_order(ranks, cfg, card)
     cfg["weight_path"] = ckpts[0]
     single = Executor(cfg)
     zero_counts(counters)
@@ -4971,7 +5133,14 @@ def spatial_phase(device, card, counters):
              dict(build_and_capture={c.__name__: c.launches for c in counters},
                   replayed=None)}
     base = spatial_baselines(device, card)
-    errs = {}
+    errs, failures = {}, []
+    # F20's cause: cuDNN's fp32 engine by shape, beside the spatial module's
+    # row-chunked GEMM that the strips' convs run instead
+    from lfdtpu_torch.tools import cudnn_workspace
+
+    for h, w, (cm, cms), (gm, gms) in cudnn_workspace.named(device):
+        print(f"fp32 3x3/s1 64->64 at 1x64x{h}x{w}: cuDNN +{cm:.1f} MiB, {cms:.4f} ms; "
+              f"the spatial module's GEMM +{gm:.1f} MiB, {gms:.4f} ms [{card}]")
     for label, world, spatial, batch in SPATIAL_SHAPES:
         tmp = tempfile.mkdtemp(prefix="lfd_spatial_")
         try:
@@ -4987,7 +5156,10 @@ def spatial_phase(device, card, counters):
             print(f"spatial {variant}, {label}: median ms a call by rank "
                   + ", ".join(f"{v:.1f}" for v in per) + f" (one process alone {one:.1f}); "
                   "peak memory by rank / one process's " + ", ".join(f"{v:.3f}" for v in peaks)
-                  + f" [{card}]")
+                  + (f" (at most {SPATIAL_PEAK_SHARE})" if spatial == 2 else "") + f" [{card}]")
+            if spatial == 2:
+                failures += [f"{variant}, {label}: a rank's peak memory is {v:.3f} of one "
+                             "process's" for v in peaks if v > SPATIAL_PEAK_SHARE]
             paths[f"spatial: WIDERFACE-L {SPATIAL_HW[1]}x{SPATIAL_HW[0]} {variant} engine, "
                   f"{label} over gloo"] = dict(
                 **{f"rank {r} eager": rec["engines"][variant]["launches"]
@@ -4999,6 +5171,15 @@ def spatial_phase(device, card, counters):
             paths[f"spatial: make_eval_step {name} {hw[1]}x{hw[0]}, {label} over gloo"] = dict(
                 **{f"rank {r} eager": rec["eval"][name]["launches"] for r, rec in ranks.items()},
                 replayed=None)
+            evals = [rec["eval"][name] for rec in ranks.values()]
+            print(f"spatial eval step {name} {hw[1]}x{hw[0]} fp32, {label}: peak MiB by rank "
+                  + ", ".join(f"{e['peak_mib']:.0f}" for e in evals) + ", one process's "
+                  + ", ".join(f"{e['one_peak_mib']:.0f}" for e in evals)
+                  + " (at most one process's)" + f" [{card}]")
+            failures += [f"the {name} eval step, {label}: a rank's peak {e['peak_mib']:.0f} MiB "
+                         f"exceeds one process's {e['one_peak_mib']:.0f}"
+                         for e in evals if e["peak_mib"] > e["one_peak_mib"]]
+    check(not failures, "spatial memory (F20): " + "; ".join(failures))
     return paths, errs
 
 

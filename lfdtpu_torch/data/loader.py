@@ -9,11 +9,22 @@
 # (B, Nmax) for the train step (gt_bboxes, gt_labels, gt_mask).
 # parallel/prefetch.py puts them on the device.
 #
-# A worker's error reaches the consumer, which raises it: a silently dead
-# worker would starve the batch queue and hang the train loop.
+# Order: every loader hands out its batches in the sampler's order, whatever
+# order its workers finish them in. Each index batch is queued with its
+# position k; workers return (k, batch), and the consumer yields batch k
+# only after batches 0..k-1, keeping the ones that come early until their
+# turn. A sharded loader (shard(): a rank of a data mesh loads only its rows
+# of each global batch, data.ShardedDatasetSampler) thus gives its rows of
+# global batch k at step k on every rank, and the ranks' rows make up one
+# global batch (lfdtpu loads the global batch in one process; with several
+# workers it hands out the batches in whatever order they finish, and the
+# one-process order here is one of those). The consumer keeps at most
+# `2 * num_workers` index batches queued ahead of it, so the early ones it
+# holds stay bounded.
 #
-# shard(): a rank of a data mesh loads only its rows of each global batch
-# (data.ShardedDatasetSampler), before the loader's first iteration.
+# A worker's error reaches the consumer, which raises it as soon as it
+# arrives, whatever batch is due: a silently dead worker would starve the
+# batch queue and hang the train loop.
 #
 # Process workers are forked from a parent that may hold a CUDA context and
 # torch's thread pools: they run numpy only (no torch op, no CUDA).
@@ -97,6 +108,9 @@ class DataLoader:
             self._batch_queue = queue.Queue(maxsize=max(num_workers, 1))
         self._started = False
         self._processes = []
+        self._epoch = 0  # tags the index batches of each iteration
+        self._in_flight = 0  # index batches queued whose batch has not come back
+        self._ahead = 2 * max(num_workers, 1)  # index batches queued ahead of the consumer
 
     def _start_workers(self):
         if self._use_processes:
@@ -166,15 +180,16 @@ class DataLoader:
 
     def _worker_func(self):
         while True:
-            index_batch = self._index_queue.get()
+            epoch, k, index_batch, slot = self._index_queue.get()
             try:
-                self._produce_batch(index_batch)
+                payload = self._produce_batch(index_batch, slot)
             except Exception as e:  # propagate: a silently-dead worker
                 # would starve the batch queue and hang the train loop
                 self._batch_queue.put(dict(worker_error=repr(e)))
                 raise
+            self._batch_queue.put((epoch, k, payload))
 
-    def _produce_batch(self, index_batch):
+    def _produce_batch(self, index_batch, slot=None):
         images, annotations, metas = [], [], []
         aug = {k: [] for k in AUG_KEYS}
         for sample_index in index_batch:
@@ -210,20 +225,46 @@ class DataLoader:
         for k, v in aug.items():
             if v:
                 batch[k] = np.stack(v)
-        self._batch_queue.put(batch)
+        return batch
+
+    def _dispatch(self, epoch, k, sent, index_batches):
+        """Queue index batches from number `sent` on while fewer than
+        `_ahead` wait ahead of batch k. Returns how many are queued."""
+        while sent < len(index_batches) and sent - k < self._ahead:
+            self._queue(epoch, sent, index_batches[sent], None)
+            sent += 1
+        return sent
+
+    def _queue(self, epoch, k, index_batch, slot):
+        self._index_queue.put((epoch, k, index_batch, slot))
+        self._in_flight += 1
+
+    def _hand_out(self, payload):
+        return payload
+
+    def _discard(self, payload):
+        """A batch of an iteration that was left before its end."""
 
     def __iter__(self):
         if not self._started:
             self._start_workers()
-        for index_batch in self._dataset_sampler:
-            self._index_queue.put(index_batch)
-        for _ in range(self._loops):
-            batch = self._batch_queue.get()
-            if "worker_error" in batch:
-                raise RuntimeError(
-                    f"data loader worker failed: {batch['worker_error']}"
-                )
-            yield batch
+        self._epoch += 1
+        epoch, index_batches = self._epoch, list(self._dataset_sampler)
+        early, sent = {}, 0
+        for k in range(len(index_batches)):
+            sent = self._dispatch(epoch, k, sent, index_batches)
+            while k not in early:
+                item = self._batch_queue.get()
+                if isinstance(item, dict):  # a worker's error, whatever batch is due
+                    raise RuntimeError(f"data loader worker failed: {item['worker_error']}")
+                got_epoch, j, payload = item
+                self._in_flight -= 1
+                if got_epoch == epoch:
+                    early[j] = payload
+                else:
+                    self._discard(payload)
+                sent = self._dispatch(epoch, k, sent, index_batches)
+            yield self._hand_out(early.pop(k))
 
     def __len__(self):
         return self._loops
@@ -267,6 +308,13 @@ class ShmDataLoader(DataLoader):
     Requires static crop_size (every reference training config has one) and
     emits the same batch dict as DataLoader minus per-sample 'annotations' /
     'meta' (not used by the train step).
+
+    The consumer queues an index batch only together with a free slot, so
+    the batch it waits for always has one: batches that come early hold
+    theirs until their turn, and could otherwise take every slot from a
+    worker still to fill the batch that is due. Idle workers hold no slot,
+    so every slot is free again once an epoch's batches are released. A
+    consumer that keeps every slot unreleased gets an error, not a hang.
     """
 
     def __init__(self, dataset, dataset_sampler, region_sampler,
@@ -287,10 +335,17 @@ class ShmDataLoader(DataLoader):
             image_dtype=image_dtype, use_processes=True,
         )
         self._crop = int(crop_size)
+        # one slot for each worker's batch in progress and two more: with a
+        # late batch k, the workers go on to fill two batches beyond the N
+        # in progress before they wait for k's turn, and a consumer that
+        # keeps pace (prefetch_to_device releases each slot when it copies
+        # the batch) frees one slot for each batch it takes
         self._num_slots = num_slots or (num_workers + 2)
         self._shm = None
         self._allocate_slots()
-        self._free_slots = self._ctx.Queue()
+        # the consumer's own: it binds a slot to each index batch it queues,
+        # and release_slot hands it back
+        self._free_slots = queue.Queue()
         for i in range(self._num_slots):
             self._free_slots.put(i)
 
@@ -336,18 +391,19 @@ class ShmDataLoader(DataLoader):
         aug = np.ndarray((B, 5), np.float32, buf, o)  # [sy,sx,ty,tx,flip]
         return img, gt, lb, mk, aug
 
-    def _worker_func(self):
-        while True:
-            index_batch = self._index_queue.get()
-            slot = self._free_slots.get()
-            try:
-                self._fill_slot(slot, index_batch)
-            except Exception as e:  # same propagation as the base loader
-                self._batch_queue.put(dict(worker_error=repr(e)))
-                raise
-            self._batch_queue.put(slot)
+    def _dispatch(self, epoch, k, sent, index_batches):
+        """Queue index batches from number `sent` on, each with a free slot,
+        while there is one. Returns how many are queued."""
+        while sent < len(index_batches) and not self._free_slots.empty():
+            self._queue(epoch, sent, index_batches[sent], self._free_slots.get())
+            sent += 1
+        if sent == k and not self._in_flight:  # no batch out there will free a slot
+            raise RuntimeError(
+                f"every one of the {self._num_slots} shared-memory slots holds a batch "
+                "that was handed out and not released (release_slot)")
+        return sent
 
-    def _fill_slot(self, slot, index_batch):
+    def _produce_batch(self, index_batch, slot=None):
         views = self._slot_views(slot)
         img, gt, lb, mk = views[:4]
         gt[:] = 0
@@ -372,28 +428,22 @@ class ShmDataLoader(DataLoader):
                 aug[bi, 0:2] = s["aug_scale"]
                 aug[bi, 2:4] = s["aug_translation"]
                 aug[bi, 4] = s["aug_flip"]
+        return slot
 
-    def __iter__(self):
-        if not self._started:
-            self._start_workers()
-        for index_batch in self._dataset_sampler:
-            self._index_queue.put(index_batch)
-        for _ in range(self._loops):
-            slot = self._batch_queue.get()
-            if isinstance(slot, dict) and "worker_error" in slot:
-                raise RuntimeError(
-                    f"data loader worker failed: {slot['worker_error']}"
-                )
-            views = self._slot_views(slot)
-            img, gt, lb, mk = views[:4]
-            batch = dict(images=img, gt_bboxes=gt, gt_labels=lb, gt_mask=mk,
-                         _slot=slot, _loader=self)
-            if self._aug:
-                aug = views[4]
-                batch["aug_scale"] = aug[:, 0:2]
-                batch["aug_translation"] = aug[:, 2:4]
-                batch["aug_flip"] = aug[:, 4]
-            yield batch
+    def _hand_out(self, slot):
+        views = self._slot_views(slot)
+        img, gt, lb, mk = views[:4]
+        batch = dict(images=img, gt_bboxes=gt, gt_labels=lb, gt_mask=mk,
+                     _slot=slot, _loader=self)
+        if self._aug:
+            aug = views[4]
+            batch["aug_scale"] = aug[:, 0:2]
+            batch["aug_translation"] = aug[:, 2:4]
+            batch["aug_flip"] = aug[:, 4]
+        return batch
+
+    def _discard(self, slot):
+        self._free_slots.put(slot)
 
     @property
     def num_slots(self):

@@ -2,7 +2,8 @@ from .executor import Executor
 from .hooks import (CheckpointHook, EvaluationHook, Hook, LoggerHook, LrSchedulerHook,
                     OptimizerHook, Priority, ProfilerHook, SpeedHook, get_priority)
 from .jax_convert import jax_amax_to_port, jax_train_state_to_port, jax_variables_to_state_dict
-from .optim import SGD, GroupedSGD, clip_by_global_norm, global_norm, set_lr
+from .optim import (SGD, GroupedSGD, bias_param_labels, clip_by_global_norm, global_norm,
+                    set_lr)
 from .torch_convert import convert_torchvision_resnet
 from .schedules import (ConstantLRSchedule, CosineLRSchedule, MultiStepLRSchedule,
                         WarmupSetting)
@@ -15,7 +16,7 @@ __all__ = [
     "CheckpointHook", "EvaluationHook", "LoggerHook", "ProfilerHook",
     "jax_amax_to_port", "jax_train_state_to_port", "jax_variables_to_state_dict",
     "convert_torchvision_resnet",
-    "SGD", "GroupedSGD", "clip_by_global_norm", "global_norm", "set_lr",
+    "SGD", "GroupedSGD", "bias_param_labels", "clip_by_global_norm", "global_norm", "set_lr",
     "ConstantLRSchedule", "CosineLRSchedule", "MultiStepLRSchedule", "WarmupSetting",
     "AverageMeter", "collect_envs", "customize_exception_hook", "get_root_logger",
     "load_backbone_weights", "load_checkpoint", "save_checkpoint", "set_random_seed",

@@ -20,9 +20,13 @@
 #     0's index stream;
 #   - the mesh step (sync-BN, global loss normalizers, DDP) from rank 0's
 #     weights; the metrics are the global batch's;
-#   - the val loop: each rank runs and decodes its rows of each val batch
-#     and the rows are gathered in the global order, so the evaluator (on
-#     rank 0) sees what a one-process pass sees;
+#   - the val loop: every rank iterates its own val loader, runs and decodes
+#     its rows of each val batch, and the rows are gathered in the global
+#     order, so the evaluator (on rank 0) sees what a one-process pass sees;
+#   - both hold because every loader hands out its batches in its sampler's
+#     order, whatever order its workers finish them in (data/loader.py): at
+#     step k every rank holds its rows of global batch k, train and val,
+#     and rank 0's val meta names the rows the other ranks decoded;
 #   - only rank 0 writes checkpoints, the log file and the evaluation.
 # A list of devices in one process raises: a torch process drives one
 # device (a list would be DataParallel, which lfdtpu replaced).
@@ -90,7 +94,9 @@ def _placement(cfg):
 def _shard(loader, mesh):
     """The train loader yields this rank's rows of each global batch. Every
     rank draws the index batches from rank 0's sampler stream, so the
-    ranks' rows make up one global batch however the sampler was seeded."""
+    ranks' rows make up one global batch however the sampler was seeded;
+    each loader hands them out in its sampler's order, so the ranks' step k
+    is global batch k."""
     rng = getattr(loader._dataset_sampler, "_rng", None)
     if rng is not None:
         state = [rng.getstate()]

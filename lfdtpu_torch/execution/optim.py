@@ -33,12 +33,26 @@ class SGD:
                                nesterov=self.nesterov)
 
 
+def bias_param_labels(net):
+    """{state_dict name: "bias" or "other"}: the reference's param-group
+    split (`lfd/model/fcos.py:53-80`, lfdtpu's `bias_param_labels`). Every
+    conv bias is "bias"; norm affines, Scales, other weights and buffers are
+    "other"."""
+    conv_bias = {id(m.bias) for m in net.modules()
+                 if isinstance(m, nn.Conv2d) and m.bias is not None}
+    return {name: "bias" if id(t) in conv_bias else "other"
+            for name, t in net.state_dict(keep_vars=True).items()}
+
+
 def bias_parameters(net):
-    """The bias group of the reference's param-group split
-    (`lfd/model/fcos.py:53-80`, lfdtpu `bias_param_labels`): every conv
-    bias. Norm affines and Scales stay in the main group."""
-    return [m.bias for m in net.modules()  # each shared module once
-            if isinstance(m, nn.Conv2d) and m.bias is not None]
+    """The "bias" group of bias_param_labels, each shared parameter once, in
+    the net's order."""
+    state = net.state_dict(keep_vars=True)
+    group = {}
+    for name, label in bias_param_labels(net).items():
+        if label == "bias":
+            group.setdefault(id(state[name]), state[name])
+    return list(group.values())
 
 
 @dataclasses.dataclass(frozen=True)

@@ -50,6 +50,23 @@ def resolve_body(body_mode, body_architecture, body_channels, out_indices):
     return arch[: max_stage + 1], chans[: max_stage + 1], out_indices
 
 
+def lfd_resnet_output_info(
+    stem_mode="fast",
+    body_mode="fast",
+    body_architecture=None,
+    body_channels=None,
+    out_indices=((0, 3), (1, 1), (2, 1), (3, 0), (4, 0)),
+):
+    """(num_output_channels_list, num_output_strides_list) of an LFDResNet,
+    from its plan alone: no module is built (`lfdtpu/models/lfd_resnet.py:
+    50-63`)."""
+    _, chans, out_indices = resolve_body(body_mode, body_architecture, body_channels,
+                                         out_indices)
+    stem_stride = 2 if stem_mode == "fast" else 4
+    return ([chans[st] for st, _ in out_indices],
+            [stem_stride * 2 ** (st + 1) for st, _ in out_indices])
+
+
 def stem_plan(stem_mode, stem_channels):
     """[(out channels, kernel, stride)] of the stem's ConvNormActs."""
     if stem_mode == "fast":
@@ -81,7 +98,6 @@ class LFDResNet(nn.Module):
         arch, chans, out_indices = resolve_body(
             body_mode, body_architecture, body_channels, out_indices)
         self.out_indices = out_indices
-        self.stem_stride = 2 if stem_mode == "fast" else 4
 
         stem_layers = []
         cin = input_channels
@@ -103,9 +119,8 @@ class LFDResNet(nn.Module):
                                         act_cfg=act_cfg, norm_cfg=norm_cfg))
                 cin = ch
             setattr(self, f"stage{i}", nn.Sequential(*blocks))
-        self.num_output_channels_list = [chans[st] for st, _ in out_indices]
-        self.num_output_strides_list = [
-            self.stem_stride * (2 ** (st + 1)) for st, _ in out_indices]
+        self.num_output_channels_list, self.num_output_strides_list = lfd_resnet_output_info(
+            stem_mode, body_mode, body_architecture, body_channels, out_indices)
         self.fused_stem = None
 
     def stages(self):

@@ -20,6 +20,18 @@
 #     rows that read no padding row but a global edge's. The kernels keep
 #     their contracts; a strip one of them cannot take raises from its
 #     wrapper, nothing runs F.conv2d in its place;
+#   - a float32 or float64 conv of a kernel larger than 1x1 computes only
+#     its kept output rows, as an im2col GEMM over chunks of rows whose
+#     unfolded input takes at most the window's bytes, or 64 MiB
+#     (_conv_rows),
+#     not through cuDNN: for fp32 (TF32 off) cuDNN's heuristics pick, at
+#     some map shapes, an engine with a workspace of up to 2.1 GiB that is
+#     also tens of times slower, and which shapes do follows no rule a
+#     caller can read (tools/cudnn_workspace.py sweeps them). A strip's
+#     heights differ from the whole map's, so a rank could hit such a shape
+#     where one process does not, and need more memory than one process;
+#     the GEMM's memory is a share of the window's whatever the shape.
+#     bf16 convs stay on cuDNN;
 #   - the nearest-exact upsample: output row i reads input row
 #     floor((i + 0.5) * in / out) as torch's kernel rounds it (source_rows);
 #   - GroupNorm: each rank's per-sample, per-group mean and centred sum
@@ -370,7 +382,8 @@ class _Window(_Swapped):
         raise NotImplementedError
 
     def run(self, x, j0, n, *args):
-        return self.inner(x)
+        """Output rows j0 ... j0 + n - 1 of the module run on the window x."""
+        return self.inner(x).narrow(self.dim, j0, n)
 
     def empty(self, x):
         raise NotImplementedError
@@ -386,12 +399,48 @@ class _Window(_Swapped):
         lo, hi = st.owned(h_out)
         if hi == lo:
             return self.empty(x)
-        j0 = wins[st.index][2]
-        return self.run(x, j0, hi - lo, *args).narrow(self.dim, j0, hi - lo)
+        return self.run(x, wins[st.index][2], hi - lo, *args)
 
 
 def _pair(v):
     return tuple(v) if isinstance(v, (tuple, list)) else (v, v)
+
+
+_UNFOLD_BYTES = 64 * 2 ** 20  # a chunk's unfolded input: at most this, or the window's bytes
+
+
+def _conv_rows(conv, x, j0, n):
+    """Output rows j0 ... j0 + n - 1 of the conv (groups 1) run as it is on
+    the window x, as an im2col GEMM over chunks of output rows: each
+    chunk's unfolded input takes at most _UNFOLD_BYTES or x's bytes,
+    whichever is more, and each image's product is written in place into
+    the output, NHWC memory (returned as its channels_last NCHW view)."""
+    kh, kw = conv.kernel_size
+    sh, sw = conv.stride
+    ph, pw = conv.padding
+    b, c, h, w = x.shape
+    w_out = out_height(w, kw, sw, pw)
+    # no gradient crosses a strip's collectives: the spatial net is eval only
+    weight = conv.weight.detach().reshape(conv.out_channels, -1).t()
+    bias = None if conv.bias is None else conv.bias.detach()
+    row_bytes = b * c * kh * kw * w_out * x.element_size()  # one output row, unfolded
+    rows = max(1, max(_UNFOLD_BYTES, x.numel() * x.element_size()) // row_bytes)
+    out = x.new_empty((b, n, w_out, conv.out_channels))
+    for a in range(0, n, rows):
+        r = min(rows, n - a)
+        top = (j0 + a) * sh - ph  # the chunk's input rows [top, bottom), zero outside x
+        bottom = top + (r - 1) * sh + kh
+        chunk = x.narrow(2, max(top, 0), min(bottom, h) - max(top, 0))
+        if top < 0 or bottom > h:
+            chunk = F.pad(chunk, (0, 0, max(-top, 0), max(bottom - h, 0)))
+        cols = F.unfold(chunk, (kh, kw), padding=(0, pw), stride=(sh, sw))
+        for i in range(b):
+            y = out[i, a:a + r].view(r * w_out, -1)
+            torch.mm(cols[i].t(), weight, out=y)
+            if bias is not None:
+                y += bias
+        del chunk, cols  # before the next chunk's unfold: one chunk's buffers at a time
+    return out.permute(0, 3, 1, 2)
 
 
 class _Conv(_Window):
@@ -406,6 +455,13 @@ class _Conv(_Window):
     @staticmethod
     def geometry(m):
         return m.kernel_size[0], m.stride[0], m.padding[0]
+
+    def run(self, x, j0, n):
+        c = self.inner
+        if x.dtype in (torch.float32, torch.float64) and c.groups == 1 and \
+                c.kernel_size != (1, 1):
+            return _conv_rows(c, x, j0, n)
+        return super().run(x, j0, n)
 
     def empty(self, x):
         c = self.inner
@@ -482,7 +538,7 @@ class _Int8(_Window):
         if residual is not None:
             produced = out_height(x.shape[1], *self.geometry(self.inner))
             residual = _pad_rows(residual, 1, j0, produced - j0 - n)
-        return self.inner(x, residual, residual_scale)
+        return self.inner(x, residual, residual_scale).narrow(1, j0, n)
 
     def forward(self, x8, residual=None, residual_scale=None):
         return super().forward(x8, residual, residual_scale)

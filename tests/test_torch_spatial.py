@@ -544,6 +544,38 @@ def test_needed_rows_and_kernel_window_against_brute_force(window):
                 assert torch.equal(got, whole[:, :, lo:hi]), (height, parts, r)
 
 
+@pytest.mark.parametrize("window", [w for w in WINDOWS if w[0] not in (1, "pool")], ids=str)
+def test_strip_gemm_conv_equals_the_conv_on_kernel_window(window, monkeypatch):
+    """spatial._conv_rows, the float convs' path on strips: the kept output
+    rows of the conv run on kernel_window's rows, for every rank of 1-4,
+    batch 2, with a bias, in one chunk and in chunks of a few rows
+    (float64, within 1e-12 of F.conv2d's)."""
+    from lfdtpu_torch.parallel import spatial
+
+    k, s, p = window
+    g = torch.Generator().manual_seed(k * 10 + s)
+    conv = torch.nn.Conv2d(3, 4, k, s, p).double()
+    with torch.no_grad():
+        conv.weight.copy_(torch.randn(conv.weight.shape, generator=g, dtype=torch.float64))
+        conv.bias.copy_(torch.randn(4, generator=g, dtype=torch.float64))
+    for unfold_bytes in (spatial._UNFOLD_BYTES, 1):
+        monkeypatch.setattr(spatial, "_UNFOLD_BYTES", unfold_bytes)
+        for height in (k, 17, 40):
+            x = torch.randn(2, 3, height, 9, generator=g, dtype=torch.float64)
+            whole = conv(x)
+            h_out = whole.shape[2]
+            for parts in range(1, 5):
+                for r in range(parts):
+                    lo, hi = spatial.owned_rows(h_out, parts, r)
+                    if hi == lo:
+                        continue
+                    r0, r1, j0 = spatial.kernel_window(lo, hi, height, k, s, p)
+                    got = spatial._conv_rows(conv, x[:, :, r0:r1], j0, hi - lo)
+                    ref = whole[:, :, lo:hi]
+                    assert got.shape == ref.shape
+                    assert float((got - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
+
+
 def test_upsample_rows_against_brute_force():
     """The rows that a nearest-exact resize's owned output rows read, found
     by resizing an index map whole (float32 and float64 data); torch's map
