@@ -344,8 +344,10 @@ It checks them:
               K1-K3, int8 with a float32 and a bf16 head: the default
               calibration on each rank's whole noise frames, rank 0's
               scales), serves the 4K frames (one warm call, SPATIAL_FRAMES
-              timed: ms a call, peak memory, launches), times one call with
-              its collectives synchronized apart (their ms and count), holds
+              timed: ms a call, peak memory, launches), times one call
+              under a profiler session (its collectives' device ms and
+              count from the spans `spatial.all_gather` and
+              `spatial.collectives` of lfdtpu_torch/tracing.py), holds
               every K1-K4 launch of one call on its strips to the plain
               version (K1, K4 exact; K2, K3 within K2_TOL / K3_TOL), then the
               one-process eager engine of the same build on the same frames:
@@ -4843,12 +4845,14 @@ def strip_kernels(engine, imgs, vhw, label):
 
 def spatial_engine(det, variant, mesh, imgs, vhw, counters, label, device):
     """One mesh engine of phase 17 on this rank: built and served (the path:
-    counters zeroed before, read after), then timed, its collectives timed,
-    its kernels held to their plain versions, and the one-process eager
-    engine of the same build on the same frames (rows, dense outputs, int8
-    edges, peak memory). Returns the rank's record."""
+    counters zeroed before, read after), then timed, its collectives timed
+    by their spans (tracing.py), its kernels held to their plain versions,
+    and the one-process eager engine of the same build on the same frames
+    (rows, dense outputs, int8 edges, peak memory). Returns the rank's
+    record."""
     import torch
 
+    from lfdtpu_torch import tracing
     from lfdtpu_torch.parallel import local_batch_slice, owned_rows
     from lfdtpu_torch.parallel.spatial import SpatialNet
 
@@ -4871,14 +4875,18 @@ def spatial_engine(det, variant, mesh, imgs, vhw, counters, label, device):
     rec["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
     rec["launches"] = {c.__name__: c.launches for c in counters}
     rec["ms_per_call"] = ms
-    strips = engine.spatial.strips
-    strips.timed, strips.collective_seconds, strips.collectives = True, 0.0, 0
-    t0 = time.perf_counter()
-    engine(imgs, vhw)
-    torch.cuda.synchronize()
-    rec["timed_call_ms"] = (time.perf_counter() - t0) * 1e3
-    rec["collective_ms"], rec["collectives"] = strips.collective_seconds * 1e3, strips.collectives
-    strips.timed = False
+    # one call under a profiler session (CPU activity only: the program's
+    # spans and their CUDA events need no CUPTI): its collectives' device
+    # ms and count from the spans of tracing.py
+    tracing.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        t0 = time.perf_counter()
+        engine(imgs, vhw)
+        torch.cuda.synchronize()
+        rec["timed_call_ms"] = (time.perf_counter() - t0) * 1e3
+    spans = tracing.summary()
+    rec["collective_ms"] = spans["spans"]["spatial.all_gather"]["stream_ms"]
+    rec["collectives"] = spans["counters"]["spatial.collectives"]
     rec["kernels"] = strip_kernels(engine, imgs, vhw, label)
     dense = [d.float() for d in engine.dense(imgs)]
     amax, edges = None, None
@@ -4998,7 +5006,7 @@ def spatial_rank(rank, out_dir):
         print(f"[rank {rank}] {variant} WIDERFACE-L {SPATIAL_HW[1]}x{SPATIAL_HW[0]} batch "
               f"{batch}, {where} of {job['label']}: eager "
               + ", ".join(f"{v:.1f}" for v in rec["ms_per_call"]) + " ms a call; a call "
-              f"with its {rec['collectives']} collectives timed apart: {rec['timed_call_ms']:.1f}"
+              f"with its {rec['collectives']} collectives traced: {rec['timed_call_ms']:.1f}"
               f" ms, of which the collectives {rec['collective_ms']:.1f}; peak "
               f"{rec['peak_mib']:.0f} MiB (one process, whole frames: {rec['one_peak_mib']:.0f});"
               f" launches {rec['launches']} [{card}]", flush=True)

@@ -56,6 +56,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from .. import tracing
 from ..device import resolve_device
 from ..parallel.distributed import global_batch_from_local, local_batch_slice
 from ..parallel.spatial import SpatialNet, spatial_parallel
@@ -313,10 +314,11 @@ class MeshEngine(Engine):
         return x, vhw.expand(self.batch_size, 2)[b0:b1].to(self.device)
 
     def __call__(self, images, valid_hw):
-        out = self._run(*self._local(images, valid_hw))
-        if isinstance(out, dict):
-            return dict(zip(out, global_batch_from_local(self.mesh, list(out.values()))))
-        return global_batch_from_local(self.mesh, [out])
+        with tracing.span("engine.run", self.device):
+            out = self._run(*self._local(images, valid_hw))
+            if isinstance(out, dict):
+                return dict(zip(out, global_batch_from_local(self.mesh, list(out.values()))))
+            return global_batch_from_local(self.mesh, [out])
 
     @torch.inference_mode()
     def dense(self, images):

@@ -18,6 +18,7 @@ import time
 import numpy as np
 import torch
 
+from .. import tracing
 from ..ops.conv_kernels import pair_conv3x3, stem_conv
 from ..ops.int8_conv import int8_conv
 from ..ops.nms_kernel import nms_mask_sorted
@@ -118,7 +119,11 @@ class GraphRunner:
     math runs under, whatever the calling process's: those of the process
     that built it, and a file carries them to the process that loads it.
     Its eager calls, warmup calls and captures run under them; a graph
-    keeps the math it was captured with."""
+    keeps the math it was captured with.
+
+    Under a profiler session a call records the spans `engine.stage`
+    (slot, pinned copy, H2D enqueue), `engine.replay` (timed on the device's stream)
+    and `engine.clone`, or `engine.run` for an eager call (tracing.py)."""
 
     # set by the subclass: device, batch_size, input_resolution, kernel_stem
 
@@ -186,8 +191,10 @@ class GraphRunner:
             before = launch_counts()
             try:
                 # thread_local: another thread's CUDA calls (a loader
-                # pinning memory) do not fail this capture
-                with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                # pinning memory) do not fail this capture; no span records
+                # inside it (a first float frame captures inside engine.stage)
+                with tracing.paused(), torch.cuda.graph(graph,
+                                                        capture_error_mode="thread_local"):
                     out = self._run(inp, self._vhw)
             except Exception as e:
                 # never an eager engine in its place
@@ -248,17 +255,21 @@ class GraphRunner:
 
     def __call__(self, images, valid_hw):
         if not self.captured:
-            x, vhw = self._images(images), self._valid_hw(valid_hw)
-            return self._run(x, vhw)
-        if not isinstance(images, (torch.Tensor, np.ndarray)):
-            images = np.asarray(images)
-        self._check_images(images)
+            with tracing.span("engine.run", self.device):
+                x, vhw = self._images(images), self._valid_hw(valid_hw)
+                return self._run(x, vhw)
         with torch.cuda.device(self.device):
-            g = self._graph_for(images)
-            self._load(g, images, valid_hw)
-            g.graph.replay()
+            with tracing.span("engine.stage"):
+                if not isinstance(images, (torch.Tensor, np.ndarray)):
+                    images = np.asarray(images)
+                self._check_images(images)
+                g = self._graph_for(images)
+                self._load(g, images, valid_hw)
+            with tracing.span("engine.replay", self.device):
+                g.graph.replay()
             # Copies, so that call n's result survives call n + 1 (the
             # graph writes the same output tensors every replay): one small
             # device copy per output, max_det rows each (B x 100 x 7 floats
             # when packed, four such launches for the dict).
-            return _clone(g.out)
+            with tracing.span("engine.clone"):
+                return _clone(g.out)

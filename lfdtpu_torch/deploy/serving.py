@@ -13,6 +13,10 @@
 # grows to as many slots as the stream runs ahead, up to four
 # (deploy/runner.py, STAGING_SLOTS). On the CPU a call is synchronous and the
 # stream is the synchronous loop in order.
+#
+# Under a profiler session (tracing.py) each call records `stream.submit`
+# (the engine's spans and `stream.prefetch` inside it) and each result
+# `stream.fetch`, under the number of the submit it returns.
 
 from __future__ import annotations
 
@@ -20,6 +24,8 @@ from collections import deque
 
 import numpy as np
 import torch
+
+from .. import tracing
 
 
 class _Pending:
@@ -56,12 +62,25 @@ def _prefetch(out):
     return out
 
 
-def _fetch(item):
-    """A result (or a _Pending) as numpy arrays; blocks until computed."""
-    if isinstance(item, _Pending):
-        item.event.synchronize()
-        return _numpy(item.host)
-    return _numpy(item)
+def _submit(engine, args, host_prefetch):
+    """One engine call, its result's copies to the host started (with
+    host_prefetch): (the result or its _Pending, the call's span number)."""
+    with tracing.span("stream.submit") as s:
+        out = engine(*args)
+        if host_prefetch:
+            with tracing.span("stream.prefetch"):
+                out = _prefetch(out)
+    return out, s.seq
+
+
+def _fetch(item, seq=None):
+    """A result (or a _Pending) as numpy arrays; blocks until computed.
+    seq: the number of the submit whose result this is (its span's)."""
+    with tracing.span("stream.fetch", seq=seq):
+        if isinstance(item, _Pending):
+            item.event.synchronize()
+            return _numpy(item.host)
+        return _numpy(item)
 
 
 def run_stream(engine, requests, depth=4, host_prefetch=True):
@@ -81,12 +100,11 @@ def run_stream(engine, requests, depth=4, host_prefetch=True):
         raise ValueError(f"depth must be >= 1, got {depth}")
     q = deque()
     for args in requests:
-        out = engine(*args)
-        q.append(_prefetch(out) if host_prefetch else out)
+        q.append(_submit(engine, args, host_prefetch))
         if len(q) >= depth:
-            yield _fetch(q.popleft())
+            yield _fetch(*q.popleft())
     while q:
-        yield _fetch(q.popleft())
+        yield _fetch(*q.popleft())
 
 
 class StreamingServer:
@@ -107,12 +125,11 @@ class StreamingServer:
         self._q = deque()
 
     def submit(self, *args):
-        out = self.engine(*args)
-        self._q.append(_prefetch(out) if self.host_prefetch else out)
+        self._q.append(_submit(self.engine, args, self.host_prefetch))
         if len(self._q) >= self.depth:
-            return _fetch(self._q.popleft())
+            return _fetch(*self._q.popleft())
         return None
 
     def drain(self):
         while self._q:
-            yield _fetch(self._q.popleft())
+            yield _fetch(*self._q.popleft())

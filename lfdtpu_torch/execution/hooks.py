@@ -125,7 +125,9 @@ class SpeedHook(Hook):
     the seconds, which reads batch x seconds (ROADMAP F12). The step is
     asynchronous on a GPU, so this times the host's enqueue, not the
     device's work. batch_size is the global batch: over a data mesh each
-    rank reads the global images/s."""
+    rank reads the global images/s. For the device's pace, read the
+    `train.step` span's parts (their stream times) under ProfilerHook or
+    any torch.profiler session (lfdtpu_torch/tracing.py)."""
 
     def __init__(self):
         super().__init__()
@@ -260,7 +262,10 @@ class ProfilerHook(Hook):
     `start_iter` (the reference only has wall-clock metering; lfdtpu's
     jax.profiler hook stops one iteration later). The trace is written to
     `trace_dir`/trace.json; `profile` keeps the profiler for
-    key_averages()."""
+    key_averages(). While it records, the program's spans record too
+    (lfdtpu_torch/tracing.py): the trace holds each step's `train.step`
+    range with its parts (`train.forward`, `train.loss`, ...) beside the
+    kernels, and tracing.summary() gives their medians."""
 
     def __init__(self, trace_dir, start_iter=10, num_iters=5):
         super().__init__()

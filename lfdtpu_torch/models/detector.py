@@ -13,6 +13,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import tracing
 from ..ops import assign as assign_ops
 from ..ops import boxes as box_ops
 from ..ops import points as point_ops
@@ -376,8 +377,9 @@ class LFD(DenseDetector):
                 else self.level_arrays(input_hw, cls_pred.device))
         assert info["points"].shape[0] == P, (info["points"].shape, P)
 
-        cls_t, reg_t = self._assign(info, gt_bboxes.to(info["points"].dtype), gt_labels,
-                                    gt_mask.bool())
+        with tracing.span("train.assign", cls_pred.device):
+            cls_t, reg_t = self._assign(info, gt_bboxes.to(info["points"].dtype), gt_labels,
+                                        gt_mask.bool())
 
         cls_pred_f = cls_pred.reshape(-1, self.cls_channels)
         reg_pred_f = reg_pred.reshape(-1, 4)
@@ -465,24 +467,40 @@ class LFD(DenseDetector):
         """Batched engine predict: each image is zero-padded into the
         engine's bucket and its own valid extent rides the (B, 2) valid_hw.
         The batch must match the engine's batch_size.
-        Returns one [[class_label, score, x1, y1, w, h], ...] per image."""
-        eh, ew = engine.input_resolution
-        processed = []
-        for image in images:
-            image = _read_image(image)
-            if aug_pipeline is not None:
-                image = _read_image(aug_pipeline({"image": image})["image"])
-            h, w = image.shape[:2]
-            if h > eh or w > ew:
-                raise ValueError(f"image {h}x{w} exceeds engine resolution {eh}x{ew}")
-            processed.append(image)
-        batch = np.zeros((len(processed), eh, ew, 3), processed[0].dtype)
-        hws = np.zeros((len(processed), 2), np.float32)
-        for i, image in enumerate(processed):
-            h, w = image.shape[:2]
-            batch[i, :h, :w] = image
-            hws[i] = (h, w)
-        decoded = engine(batch, hws)
-        decoded = {k: v.cpu().numpy() for k, v in decoded.items()}
-        return [detections_to_lists({k: v[i] for k, v in decoded.items()})
-                for i in range(len(processed))]
+        Returns one [[class_label, score, x1, y1, w, h], ...] per image.
+        Under a profiler session the call records the span `predict`, with
+        `predict.pad`, the engine's spans, `predict.fetch` and
+        `predict.rows` inside it, and counts the rows (tracing.py)."""
+        with tracing.span("predict"):
+            with tracing.span("predict.pad"):
+                batch, hws = _padded_batch(engine.input_resolution, images, aug_pipeline)
+            decoded = engine(batch, hws)
+            with tracing.span("predict.fetch"):
+                decoded = {k: v.cpu().numpy() for k, v in decoded.items()}
+            with tracing.span("predict.rows"):
+                rows = [detections_to_lists({k: v[i] for k, v in decoded.items()})
+                        for i in range(len(batch))]
+                tracing.count("predict.rows", lambda: sum(len(r) for r in rows))
+            return rows
+
+
+def _padded_batch(resolution, images, aug_pipeline):
+    """The images read (and augmented), each zero-padded into the engine's
+    (h, w) `resolution`: (B, h, w, 3) batch and (B, 2) valid extents."""
+    eh, ew = resolution
+    processed = []
+    for image in images:
+        image = _read_image(image)
+        if aug_pipeline is not None:
+            image = _read_image(aug_pipeline({"image": image})["image"])
+        h, w = image.shape[:2]
+        if h > eh or w > ew:
+            raise ValueError(f"image {h}x{w} exceeds engine resolution {eh}x{ew}")
+        processed.append(image)
+    batch = np.zeros((len(processed), eh, ew, 3), processed[0].dtype)
+    hws = np.zeros((len(processed), 2), np.float32)
+    for i, image in enumerate(processed):
+        h, w = image.shape[:2]
+        batch[i, :h, :w] = image
+        hws[i] = (h, w)
+    return batch, hws

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from ..ops import assign as assign_ops
 from ..ops import boxes as box_ops
 from ..ops.decode import DecodeSpec
@@ -59,8 +60,9 @@ class FCOS(DenseDetector):
         """(classification loss, reg targets (B*P, 4), pos (B*P,), global
         num_pos) with fcos_assign's hard labels; the average is num_pos + B
         over the global batch."""
-        labels, reg_t = assign_ops.fcos_assign(info["points"], info["ranges"], gt_bboxes,
-                                               gt_labels, gt_mask, self.num_classes)
+        with tracing.span("train.assign", cls_pred.device):
+            labels, reg_t = assign_ops.fcos_assign(info["points"], info["ranges"], gt_bboxes,
+                                                   gt_labels, gt_mask, self.num_classes)
         labels = labels.reshape(-1).long()
         pos = (labels != self.num_classes).to(cls_pred.dtype)
         num_pos = global_sum(pos.sum(), mesh)
@@ -136,8 +138,9 @@ class FCOSv1(FCOS):
     detector_name = "FCOSv1"
 
     def _classification_loss(self, cls_pred, info, gt_bboxes, gt_labels, gt_mask, mesh):
-        fg, reg_t = assign_ops.fcos_v1_assign(info["points"], info["ranges"], gt_bboxes,
-                                              gt_labels, gt_mask, self.num_classes)
+        with tracing.span("train.assign", cls_pred.device):
+            fg, reg_t = assign_ops.fcos_v1_assign(info["points"], info["ranges"], gt_bboxes,
+                                                  gt_labels, gt_mask, self.num_classes)
         fg = fg.reshape(-1, self.num_classes)
         pos = fg.any(dim=-1).to(cls_pred.dtype)
         # the binary view (`fcos.py:711-739`): logits (B*P*C, 1), label 0 for

@@ -21,6 +21,7 @@ import dataclasses
 
 import torch
 
+from .. import tracing
 from ..ops import assign as assign_ops
 from ..ops import boxes as box_ops
 from ..parallel.distributed import global_sum, global_sums
@@ -77,8 +78,9 @@ class LFDv2Q(LFDv2):
         info = (level_arrays if level_arrays is not None
                 else self.level_arrays(input_hw, cls_pred.device))
         assert info["points"].shape[0] == P, (info["points"].shape, P)
-        cls_t, reg_t = self._assign(info, gt_bboxes.to(info["points"].dtype), gt_labels,
-                                    gt_mask.bool())
+        with tracing.span("train.assign", cls_pred.device):
+            cls_t, reg_t = self._assign(info, gt_bboxes.to(info["points"].dtype), gt_labels,
+                                        gt_mask.bool())
 
         cls_pred_f = cls_pred.reshape(-1, self.num_classes)
         reg_pred_f = reg_pred.reshape(-1, 4)

@@ -32,6 +32,11 @@
 # parameters equal; the BN buffers stay equal by construction
 # (broadcast_buffers=False).
 #
+# Under a profiler session a step records the span `train.step` and, inside
+# it, `train.input`, `train.forward`, `train.loss` (the detector's
+# `train.assign` inside it), `train.backward` and `train.update`, each but
+# the first timed on the device's stream too (tracing.py).
+#
 # make_eval_step is the val loop's forward (`data_parallel.py:151-172`);
 # with spatial=True on a mesh with a spatial axis it runs the net with the
 # image height split over that axis (parallel/spatial.py), as lfdtpu's step
@@ -49,6 +54,7 @@ from torch import nn
 from torch.nn.parallel import DistributedDataParallel
 from torch.utils.checkpoint import checkpoint
 
+from .. import tracing
 from ..device import resolve_device
 from ..execution.optim import clip_by_global_norm, global_norm, set_lr
 from ..models.detector import eval_forward
@@ -195,36 +201,43 @@ def make_train_step(detector, optimizer, input_hw, clip_max_norm=0.0,
         return torch.as_tensor(x).to(device, non_blocking=True)
 
     def step(images, gt_bboxes, gt_labels, gt_mask, lr, clip_enabled):
-        images = to_device(images)
-        if preprocess is not None:
-            images = preprocess(images)
-        net.train()
-        optimizer.zero_grad(set_to_none=True)
-        with torch.autocast(device.type, dtype=torch.bfloat16, enabled=mixed_precision):
-            outs = forward(images.to(params[0].dtype))
-        if mixed_precision:
-            outs = tuple(o.float() for o in outs)
-        ld = detector.get_loss(outs, to_device(gt_bboxes),
-                               to_device(gt_labels), to_device(gt_mask), input_hw,
-                               level_arrays=level_arrays, mesh=mesh)
-        # DDP averages the ranks' gradients: the world size turns the mean
-        # into the gradient of the global loss, the ranks' losses' sum
-        (ld["loss"] * loss_scale).backward()
-        # a frozen stage's parameters get no gradient; lfdtpu's
-        # stop_gradient gives them zeros, which weight decay then acts on
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in params]
-        if clip_max_norm > 0:
-            grad_norm = clip_by_global_norm(grads, clip_max_norm, clip_enabled)
-        else:
-            grad_norm = global_norm(grads)
-        set_lr(optimizer, lr)
-        optimizer.step()
-        metrics = {k: v.detach() for k, v in ld["loss_values"].items()}
-        metrics["grad_norm"] = grad_norm.detach()
-        return metrics
+        with tracing.span("train.step"):
+            with tracing.span("train.input"):
+                images = to_device(images)
+                if preprocess is not None:
+                    images = preprocess(images)
+                gt = to_device(gt_bboxes), to_device(gt_labels), to_device(gt_mask)
+                net.train()
+                optimizer.zero_grad(set_to_none=True)
+            with tracing.span("train.forward", device):
+                with torch.autocast(device.type, dtype=torch.bfloat16,
+                                    enabled=mixed_precision):
+                    outs = forward(images.to(params[0].dtype))
+                if mixed_precision:
+                    outs = tuple(o.float() for o in outs)
+            with tracing.span("train.loss", device):
+                ld = detector.get_loss(outs, *gt, input_hw, level_arrays=level_arrays,
+                                       mesh=mesh)
+            with tracing.span("train.backward", device):
+                # DDP averages the ranks' gradients: the world size turns the
+                # mean into the gradient of the global loss, the ranks' sum
+                (ld["loss"] * loss_scale).backward()
+            with tracing.span("train.update", device):
+                # a frozen stage's parameters get no gradient; lfdtpu's
+                # stop_gradient gives them zeros, which weight decay acts on
+                for p in params:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                grads = [p.grad for p in params]
+                if clip_max_norm > 0:
+                    grad_norm = clip_by_global_norm(grads, clip_max_norm, clip_enabled)
+                else:
+                    grad_norm = global_norm(grads)
+                set_lr(optimizer, lr)
+                optimizer.step()
+                metrics = {k: v.detach() for k, v in ld["loss_values"].items()}
+                metrics["grad_norm"] = grad_norm.detach()
+            return metrics
 
     return step
 

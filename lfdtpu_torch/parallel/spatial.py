@@ -66,7 +66,6 @@
 from __future__ import annotations
 
 import copy
-import time
 import types
 
 import torch
@@ -74,6 +73,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from .. import tracing
 from ..deploy.int8_net import Int8Chain, Int8Unit
 from ..deploy.kernel_net import FusedFasterBlock, FusedStem
 from ..models.detector import DetectionNet
@@ -192,18 +192,15 @@ class Strips:
     it: this rank's place, the plan's records and the collectives. One
     object is shared by every swapped module of a SpatialNet.
 
-    `timed` (off by default): synchronize the device around each
-    collective and add its seconds to `collective_seconds` (and one to
-    `collectives`), to tell the exchanges' cost from the compute's; the
-    syncs slow the run, so time frames with it off."""
+    Under a profiler session each collective records the span
+    `spatial.all_gather`, timed on the device's stream too, and adds one to the
+    counter `spatial.collectives` (tracing.py): they tell the exchanges'
+    cost from the compute's."""
 
     def __init__(self, mesh):
         self.parts, self.index, self.group = mesh.spatial, mesh.spatial_rank, mesh.spatial_group
         self.records = None
         self.cursor = 0
-        self.timed = False
-        self.collective_seconds = 0.0
-        self.collectives = 0
 
     def owned(self, height, index=None):
         return owned_rows(height, self.parts, self.index if index is None else index)
@@ -240,15 +237,9 @@ class Strips:
         in rank order."""
         w, back = _wire(t, nchw)
         parts = [torch.empty_like(w) for _ in range(self.parts)]
-        if self.timed and w.is_cuda:
-            torch.cuda.synchronize(w.device)
-        t0 = time.perf_counter()
-        dist.all_gather(parts, w, group=self.group)
-        if self.timed:
-            if w.is_cuda:
-                torch.cuda.synchronize(w.device)
-            self.collective_seconds += time.perf_counter() - t0
-            self.collectives += 1
+        with tracing.span("spatial.all_gather", w.device):
+            dist.all_gather(parts, w, group=self.group)
+        tracing.count("spatial.collectives")
         return [back(p) for p in parts]
 
     def window_rows(self, x, dim, height, windows, first):
@@ -695,8 +686,7 @@ class SpatialNet(nn.Module):
     `height` (default: the height given at construction); returns what the
     module returns for the whole images, on every spatial rank (the level
     maps gathered before the flatten). kwargs go to the module (Int8Chain's
-    capture: each unit's owned rows). `strips` holds the axis (its `timed`
-    switch times the collectives)."""
+    capture: each unit's owned rows). `strips` holds the axis."""
 
     def __init__(self, module, twin, strips, height=None):
         super().__init__()

@@ -1047,3 +1047,58 @@ def test_one_rank_mesh_engine_equals_the_engine_without_a_mesh(cuda, variant):
             assert int(ref["count"].sum()) > 0 and _same(meshed(f, vhw), ref)
     finally:
         dist.destroy_process_group()
+
+
+def test_captured_engine_spans_time_the_replay_on_the_device(cuda):
+    """The predict API over a captured engine under a profiler session:
+    engine.stage, engine.replay and engine.clone inside each predict call,
+    the replay's device time from its events above 0 and within the
+    call's host time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lfdtpu_torch import tracing
+
+    det = _detector("L")
+    engine = _engine(det, "bf16_kernels")  # a fresh capture: one profiler session replays it
+    frames = list(_frames(4, batch=4))
+    det.predict_for_batch_with_engine(engine, frames[:2])
+    tracing.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(3):
+            det.predict_for_batch_with_engine(engine, frames[i:i + 2])
+    spans = tracing.summary()["spans"]
+    calls = [s for s in tracing._RECORDER.spans if s.name == "predict"]
+    assert len(calls) == 3
+    for c in calls:
+        kids = sorted(s.name for s in tracing._RECORDER.spans if s.parent == c.id)
+        assert kids == ["engine.clone", "engine.replay", "engine.stage", "predict.fetch",
+                        "predict.pad", "predict.rows"]
+    replay = spans["engine.replay"]
+    assert replay["calls"] == 3 and 0 < replay["stream_ms"] < spans["predict"]["host_ms"]
+    assert spans["engine.stage"]["stream_ms"] is None
+    assert {"predict", "engine.replay"} <= {e.name for e in prof.events()}
+    tracing.reset()
+
+
+def test_no_span_records_inside_a_graph_capture(cuda):
+    from torch.profiler import ProfilerActivity, profile
+
+    from lfdtpu_torch import tracing
+
+    x = torch.ones(1024, device=cuda)
+    torch.cuda.synchronize()
+    tracing.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            with tracing.span("captured", cuda) as s:
+                y = x * 2
+        assert s.seq is None
+        graph.replay()
+        with tracing.span("replayed", cuda):
+            graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y, x * 2)
+    spans = tracing.summary()["spans"]
+    assert "captured" not in spans and spans["replayed"]["stream_ms"] > 0
+    tracing.reset()
