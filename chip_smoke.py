@@ -24,7 +24,9 @@ It checks them:
               engine's batch 4, max|err| / max|ref| < 0.03 (K2), 0.02 (K3):
               K3 is bf16 out of fp32 accumulation in another order, K2 also
               rounds its taps and weights to bf16 (the TPU kernel's
-              numerics);
+              numerics); K5 (GroupNorm + ReLU) against its plain version at
+              the head's shapes (K5_SHAPES) in bf16 and float32, and on a
+              map at mean 1000, std 0.05 against float64;
   5. engine   engines at 1088x1920 (1080p padded to the stride-64
               multiple), built as a user builds them: on the card
               compile_inference returns a CAPTURED engine, one CUDA graph of
@@ -82,7 +84,9 @@ It checks them:
               (cudnn_convolution_add_relu / _relu), which is K3's library
               call where the card runs it; K1 on random boxes at B=1,
               K=1000, on the walk's hard cases and at B=4, each with its
-              kept count;
+              kept count; K5 at WIDERFACE-L's and TT100K-L's first head
+              levels beside ATen's group_norm + relu on the channels_last
+              map with its copies;
               one frame of the bf16_kernels engine launches K1 once, K2 once
               and K3 10 times (the wrappers' counters for the eager engine,
               the capture's record and the profiled replays for the
@@ -418,6 +422,15 @@ HW = (1088, 1920)           # 1080p padded to the stride-64 multiple
 SMALL_HW = (256, 256)       # fp32 GPU vs CPU reference size
 MEAN, STD = (0.5, 0.5, 0.5), (0.5, 0.5, 0.5)
 K2_TOL, K3_TOL = 0.03, 0.02
+# K5 against its plain version, max|err| / max|ref|: bf16, each side's own
+# rounding of the output may go either way, one ulp (up to 2^-7 of a value)
+# apart, twice that for room; float32, the statistics' order
+K5_TOL = {"bf16": 2.0 ** -6, "fp32": 1e-5}
+# K5's shapes (N, H, W, C, G): WIDERFACE-L's five head levels at HW, TT100K-L's
+# first at TT_HW, batch 2, and FCOS's 256 channels in 32 groups
+K5_SHAPES = ((1, 272, 480, 128, 16), (1, 136, 240, 128, 16), (1, 68, 120, 128, 16),
+             (1, 34, 60, 128, 16), (1, 17, 30, 128, 16), (1, 512, 512, 128, 16),
+             (2, 68, 120, 128, 16), (1, 100, 152, 256, 32))
 # bf16 engines, max|err| / max|ref| of the dense outputs: a random deep net
 # amplifies bf16 rounding (each bf16 engine lands 3-4% from fp32 at small
 # sizes on the CPU), and the kernels round at other places (fp32 normalize in
@@ -441,7 +454,8 @@ K4_KERNELS = {"wgmma": "int8_conv_wgmma_kernel", "stem": "int8_conv_stem_kernel"
               "mma": "int8_conv_kernel"}  # K4's kernel per route
 KERNEL_NAMES = {"pair_conv3x3": ("pair_conv_kernel",), "stem_conv": ("stem_conv_kernel",),
                 "nms_mask_sorted": ("nms_iou_kernel", "nms_walk_kernel"),
-                "int8_conv": ("int8_conv_",)}  # K4's three routes' kernels
+                "int8_conv": ("int8_conv_",),  # K4's three routes' kernels
+                "group_norm_relu": ("group_norm_stats_kernel", "group_norm_relu_kernel")}
 # engine variants: compile_inference's switches (lfdtpu's defaults: K1 on, K2
 # and K3 off); expected_launches counts what one capture of a net launches
 VARIANTS = {
@@ -697,7 +711,7 @@ def kernel_work(name, shape, residual=False):
     """(bytes, operations, their type) of one launch: each input read once
     and each output written once, the operations its inputs need.
     shape: (N, H, W) of K3's activations or K2's frame; (B, K) for K1;
-    (N, H, W, Cin, Cout, k, stride, mode) for K4."""
+    (N, H, W, Cin, Cout, k, stride, mode) for K4; (N, H, W, C) for K5."""
     if name == "pair_conv3x3":
         n, h, w = shape
         act = n * h * w * 64 * 2  # bf16 NHWC
@@ -724,6 +738,11 @@ def kernel_work(name, shape, residual=False):
         nbytes = (ins + consts + outs * (4 if mode == "b" else 1)
                   + outs * {"a": 0, "b": 0, "c8": 1, "cf": 4}[mode])
         return nbytes, 2 * outs * k * k * cin, "int8"
+    if name == "group_norm_relu":
+        # shape (N, H, W, C), bf16: the statistics need the whole map before
+        # the first output, so the map is read twice and written once
+        n, h, w, c = shape
+        return 3 * n * h * w * c * 2 + 2 * c * 4, 5 * n * h * w * c, "fp32"
     raise ValueError(f"unknown kernel {name}")
 
 
@@ -793,14 +812,16 @@ def frames(rng, n, hw):
 
 
 def expected_launches(det, switches):
-    """K1/K2/K3/K4 launches of one captured frame of an engine of `det` with
+    """K1-K5 launches of one captured frame of an engine of `det` with
     compile_inference's `switches`, counted from the net: K1 once unless
     the NMS kernel is off, K2 once with the stem kernel, K3 twice for each
     FasterBlock that deploy/kernel_net.py::eligible_faster_block routes
     (bf16 kernel_convs engines), K4 once for each unit of the int8 chain's
-    plan (deploy/int8_net.py::planned_launches; int8 engines). A batch
-    launches each as often as a frame."""
-    from lfdtpu_torch.deploy.kernel_net import eligible_faster_block
+    plan (deploy/int8_net.py::planned_launches; int8 engines), K5 once for
+    each GroupNorm call of the head (kernel_net.group_norm_calls; every
+    engine but a mesh engine split over rows). A batch launches each as
+    often as a frame."""
+    from lfdtpu_torch.deploy.kernel_net import eligible_faster_block, group_norm_calls
 
     from lfdtpu_torch.deploy.int8_net import planned_launches
 
@@ -810,7 +831,8 @@ def expected_launches(det, switches):
     return {"nms_mask_sorted": int(switches.get("nms_use_kernel", True)),
             "stem_conv": int(switches.get("kernel_stem", False)),
             "pair_conv3x3": 2 * blocks if convs else 0,
-            "int8_conv": planned_launches(det.net) if int8 else 0}
+            "int8_conv": planned_launches(det.net) if int8 else 0,
+            "group_norm_relu": group_norm_calls(det.net)}
 
 
 def kernel_variant(det):
@@ -920,6 +942,51 @@ def check_k2_k3(device, hw=HW):
 
 
 # ----------------------------------------------------------------- engine
+
+def k5_inputs(device, g, n, h, w, c, dtype, offset=0.0, spread=1.0):
+    """An NHWC map whose channels differ in mean and scale, and K5's float32
+    gamma and beta."""
+    import torch
+
+    x = (torch.randn(n, h, w, c, generator=g, device=device)
+         * (torch.rand(c, generator=g, device=device) + 0.5) * spread
+         + torch.randn(c, generator=g, device=device) + offset)
+    return (x.to(dtype), torch.rand(c, generator=g, device=device) + 0.5,
+            torch.randn(c, generator=g, device=device))
+
+
+def check_k5(device):
+    """K5 against its plain version (ATen's group_norm then relu) at
+    K5_SHAPES in bf16 and float32, then a float32 map at mean 1000 and std
+    0.05 against float64 (E[x^2] - E[x]^2 would keep no digit of its
+    variance). Returns the largest |kernel - plain| of the bf16 cases."""
+    import torch
+    import torch.nn.functional as F
+
+    from lfdtpu_torch.ops import group_norm as gn
+
+    g = torch.Generator(device=device).manual_seed(6)
+    worst = 0.0
+    for n, h, w, c, groups in K5_SHAPES:
+        for dtype, key in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+            x, gamma, beta = k5_inputs(device, g, n, h, w, c, dtype)
+            got = gn.group_norm_relu(x, gamma, beta, groups, 1e-5)
+            ref = gn.group_norm_relu_plain(x, gamma, beta, groups, 1e-5)
+            err = rel_err(got, ref)
+            if key == "bf16":
+                worst = max(worst, float((got.float() - ref.float()).abs().max()))
+            print(f"K5 {(n, h, w, c)} G={groups} {key}: max|err|/max|ref| {err:.3e} "
+                  f"(tol {K5_TOL[key]})")
+            check(err <= K5_TOL[key], "K5 disagrees with its plain version")
+    x, gamma, beta = k5_inputs(device, g, 1, 68, 120, 128, torch.float32, 1000.0, 0.05)
+    got = gn.group_norm_relu(x, gamma, beta, 16, 1e-5)
+    ref = torch.relu(F.group_norm(x.double().permute(0, 3, 1, 2), 16, gamma.double(),
+                                  beta.double(), 1e-5)).permute(0, 2, 3, 1)
+    err = rel_err(got, ref)
+    print(f"K5 at mean 1000, std 0.05, float32, against float64: max|err|/max|ref| {err:.3e}")
+    check(err < 1e-3, "K5's statistics lose a map far from zero")
+    return worst
+
 
 def compile_engine(det, hw, device, variant, batch_size=1, captured=None, preprocess=None,
                    **kw):
@@ -1970,6 +2037,7 @@ def time_kernels(device, card, k2_in, k3_in):
     boxes[..., 2:] += boxes[..., :2]
     valid = torch.ones(1, 1000, dtype=torch.bool, device=device)
     out["nms_mask_sorted"] = time_k1(boxes, valid, g, card)
+    out["group_norm_relu"] = time_k5(device, card, g)
     return out
 
 
@@ -2057,6 +2125,41 @@ def time_k1(boxes, valid, g, card):
                    note=" (inputs of 17 KB: warm = cold)")
 
 
+def time_k5(device, card, g):
+    """K5 at WIDERFACE-L's first head level (272x480x128) and TT100K-L's
+    (512x512x128), bf16, G=16: warm and cold CUDA-graph ms, its bound (the
+    map read twice and written once), its plain version eager, and ATen's
+    group_norm then relu on the channels_last map with the copy back to
+    channels_last (what the engine ran before K5) as a graph. Returns the
+    fields of the kernels line per shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from lfdtpu_torch.ops import group_norm as gn
+
+    rows = []
+    for h, w in ((272, 480), (512, 512)):
+        shape = (1, h, w, 128)
+        sets = COLD_BYTES // (h * w * 128 * 2) + 2
+        maps = [k5_inputs(device, g, 1, h, w, 128, torch.bfloat16) for _ in range(sets)]
+        x, gamma, beta = maps[0]
+        warm = graph_ms([lambda: gn.group_norm_relu(x, gamma, beta, 16, 1e-5)])
+        cold = graph_ms([lambda m=m: gn.group_norm_relu(m[0], gamma, beta, 16, 1e-5)
+                         for m in maps])
+        plain = time_ms(lambda: gn.group_norm_relu_plain(x, gamma, beta, 16, 1e-5))
+        x_cl, wb = x.permute(0, 3, 1, 2), (gamma.bfloat16(), beta.bfloat16())
+        aten = graph_ms([lambda: torch.relu(F.group_norm(x_cl, 16, *wb, 1e-5)).contiguous(
+            memory_format=torch.channels_last)])
+        moments = graph_ms([lambda: F.group_norm(x_cl, 16, *wb, 1e-5)])
+        print(f"  ATen group_norm {shape} on channels_last, ms: alone {moments:.4f}, with "
+              f"the ReLU and the copy back {aten:.4f}; K5 {warm:.4f} [{card}]")
+        rows.append(dict(shape=list(shape), **_timing(
+            "group_norm_relu", shape, card, warm, cold, plain, aten,
+            library_call="ATen group_norm + relu on channels_last, its NCHW round trip")))
+        del maps
+    return rows
+
+
 def device_ms_by_name(prof):
     """({kernel name: device ms}, {kernel name: launches}, the window) of a
     profile's device events (device_events)."""
@@ -2136,6 +2239,10 @@ def profile_engine(engine, x, vhw, card, label, counters, want, frames_=PROFILED
             f"{route} {sum(by_name[n] for n in by_name if kname in n) / frames_:.4f} "
             f"({sum(calls[n] for n in by_name if kname in n) / frames_:.0f})"
             for route, kname in K4_KERNELS.items()))
+    if want.get("group_norm_relu"):
+        k5_excl = exclusive_ms(device_events(prof)[0], "group_norm_") / frames_
+        per_frame["group_norm_relu_exclusive"] = (k5_excl, per_frame["group_norm_relu"][1])
+        print(f"  K5 ms per frame without the normalize kernel's early start: {k5_excl:.4f}")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         print(f"  {ms / frames_:8.4f} ms/frame  {calls[name] / frames_:5.1f}x  "
               f"{name[:110]}")
@@ -2888,7 +2995,7 @@ def fcos_phase(device, card, counters):
           f"{launches}; K1's boxes (read) {shapes}, valid {n_valid}")
     want = 2 * FCOS_FRAMES + 1
     check(launches == {"nms_mask_sorted": want, "stem_conv": 0, "pair_conv3x3": 0,
-                       "int8_conv": 0},
+                       "int8_conv": 0, "group_norm_relu": 0},
           f"the FCOS main path did not launch K1 once per call ({want})")
     check(shapes == [(1, spec.nms_budget, 4)] * (2 * FCOS_FRAMES) + [(2, spec.nms_budget, 4)]
           and min(map(min, n_valid)) == spec.nms_budget,
@@ -4431,7 +4538,7 @@ def ddp_rank(rank, out_dir):
     import torch
     import torch.distributed as dist
 
-    from lfdtpu_torch.ops import conv_kernels, int8_conv, kernel_lib, nms_kernel
+    from lfdtpu_torch.ops import conv_kernels, group_norm, int8_conv, kernel_lib, nms_kernel
     from lfdtpu_torch.parallel import (initialize_distributed, local_batch_slice,
                                        make_mesh)
 
@@ -4446,7 +4553,7 @@ def ddp_rank(rank, out_dir):
           and (mesh.rank, mesh.size) == (rank, job["world"]), f"rank {rank}: mesh {mesh}")
     kernel_lib.library()  # the parent built it
     counters = (nms_kernel.nms_mask_sorted, conv_kernels.stem_conv,
-                conv_kernels.pair_conv3x3, int8_conv.int8_conv)
+                conv_kernels.pair_conv3x3, int8_conv.int8_conv, group_norm.group_norm_relu)
     card = card_line()
     weights = torch.load(os.path.join(out_dir, "weights.pt"), weights_only=True)
     arrays = np.load(os.path.join(out_dir, "batch.npz"))
@@ -4975,7 +5082,7 @@ def spatial_rank(rank, out_dir):
     import torch
     import torch.distributed as dist
 
-    from lfdtpu_torch.ops import conv_kernels, int8_conv, kernel_lib, nms_kernel
+    from lfdtpu_torch.ops import conv_kernels, group_norm, int8_conv, kernel_lib, nms_kernel
     from lfdtpu_torch.parallel import initialize_distributed, make_mesh
 
     faulthandler.enable(all_threads=False)
@@ -4991,7 +5098,7 @@ def spatial_rank(rank, out_dir):
           f"rank {rank}: mesh {mesh}")
     kernel_lib.library()  # the parent built it
     counters = (nms_kernel.nms_mask_sorted, conv_kernels.stem_conv,
-                conv_kernels.pair_conv3x3, int8_conv.int8_conv)
+                conv_kernels.pair_conv3x3, int8_conv.int8_conv, group_norm.group_norm_relu)
     card = card_line()
     batch = job["batch"]
     imgs = frames(np.random.RandomState(SPATIAL_SEED), batch, SPATIAL_HW)
@@ -5208,7 +5315,7 @@ def main(argv=()):
         print("chip_smoke: no CUDA device; this smoke run needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
-    from lfdtpu_torch.ops import conv_kernels, int8_conv, kernel_lib, nms_kernel
+    from lfdtpu_torch.ops import conv_kernels, group_norm, int8_conv, kernel_lib, nms_kernel
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5230,14 +5337,15 @@ def main(argv=()):
 
     print("[3 K1]")
     err1 = check_k1(device)
-    print("[4 K2 K3]")
+    print("[4 K2 K3 K5]")
     errs, k2_in, k3_in = check_k2_k3(device)
+    errs["group_norm_relu"] = check_k5(device)
 
     print("[5 engine]")
     det = build_detector(device)
     rng = np.random.RandomState(5)
     counters = (nms_kernel.nms_mask_sorted, conv_kernels.stem_conv,
-                conv_kernels.pair_conv3x3, int8_conv.int8_conv)
+                conv_kernels.pair_conv3x3, int8_conv.int8_conv, group_norm.group_norm_relu)
     # The main path: compile_inference (the wrappers launch their kernels in
     # the warmup calls and while the graph is captured; that is where the
     # host counters tick), then the predict entry points, whose calls replay
@@ -5411,11 +5519,17 @@ def main(argv=()):
         # mma.sync route for other widths: csrc/int8_conv.cu)
         "int8_conv": ("lfdtpu_torch/csrc/int8_conv_wgmma.cuh", "lfdtpu/deploy/int8_net.py:276",
                       k4_err),
+        # not a Pallas kernel: XLA's GroupNorm (flax) of lfdtpu's heads
+        "group_norm_relu": ("lfdtpu_torch/csrc/group_norm.cu", "lfdtpu/models/layers.py:67",
+                            errs["group_norm_relu"]),
     }
     other = {"nms_mask_sorted": [fcos_k1],
              "stem_conv": [r for r in new_rows if "residual" not in r],
              "pair_conv3x3": [r for r in new_rows if "residual" in r],
-             "int8_conv": k4_rows[1:]}
+             "int8_conv": k4_rows[1:],
+             "group_norm_relu": timings["group_norm_relu"][1:]}
+    timings["group_norm_relu"] = {k: v for k, v in timings["group_norm_relu"][0].items()
+                                  if k != "shape"}
     for name, rows in rows_l.items():
         other[name] += rows
     # each kernel's launches on its main path: WIDERFACE-L's bf16 engines for

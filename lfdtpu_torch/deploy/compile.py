@@ -62,7 +62,7 @@ from ..parallel.distributed import global_batch_from_local, local_batch_slice
 from ..parallel.spatial import SpatialNet, spatial_parallel
 from .int8_net import Int8Chain, calibrate_module_amax
 from .kernel_net import attach_kernels, prepack_stem
-from .runner import GraphRunner, frame_dtype
+from .runner import GraphRunner, count_group_norms, frame_dtype
 
 # the float dtype of each precision's net (int8: its float remainder's default)
 _DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16, "int8": torch.float32}
@@ -315,7 +315,7 @@ class MeshEngine(Engine):
 
     def __call__(self, images, valid_hw):
         with tracing.span("engine.run", self.device):
-            out = self._run(*self._local(images, valid_hw))
+            out = count_group_norms(self._run, *self._local(images, valid_hw))
             if isinstance(out, dict):
                 return dict(zip(out, global_batch_from_local(self.mesh, list(out.values()))))
             return global_batch_from_local(self.mesh, [out])
@@ -468,7 +468,6 @@ def compile_inference(
                 act_scales = box[0]
         head_dtype = _HEAD_DTYPES[int8_head_dtype]
         net = net.to(head_dtype)  # the chain quantizes from these weights
-        int8_chain = Int8Chain(net, act_scales, dequant_dtype=head_dtype, device=device)
         kernel_convs = False
 
     stem_pack = None
@@ -483,9 +482,13 @@ def compile_inference(
         if stem_pack is None:
             raise ValueError("kernel_stem: the backbone's stem0 is not a "
                              "conv 3x3/s2 3 -> 64 + BatchNorm + ReLU")
+    spatial = several and mesh.spatial > 1
+    # before the int8 chain is planned: its float head runs these modules
     attach_kernels(net, block_kernels=kernel_convs and precision == "bf16",
-                   stem_pack=stem_pack)
-    if several and mesh.spatial > 1:
+                   stem_pack=stem_pack, group_norms=not spatial)
+    if precision == "int8":
+        int8_chain = Int8Chain(net, act_scales, dequant_dtype=head_dtype, device=device)
+    if spatial:
         if int8_chain is not None:
             int8_chain = spatial_parallel(int8_chain, mesh, height=input_hw[0])
         else:

@@ -39,7 +39,8 @@ import torch
 from torch.export.passes import move_to_device_pass
 
 from ..device import resolve_device
-from ..ops import conv_kernels, int8_conv, nms_kernel  # noqa: F401  (register torch.ops.lfd)
+from ..ops import (conv_kernels, group_norm, int8_conv,  # noqa: F401  (register torch.ops.lfd)
+                   nms_kernel)
 from .runner import GraphRunner
 
 MAGIC = "lfdtpu-torch-engine-v1"

@@ -58,6 +58,7 @@ from ..models.lfd_resnet import LFDResNet
 from ..models.necks import SimpleNeck
 from ..ops.int8_conv import (int8_conv, pack_int8_weight, quantize_to, quantize_weights,
                              scale_of)
+from .kernel_net import FusedGroupNormReLU
 
 INPUT_KEY = "__input__#out"
 
@@ -93,8 +94,8 @@ def split_units(seq, prefix):
         if not units:
             raise ValueError(f"{prefix}: a unit must start with a conv, got {type(m).__name__}")
         units[-1].layers.append(m)
-        if isinstance(m, (nn.BatchNorm2d, nn.GroupNorm)):
-            units[-1].norm = m
+        if isinstance(m, (nn.BatchNorm2d, nn.GroupNorm, FusedGroupNormReLU)):
+            units[-1].norm = m  # K5's module: the norm, the Identity after it the act
         else:
             units[-1].act = m
     return units

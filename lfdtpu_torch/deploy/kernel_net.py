@@ -1,12 +1,16 @@
 # Kernel inference path (`lfdtpu/deploy/pallas_net.py`): route the stem's
 # first conv and the eligible FasterBlocks through the hand-written kernels
-# K2 and K3 (`ops/conv_kernels.py`).
+# K2 and K3 (`ops/conv_kernels.py`), and the head's GroupNorm -> ReLU pairs
+# through K5 (`ops/group_norm.py`; lfdtpu leaves GroupNorm to XLA).
 #
 # The dispatch is explicit: `attach_kernels` sets `LFDResNet.fused_stem` and
 # `FasterBlock.fused` on an engine's own copy of the net, and those modules'
-# forward calls the callable instead of their layers. Weights are packed and
-# BatchNorm folded ONCE, at engine build, from the engine's (cast) weights in
-# fp32, as the JAX engine folds from its bf16-cast variables.
+# forward calls the callable instead of their layers; it puts a
+# FusedGroupNormReLU in place of each eligible GroupNorm of a Sequential and
+# an Identity in place of the ReLU after it (the indices, and so the module
+# names, stay). Weights are packed and BatchNorm folded ONCE, at engine
+# build, from the engine's (cast) weights in fp32, as the JAX engine folds
+# from its bf16-cast variables.
 
 from __future__ import annotations
 
@@ -15,7 +19,16 @@ from torch import nn
 
 from ..models.blocks import FasterBlock
 from ..models.layers import BN_EPS
+from ..ops import group_norm
 from ..ops.conv_kernels import pair_conv3x3, stem_conv
+from ..ops.group_norm import group_norm_relu
+
+
+def _nhwc(x):
+    """The NHWC tensor of an NCHW one: a view of a channels_last tensor, a
+    copy of any other."""
+    xh = x.permute(0, 2, 3, 1)
+    return xh if xh.is_contiguous() else xh.contiguous()
 
 
 def prepack_pair_weights(net):
@@ -64,9 +77,7 @@ class FusedFasterBlock(nn.Module):
             self.register_buffer(name, t)
 
     def forward(self, x):
-        xh = x.permute(0, 2, 3, 1)  # NHWC view of a channels_last tensor
-        if not xh.is_contiguous():
-            xh = xh.contiguous()
+        xh = _nhwc(x)
         y = pair_conv3x3(xh, self.w1, self.scale1, self.bias1, relu=True)
         out = pair_conv3x3(y, self.w2, self.scale2, self.bias2, residual=xh, relu=True)
         return out.permute(0, 3, 1, 2)
@@ -122,17 +133,71 @@ class FusedStem(nn.Module):
         return tuple(getattr(self, name) for name in _STEM_PACK)
 
     def forward(self, x):
-        xh = x.permute(0, 2, 3, 1)
-        if not xh.is_contiguous():
-            xh = xh.contiguous()
-        return stem_conv(xh, *self.pack, relu=True).permute(0, 3, 1, 2)
+        return stem_conv(_nhwc(x), *self.pack, relu=True).permute(0, 3, 1, 2)
 
 
-def attach_kernels(net, block_kernels=False, stem_pack=None):
-    """Set the explicit kernel dispatch on `net` (an engine's own bf16 copy):
-    K3 on every eligible FasterBlock when block_kernels, K2 on the stem when
-    a stem_pack (from prepack_stem) is given. Returns the number of blocks
-    routed to K3."""
+def eligible_group_norm(norm, act):
+    """A GroupNorm with its affine parameters followed by a ReLU, in bf16 or
+    float32, whose groups K5 takes (ops/group_norm.py::eligible)."""
+    return (isinstance(norm, nn.GroupNorm) and norm.affine and isinstance(act, nn.ReLU)
+            and group_norm.eligible(norm.num_channels, norm.num_groups, norm.weight.dtype))
+
+
+class FusedGroupNormReLU(nn.Module):
+    """relu(group_norm(x)) as one K5 launch. Called with the GroupNorm's NCHW
+    (channels_last) input; returns the same view of its NHWC output. The
+    affine parameters are float32 buffers, so an exported engine holds
+    them."""
+
+    def __init__(self, norm):
+        super().__init__()
+        self.num_groups, self.eps = norm.num_groups, norm.eps
+        self.register_buffer("weight", norm.weight.detach().float().contiguous())
+        self.register_buffer("bias", norm.bias.detach().float().contiguous())
+
+    def forward(self, x):
+        return group_norm_relu(_nhwc(x), self.weight, self.bias, self.num_groups,
+                               self.eps).permute(0, 3, 1, 2)
+
+
+def _eligible_pairs(net):
+    """(Sequential, index) of every eligible GroupNorm -> ReLU pair, each
+    module once (a shared head is one object under every level's name)."""
+    return [(m, i) for m in net.modules() if isinstance(m, nn.Sequential)
+            for i in range(len(m) - 1) if eligible_group_norm(m[i], m[i + 1])]
+
+
+def group_norm_calls(net):
+    """K5 launches in one forward of `net` at batch 1 once attach_kernels
+    routes its GroupNorms: the eligible pairs' calls, counted by forward
+    hooks on a zero 64x64 frame in eval mode (a shared head counts at every
+    level it runs at)."""
+    calls = []
+    hooks = [seq[i].register_forward_hook(lambda *_: calls.append(1))
+             for seq, i in _eligible_pairs(net)]
+    p = next(net.parameters())
+    was_training = net.training
+    try:
+        net.eval()
+        with torch.inference_mode():
+            net(torch.zeros((1, 64, 64, 3), dtype=p.dtype, device=p.device))
+    finally:
+        net.train(was_training)
+        for h in hooks:
+            h.remove()
+    return len(calls)
+
+
+def attach_kernels(net, block_kernels=False, stem_pack=None, group_norms=True):
+    """Set the explicit kernel dispatch on `net` (an engine's own copy): K3
+    on every eligible FasterBlock when block_kernels, K2 on the stem when a
+    stem_pack (from prepack_stem) is given, and K5 on every eligible
+    GroupNorm -> ReLU pair of a Sequential when group_norms (not on a net
+    that parallel/spatial.py splits over rows: its GroupNorm takes moments
+    across ranks). Returns the number of blocks routed to K3."""
+    if group_norms:
+        for seq, i in _eligible_pairs(net):
+            seq[i], seq[i + 1] = FusedGroupNormReLU(seq[i]), nn.Identity()
     n_blocks = 0
     if block_kernels:
         packs = prepack_pair_weights(net)

@@ -20,18 +20,29 @@ import torch
 
 from .. import tracing
 from ..ops.conv_kernels import pair_conv3x3, stem_conv
+from ..ops.group_norm import group_norm_relu
 from ..ops.int8_conv import int8_conv
 from ..ops.nms_kernel import nms_mask_sorted
 
 _WARMUP_CALLS = 3  # eager calls before a capture
 STAGING_SLOTS = 4  # most pinned input sets a graph keeps
 
-_COUNTED = (nms_mask_sorted, stem_conv, pair_conv3x3, int8_conv)  # the kernel wrappers
+_COUNTED = (nms_mask_sorted, stem_conv, pair_conv3x3, int8_conv,
+            group_norm_relu)  # the kernel wrappers
 
 
 def launch_counts():
     """{kernel wrapper name: launches so far in this process}."""
     return {fn.__name__: fn.launches for fn in _COUNTED}
+
+
+def count_group_norms(run, *args):
+    """run(*args), and the K5 launches it made as the counter
+    `engine.gn_kernel` (where tracing records)."""
+    before = group_norm_relu.launches
+    out = run(*args)
+    tracing.count("engine.gn_kernel", lambda: group_norm_relu.launches - before)
+    return out
 
 
 def tf32_switches():
@@ -123,7 +134,10 @@ class GraphRunner:
 
     Under a profiler session a call records the spans `engine.stage`
     (slot, pinned copy, H2D enqueue), `engine.replay` (timed on the device's stream)
-    and `engine.clone`, or `engine.run` for an eager call (tracing.py)."""
+    and `engine.clone`, or `engine.run` for an eager call (tracing.py), and
+    the counter `engine.gn_kernel`: the K5 launches of the call's forward
+    (the graph's, from its capture; an eager call's, from the wrapper's
+    count)."""
 
     # set by the subclass: device, batch_size, input_resolution, kernel_stem
 
@@ -257,7 +271,7 @@ class GraphRunner:
         if not self.captured:
             with tracing.span("engine.run", self.device):
                 x, vhw = self._images(images), self._valid_hw(valid_hw)
-                return self._run(x, vhw)
+                return count_group_norms(self._run, x, vhw)
         with torch.cuda.device(self.device):
             with tracing.span("engine.stage"):
                 if not isinstance(images, (torch.Tensor, np.ndarray)):
@@ -267,6 +281,7 @@ class GraphRunner:
                 self._load(g, images, valid_hw)
             with tracing.span("engine.replay", self.device):
                 g.graph.replay()
+                tracing.count("engine.gn_kernel", g.launches["group_norm_relu"])
             # Copies, so that call n's result survives call n + 1 (the
             # graph writes the same output tensors every replay): one small
             # device copy per output, max_det rows each (B x 100 x 7 floats

@@ -41,6 +41,10 @@ _SIGNATURES = {
     # relu, N, H, W, Cin, Cout, ksize, stride, route, stream
     "lfd_int8_conv": (_P, _P, _P, _P, _P, _I, ctypes.c_float, _P, _I, ctypes.c_float,
                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, part, N, HW, C, G, S, fp32, stream
+    "lfd_group_norm_stats": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, part, gamma, beta, out, N, HW, C, G, S, eps, fp32, stream
+    "lfd_group_norm_relu": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P),
 }
 
 

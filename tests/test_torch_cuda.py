@@ -8,7 +8,8 @@ import numpy as np
 import pytest
 import torch
 
-from lfdtpu_torch.ops import conv_kernels, kernel_lib, nms_kernel
+from lfdtpu_torch.deploy.kernel_net import group_norm_calls
+from lfdtpu_torch.ops import conv_kernels, group_norm, kernel_lib, nms_kernel
 from lfdtpu_torch.ops.nms import nms_mask
 
 pytestmark = pytest.mark.cuda
@@ -361,7 +362,7 @@ def test_captured_engine_rows_equal_eager(cuda, size, variant):
         "nms_mask_sorted": int(variant != "bf16_plain"),
         "stem_conv": int(variant == "bf16_kernels"),
         "pair_conv3x3": k3 * int(variant == "bf16_kernels"),
-        "int8_conv": 0}
+        "int8_conv": 0, "group_norm_relu": group_norm_calls(det.net)}
     vhw = np.asarray([[256, 320], [200, 311]], np.float32)
     before = nms_kernel.nms_mask_sorted.launches
     for seed in (1, 2):
@@ -830,7 +831,7 @@ def test_captured_int8_engine_equals_eager(cuda, size, head):
     assert engines[0].captured and not engines[1].captured
     assert engines[0].captured_launches == {
         "nms_mask_sorted": 1, "stem_conv": 0, "pair_conv3x3": 0,
-        "int8_conv": planned_launches(det.net)}
+        "int8_conv": planned_launches(det.net), "group_norm_relu": group_norm_calls(det.net)}
     vhw = np.asarray([[256, 320], [200, 311]], np.float32)
     for seed in (1, 2):
         f = _frames(seed)
@@ -1101,4 +1102,169 @@ def test_no_span_records_inside_a_graph_capture(cuda):
     assert torch.equal(y, x * 2)
     spans = tracing.summary()["spans"]
     assert "captured" not in spans and spans["replayed"]["stream_ms"] > 0
+    tracing.reset()
+
+
+# K5 (csrc/group_norm.cu) against F.group_norm then relu in float32 at
+# chip_smoke.K5_SHAPES: the five WIDERFACE-L head levels at 1088x1920,
+# TT100K-L's 512x512 level, a batch of 2, FCOS's 256 channels in 32 groups, in
+# bf16 (the served engines) and float32 (the int8 engine's head). bf16: the
+# output's one rounding (at most 2^-8 of a value) bounds the gap; float32,
+# the statistics' summation order.
+K5_TOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
+
+
+def _k5_inputs(cuda, n, h, w, c, dtype, seed=0, **kw):
+    from chip_smoke import k5_inputs
+
+    return k5_inputs(cuda, torch.Generator(device=cuda).manual_seed(seed), n, h, w, c, dtype,
+                     **kw)
+
+
+def _k5_reference(x, gamma, beta, groups, dtype=torch.float32):
+    """relu(F.group_norm) in `dtype`, NHWC in and out."""
+    xr = x.to(dtype).permute(0, 3, 1, 2).contiguous()
+    y = torch.nn.functional.group_norm(xr, groups, gamma.to(dtype), beta.to(dtype), 1e-5)
+    return torch.relu(y).permute(0, 2, 3, 1)
+
+
+def _k5_shapes():
+    from chip_smoke import K5_SHAPES
+
+    return K5_SHAPES
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,h,w,c,groups", _k5_shapes())
+def test_group_norm_kernel_matches_plain(cuda, dtype, n, h, w, c, groups):
+    x, gamma, beta = _k5_inputs(cuda, n, h, w, c, dtype)
+    before = group_norm.group_norm_relu.launches
+    got = group_norm.group_norm_relu(x, gamma, beta, groups, 1e-5)
+    assert group_norm.group_norm_relu.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape and got.is_contiguous()
+    assert max_rel(got, _k5_reference(x, gamma, beta, groups)) <= K5_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype,offset,spread,tol", [
+    (torch.float32, 1000.0, 0.05, 1e-3), (torch.bfloat16, 256.0, 4.0, 2.0 ** -7)])
+def test_group_norm_module_keeps_a_large_mean_offset(cuda, dtype, offset, spread, tol):
+    """A channels_last NCHW map far from zero through the engine's module:
+    E[x^2] - E[x]^2 would cancel (at mean 1000 and std 0.05 float32 keeps
+    no digit of the variance); the kernel's merged moments hold it to the
+    float64 computation."""
+    from lfdtpu_torch.deploy.kernel_net import FusedGroupNormReLU
+
+    x, gamma, beta = _k5_inputs(cuda, 1, 68, 120, 128, dtype, offset=offset, spread=spread)
+    norm = torch.nn.GroupNorm(16, 128).to(cuda)
+    with torch.no_grad():
+        norm.weight.copy_(gamma)
+        norm.bias.copy_(beta)
+    module = FusedGroupNormReLU(norm.to(dtype))
+    xc = x.permute(0, 3, 1, 2)  # channels_last NCHW, as the engine's net holds it
+    assert xc.is_contiguous(memory_format=torch.channels_last)
+    got = module(xc)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    ref = _k5_reference(x.cpu(), module.weight.cpu(), module.bias.cpu(), 16, torch.float64)
+    assert max_rel(got.permute(0, 2, 3, 1), ref) <= tol
+
+
+def test_group_norm_kernel_is_deterministic_and_replays(cuda):
+    """Two calls are bit-equal (the partials merge in a fixed order), and a
+    captured graph's replay (the programmatic dependent launch included)
+    gives the eager call's result."""
+    x, gamma, beta = _k5_inputs(cuda, 1, 272, 480, 128, torch.bfloat16, seed=3)
+    a = group_norm.group_norm_relu(x, gamma, beta, 16, 1e-5)
+    b = group_norm.group_norm_relu(x, gamma, beta, 16, 1e-5)
+    assert torch.equal(a, b)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        group_norm.group_norm_relu(x, gamma, beta, 16, 1e-5)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = group_norm.group_norm_relu(x, gamma, beta, 16, 1e-5)
+    x.copy_(_k5_inputs(cuda, 1, 272, 480, 128, torch.bfloat16, seed=4)[0])
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, group_norm.group_norm_relu(x, gamma, beta, 16, 1e-5))
+    torch.library.opcheck(torch.ops.lfd.group_norm_relu.default, (x, gamma, beta, 16, 1e-5))
+
+
+def test_group_norm_kernel_rejects_bad_input(cuda):
+    x, gamma, beta = _k5_inputs(cuda, 1, 8, 8, 128, torch.bfloat16)
+    with pytest.raises(ValueError, match="groups"):
+        group_norm.group_norm_relu(x, gamma, beta, 32, 1e-5)  # 4 channels a group
+    with pytest.raises(ValueError, match="groups"):
+        group_norm.group_norm_relu(x.half(), gamma, beta, 16, 1e-5)
+    with pytest.raises(ValueError, match="float32"):
+        group_norm.group_norm_relu(x, gamma.bfloat16(), beta, 16, 1e-5)
+    with pytest.raises(ValueError, match="contiguous"):
+        group_norm.group_norm_relu(x.transpose(1, 2), gamma, beta, 16, 1e-5)
+
+
+K5_UNPAIRED = 0.05  # share of an image's rows above the cut left without a twin
+
+
+def _rows(out, i):
+    k = int(out["count"][i])
+    return (out["boxes"][i, :k].float().cpu(), out["scores"][i, :k].float().cpu(),
+            out["labels"][i, :k].cpu())
+
+
+def _unpaired(a, b, px=1.0, score=0.02):
+    """Rows of `a` with no row of `b` of the same label within px and score."""
+    (ba, sa, la), (bb, sb, lb) = a, b
+    if not len(sb):
+        return sa
+    near = (((ba[:, None] - bb[None]).abs().amax(-1) <= px)
+            & ((sa[:, None] - sb[None]).abs() <= score) & (la[:, None] == lb[None]))
+    return sa[~near.any(1)]
+
+
+@pytest.mark.parametrize("name", ["widerface-L", "tt100k-L"])
+def test_k5_engine_serves_the_aten_engines_rows(cuda, monkeypatch, name):
+    """A captured bf16 K1-K3 engine with K5 against the same engine with its
+    GroupNorms left to ATen: dense outputs within 2^-4 of their largest (two
+    bf16 nets that round at other places: chip_smoke's SPATIAL_DENSE_TOL),
+    and every served row paired within 1 px and 0.02 of score but rows at
+    the score cut and at most K5_UNPAIRED of the rest (a box that moves
+    across the NMS threshold keeps or drops a row: TT100K's 45 classes meet
+    it more often); the engine's counter gives K5's launches per call under
+    a profiler session."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lfdtpu_torch import tracing
+    from lfdtpu_torch.deploy import kernel_net
+
+    from chip_smoke import CLS_STD
+
+    det = (_detector("L") if name == "widerface-L" else
+           _detector(None, name="TT100K-L", cls_std=CLS_STD))
+    want = group_norm_calls(det.net)
+    assert want == (10 if name == "widerface-L" else 16)
+    k5 = _engine(det, "bf16_kernels")
+    assert k5.captured_launches["group_norm_relu"] == want
+    with monkeypatch.context() as m:
+        m.setattr(kernel_net, "_eligible_pairs", lambda net: [])
+        aten = _engine(det, "bf16_kernels")
+    assert aten.captured_launches["group_norm_relu"] == 0
+    vhw = np.asarray([[256, 320], [200, 311]], np.float32)
+    for seed in (1, 2):
+        f = _frames(seed)
+        for dk, da in zip(k5.dense(f), aten.dense(f)):
+            assert max_rel(dk, da) < 2.0 ** -4, (name, seed)
+        got, ref = k5(f, vhw), aten(f, vhw)
+        for i in range(2):
+            a, b = _rows(got, i), _rows(ref, i)
+            assert len(b[1]) > 0
+            cut = min(float(a[1].min()), float(b[1].min())) + 0.02
+            for x, y in ((a, b), (b, a)):
+                above = [float(s) for s in _unpaired(x, y) if s > cut]
+                assert len(above) <= K5_UNPAIRED * len(x[1]), (name, seed, i, cut, above)
+    tracing.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        for seed in (3, 4, 5):
+            det.predict_for_batch_with_engine(k5, list(_frames(seed)))
+    assert tracing.summary()["counters"]["engine.gn_kernel"] == 3 * want
     tracing.reset()

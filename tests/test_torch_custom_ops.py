@@ -1,10 +1,11 @@
 # The hand-written kernels as torch.library custom ops (lfd::nms_mask_sorted,
-# lfd::stem_conv, lfd::pair_conv3x3, lfd::int8_conv, and the plain NMS as
-# lfd::nms_mask_sorted_plain) on the CPU, where each op's CPU kernel is its
-# plain version: torch.library.opcheck at small shapes (the schema, the fake
-# tensor each op's register_fake gives, and dispatch), and the exported
-# program of an engine, which calls one torch.ops.lfd node for each kernel
-# its switches turn on, as often as the engine launches it a frame.
+# lfd::stem_conv, lfd::pair_conv3x3, lfd::int8_conv, lfd::group_norm_relu,
+# and the plain NMS as lfd::nms_mask_sorted_plain) on the CPU, where each
+# op's CPU kernel is its plain version: torch.library.opcheck at small shapes
+# (the schema, the fake tensor each op's register_fake gives, and dispatch;
+# K5's in tests/test_torch_group_norm.py), and the exported program of an
+# engine, which calls one torch.ops.lfd node for each kernel its switches
+# (and, for K5, its head) turn on, as often as the engine launches it a frame.
 import numpy as np
 import pytest
 import torch
@@ -12,7 +13,7 @@ import torch
 from lfdtpu_torch import zoo
 from lfdtpu_torch.deploy import compile_inference, load_engine, make_device_preprocess
 from lfdtpu_torch.deploy.engine_io import export_engine, lfd_ops, save_engine
-from lfdtpu_torch.deploy.kernel_net import eligible_faster_block
+from lfdtpu_torch.deploy.kernel_net import eligible_faster_block, group_norm_calls
 from lfdtpu_torch.ops import conv_kernels, int8_conv, nms_kernel
 from lfdtpu_torch.ops.int8_conv import pack_int8_weight, packed_width, quantize_weights
 
@@ -103,13 +104,15 @@ def test_engine_program_calls_each_switched_kernel(variant):
                 "int8": ("int8", {})}[variant]
     det, engine = _engine(switches[0], **switches[1])
     ops = lfd_ops(export_engine(engine))
-    want = {"lfd::nms_mask_sorted": 1}
+    want = {"lfd::nms_mask_sorted": 1, "lfd::group_norm_relu": group_norm_calls(det.net)}
+    assert want["lfd::group_norm_relu"] == 10  # every engine: 5 levels x 2 head layers
     if variant == "bf16_kernels":
         want["lfd::stem_conv"] = 1
         want["lfd::pair_conv3x3"] = 2 * sum(map(eligible_faster_block, det.net.modules()))
         assert want["lfd::pair_conv3x3"] > 0
     if variant == "plain_nms":
-        want = {"lfd::nms_mask_sorted_plain": 1}
+        del want["lfd::nms_mask_sorted"]
+        want["lfd::nms_mask_sorted_plain"] = 1
     if variant == "int8":
         want["lfd::int8_conv"] = len(engine.int8_chain.units)
     assert ops == dict(sorted(want.items()))

@@ -155,7 +155,9 @@ def test_int8_engine_save_load_roundtrip(tmp_path):
     the file holds them."""
     je, te = _pair("int8", classification_threshold=0.01)
     jl, tpath = _files(tmp_path, je, te)
-    assert read_meta(tpath)["ops"] == {"lfd::int8_conv": len(te.int8_chain.units),
+    # K5: the float head's 5 levels x the shared merge path's 2 GroupNorm + ReLU
+    assert read_meta(tpath)["ops"] == {"lfd::group_norm_relu": 10,
+                                       "lfd::int8_conv": len(te.int8_chain.units),
                                        "lfd::nms_mask_sorted": 1}
     img = _img(1)
     got = _np(load_engine(tpath, device="cpu")(img, (64, 64)))
