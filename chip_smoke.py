@@ -430,7 +430,8 @@ K5_TOL = {"bf16": 2.0 ** -6, "fp32": 1e-5}
 # first at TT_HW, batch 2, and FCOS's 256 channels in 32 groups
 K5_SHAPES = ((1, 272, 480, 128, 16), (1, 136, 240, 128, 16), (1, 68, 120, 128, 16),
              (1, 34, 60, 128, 16), (1, 17, 30, 128, 16), (1, 512, 512, 128, 16),
-             (2, 68, 120, 128, 16), (1, 100, 152, 256, 32))
+             (2, 68, 120, 128, 16), (1, 100, 152, 256, 32),
+             (1, 112, 176, 256, 32), (1, 7, 11, 256, 32))  # FCOS-R50-FPN's P3 and P7
 # bf16 engines, max|err| / max|ref| of the dense outputs: a random deep net
 # amplifies bf16 rounding (each bf16 engine lands 3-4% from fp32 at small
 # sizes on the CPU), and the kernels round at other places (fp32 normalize in
@@ -2127,7 +2128,8 @@ def time_k1(boxes, valid, g, card):
 
 def time_k5(device, card, g):
     """K5 at WIDERFACE-L's first head level (272x480x128) and TT100K-L's
-    (512x512x128), bf16, G=16: warm and cold CUDA-graph ms, its bound (the
+    (512x512x128), bf16, G=16, and FCOS-R50-FPN's P3 at 896x1408
+    (112x176x256, G=32): warm and cold CUDA-graph ms, its bound (the
     map read twice and written once), its plain version eager, and ATen's
     group_norm then relu on the channels_last map with the copy back to
     channels_last (what the engine ran before K5) as a graph. Returns the
@@ -2138,19 +2140,19 @@ def time_k5(device, card, g):
     from lfdtpu_torch.ops import group_norm as gn
 
     rows = []
-    for h, w in ((272, 480), (512, 512)):
-        shape = (1, h, w, 128)
-        sets = COLD_BYTES // (h * w * 128 * 2) + 2
-        maps = [k5_inputs(device, g, 1, h, w, 128, torch.bfloat16) for _ in range(sets)]
+    for h, w, c, groups in ((272, 480, 128, 16), (512, 512, 128, 16), (112, 176, 256, 32)):
+        shape = (1, h, w, c)
+        sets = COLD_BYTES // (h * w * c * 2) + 2
+        maps = [k5_inputs(device, g, 1, h, w, c, torch.bfloat16) for _ in range(sets)]
         x, gamma, beta = maps[0]
-        warm = graph_ms([lambda: gn.group_norm_relu(x, gamma, beta, 16, 1e-5)])
-        cold = graph_ms([lambda m=m: gn.group_norm_relu(m[0], gamma, beta, 16, 1e-5)
+        warm = graph_ms([lambda: gn.group_norm_relu(x, gamma, beta, groups, 1e-5)])
+        cold = graph_ms([lambda m=m: gn.group_norm_relu(m[0], gamma, beta, groups, 1e-5)
                          for m in maps])
-        plain = time_ms(lambda: gn.group_norm_relu_plain(x, gamma, beta, 16, 1e-5))
+        plain = time_ms(lambda: gn.group_norm_relu_plain(x, gamma, beta, groups, 1e-5))
         x_cl, wb = x.permute(0, 3, 1, 2), (gamma.bfloat16(), beta.bfloat16())
-        aten = graph_ms([lambda: torch.relu(F.group_norm(x_cl, 16, *wb, 1e-5)).contiguous(
+        aten = graph_ms([lambda: torch.relu(F.group_norm(x_cl, groups, *wb, 1e-5)).contiguous(
             memory_format=torch.channels_last)])
-        moments = graph_ms([lambda: F.group_norm(x_cl, 16, *wb, 1e-5)])
+        moments = graph_ms([lambda: F.group_norm(x_cl, groups, *wb, 1e-5)])
         print(f"  ATen group_norm {shape} on channels_last, ms: alone {moments:.4f}, with "
               f"the ReLU and the copy back {aten:.4f}; K5 {warm:.4f} [{card}]")
         rows.append(dict(shape=list(shape), **_timing(
@@ -2779,14 +2781,16 @@ def serve_and_train_lfdv2(device, card, counters, rng):
 # -------------------------------------------------------------------- FCOS
 
 def fcos_r50_fpn(device, seed=None, v1=False, spiced=True):
-    """FCOS-R50-FPN at full width (Tian et al., ICCV 2019, as mmdetection's
+    """FCOS-R50-FPN at full width, as the port's zoo builds it
+    (lfdtpu_torch.zoo.fcos_r50_fpn: Tian et al., ICCV 2019, as mmdetection's
     configs/fcos/fcos_r50_caffe_fpn_gn-head_1x_coco.py sets it out): a caffe
     ResNet-50 with stage 1 frozen and norm_eval, tapped at the last block of
     stages 2-4 (512/1024/2048 channels, strides 8/16/32), an FPN of 256
     channels and 5 levels (extra convs on its own output, ReLU before them),
     the FCOSHead (80 classes, 4 convs of 256 per tower, GroupNorm(32)), and
     FCOS's defaults (ranges up to 1e5, strides 8-128, threshold 0.05, NMS
-    0.5, 1000 pre-NMS points per level, 100 detections). FCOSv1 with `v1`.
+    0.5, 1000 pre-NMS points per level, 100 detections). FCOSv1 on the same
+    parts with `v1`.
     With a `seed`: lfdtpu's init from it, randomized norms
     (randomize_norms_) and the conv biases but the classifier's prior drawn
     from N(0, 0.1) (the init's zero biases would hold a GPU-vs-CPU train
@@ -2797,18 +2801,15 @@ def fcos_r50_fpn(device, seed=None, v1=False, spiced=True):
     the prior (sigmoid 0.01), and K1 would receive nothing."""
     import torch
 
-    from lfdtpu_torch.models import FCOS, FPN, FCOSHead, FCOSv1, ResNet
-    from lfdtpu_torch.ops.loss_wrappers import FocalLoss, IoULoss
+    from lfdtpu_torch import zoo
+    from lfdtpu_torch.models import FCOSv1
 
-    bb = ResNet(depth=50, style="caffe", frozen_stages=1, norm_eval=True,
-                out_indices=((2, 3), (3, 5), (4, 2)))
-    neck = FPN(bb.num_output_channels_list, bb.num_output_strides_list, 256, 5,
-               extra_on_input=False, relu_before_extra=True)
-    head = FCOSHead(80, 256, num_heads=5, num_head_channels=256, num_layers=4,
-                    norm_cfg=dict(type="GroupNorm", num_groups=32))
-    det = (FCOSv1 if v1 else FCOS)(bb, neck, head,
-                                   classification_loss_func=FocalLoss(gamma=2.0, alpha=0.25),
-                                   regression_loss_func=IoULoss(eps=1e-6))
+    det = zoo.fcos_r50_fpn()
+    if v1:
+        det = FCOSv1(det.net._backbone, det.net._neck, det.net._head,
+                     classification_loss_func=det.classification_loss_func,
+                     regression_loss_func=det.regression_loss_func)
+    head = det.net._head
     if seed is not None:
         g = torch.Generator().manual_seed(seed)
         det.init(g)
@@ -2827,6 +2828,57 @@ def fcos_r50_fpn(device, seed=None, v1=False, spiced=True):
                 head._centerness.bias.add_(3.0)
     det.net.to(device).eval()
     return det
+
+
+K5_UNPAIRED = 0.05  # tests/test_torch_cuda.py's K5-engine allowance (F23)
+
+
+def unpaired_above_cut(a, b, px=1.0, score=0.02):
+    """Predict-API rows of `a` with no row of `b` of the same label within
+    `px` on every box coordinate and `score`, other than those at the score
+    cut (within `score` of the lowest score of either set)."""
+    if not a:
+        return []
+    ra, rb = np.asarray(a, np.float64), np.asarray(b, np.float64).reshape(-1, 6)
+    cut = min(ra[:, 1].min(), rb[:, 1].min() if len(rb) else np.inf) + score
+    near = ((np.abs(ra[:, None, 2:] - rb[None, :, 2:]).max(-1) <= px)
+            & (np.abs(ra[:, None, 1] - rb[None, :, 1]) <= score)
+            & (ra[:, None, 0] == rb[None, :, 0]))
+    return [r for r, ok in zip(a, near.any(1)) if not ok and r[1] > cut]
+
+
+def fcos_engine_path(det, det16, imgs, counters, device):
+    """FCOS-R50-FPN's served path: the captured bf16 engine at FCOS_HW
+    (compile_inference; no normalize, as the eager nets here take raw
+    pixels) through predict_for_single_image_with_engine on the main path's
+    frames: K5 on the towers' 40 GroupNorm + ReLU pairs a frame and K1 in
+    the graph, and the rows of the eager bf16 net (ATen's GroupNorm) within
+    the K5-engine card test's tolerances (F23): each row paired within 1 px
+    and 0.02 of score but at the score cut and at most K5_UNPAIRED of the
+    rest."""
+    import torch
+
+    from lfdtpu_torch.deploy import compile_inference
+
+    zero_counts(counters)
+    eng = compile_inference(det, FCOS_HW, precision="bf16", device=device)
+    want = {"nms_mask_sorted": 1, "stem_conv": 0, "pair_conv3x3": 0, "int8_conv": 0,
+            "group_norm_relu": 40}
+    print(f"FCOS captured bf16 engine {FCOS_HW[0]}x{FCOS_HW[1]}: captured {eng.captured}, "
+          f"capture {eng.capture_seconds} s, launches {eng.captured_launches}")
+    check(eng.captured and eng.captured_launches == want,
+          f"the FCOS engine did not capture K5 40 times and K1 once ({want})")
+    for img in imgs:
+        served = det.predict_for_single_image_with_engine(eng, img)
+        eager = det16.predict_for_single_image(img)
+        lost = [unpaired_above_cut(x, y) for x, y in ((served, eager), (eager, served))]
+        print(f"FCOS engine frame: {len(served)} rows, eager bf16 {len(eager)}; unpaired above "
+              f"the cut {len(lost[0])} / {len(lost[1])}")
+        check(len(served) > 0 and all(len(u) <= K5_UNPAIRED * n for u, n in
+                                      zip(lost, (len(served), len(eager)))),
+              "the FCOS engine's rows stray from the eager bf16 net's")
+    del eng
+    torch.cuda.empty_cache()
 
 
 def fcos_serve(det, det16, imgs, batch, metas):
@@ -3005,6 +3057,7 @@ def fcos_phase(device, card, counters):
         check_rows(det, r, img)
     for r, hw in zip(rows["batch"], (FCOS_FRAME, FCOS_HW)):
         check_rows(det, r, np.zeros(hw + (3,)))
+    fcos_engine_path(det, det16, imgs, counters, device)
     k1_err = 0.0
     for b, v, thr in calls:
         bad = int((nms_kernel.nms_mask_sorted(b, v, thr)

@@ -15,8 +15,9 @@
 // ATen took 1.14 and 2.39 ms (PERF.md).
 //
 // Design: two kernels on a grid of (S, N) blocks, S slabs of each sample's
-// pixels, S from the map's size and the SM count (ops/group_norm.py::slabs:
-// about 4 blocks an SM at the largest maps, one block for a 17 x 30 map).
+// pixels, S from the map's size, its width and the SM count
+// (ops/group_norm.py::slabs: about 4 blocks an SM at the largest maps, one
+// block for a 17 x 30 map; 77 for FCOS's 112 x 176 x 256).
 // A block's threads form `rows` pixel rows of C/8 threads; thread (r, o)
 // owns channel octet o (8 channels, one 16-byte bf16 load, never across a
 // group since C/G is a multiple of 8) of pixels r, r + rows, ... of the slab.

@@ -9,7 +9,10 @@
 #           (or bfloat16 with int8_head_dtype="bf16")
 # It takes uint8 NHWC frames (raw, padded to the resolution bucket) or float
 # ones (normalized on the host) and returns fixed-shape detections, decode
-# and NMS included.
+# and NMS included. The decode receives every dense output of the net: LFD's
+# two, and FCOS's centerness as a third, which scales each point's scores
+# inside the graph as the eager decode does (lfdtpu's engine takes two
+# outputs and so serves no FCOS).
 #
 # The engine holds its own copy of the weights and the point grids on its
 # device. On a CUDA device it is a captured CUDA graph (dense + decode +
@@ -84,14 +87,14 @@ def output_dtype_of(output_dtype):
 
 def cast_outputs(out, dtype):
     """Quantized outputs (`lfdtpu/deploy/compile.py:427-440`): boxes and
-    scores in `dtype`, labels int16, the count int32; a packed tensor is
+    scores in `dtype`, labels int16, the counts int32; a packed tensor is
     cast whole. None leaves them as they are."""
     if dtype is None:
         return out
     if isinstance(out, torch.Tensor):
         return out.to(dtype)
-    return dict(boxes=out["boxes"].to(dtype), scores=out["scores"].to(dtype),
-                labels=out["labels"].to(torch.int16), count=out["count"])
+    return dict(out, boxes=out["boxes"].to(dtype), scores=out["scores"].to(dtype),
+                labels=out["labels"].to(torch.int16))
 
 
 def cast_variables(net, dtype):
@@ -199,10 +202,12 @@ class EngineProgram(nn.Module):
             x = x.to(self.compute_dtype)
         return self.net(x)
 
-    def decode(self, cls_o, reg_o, vhw):
+    def decode(self, outputs, vhw):
+        """Every dense output of the net (LFD's cls and reg; FCOS's
+        centerness too, which scales the scores) -> the detections."""
         levels = {k: getattr(self, f"level_{k}") for k in self._level_keys}
         out = self.detector.decode_batch(
-            (cls_o.float(), reg_o.float()), self.input_resolution, vhw,
+            tuple(o.float() for o in outputs), self.input_resolution, vhw,
             self.spec, level_arrays=levels)
         if self.pack_output:
             out = _pack_detections(out)
@@ -210,7 +215,7 @@ class EngineProgram(nn.Module):
 
     def forward(self, images, valid_hw):
         vhw = valid_hw.reshape(-1, 2).expand(images.shape[0], 2)
-        return self.decode(*self.dense(images), vhw)
+        return self.decode(self.dense(images), vhw)
 
 
 class Engine(GraphRunner):
@@ -256,14 +261,15 @@ class Engine(GraphRunner):
     # ------------------------------------------------------- eager halves
     @torch.inference_mode()
     def dense(self, images):
-        """Raw frames -> dense (cls (B, P, Cc), reg (B, P, 4)) in the
-        engine's dtype (eager)."""
+        """Raw frames -> dense (cls (B, P, Cc), reg (B, P, 4)[, ctr (B, P, 1)])
+        in the engine's dtype (eager)."""
         return self.program.dense(self._images(images))
 
     @torch.inference_mode()
-    def decode(self, cls_o, reg_o, valid_hw):
-        """Dense outputs -> detections (eager)."""
-        return self.program.decode(cls_o, reg_o, self._valid_hw(valid_hw))
+    def decode(self, *outputs_and_valid_hw):
+        """decode(*dense outputs, valid_hw) -> detections (eager)."""
+        *outputs, valid_hw = outputs_and_valid_hw
+        return self.program.decode(outputs, self._valid_hw(valid_hw))
 
     # -------------------------------------------------------- export hook
     def example_args(self):
@@ -389,7 +395,8 @@ def compile_inference(
     int8 (`lfdtpu/deploy/compile.py:162-167,216-247`): the fused int8 chain
       of deploy/int8_net.py, every conv of the backbone and the neck (and of
       a norm-free head) a K4 launch, then the float remainder (the GroupNorm
-      head, the output convs, the Scales). LFD nets only.
+      head, the output convs, the Scales). LFD nets only: a net of three
+      dense outputs (FCOS's centerness) raises ValueError.
       act_scales: calibrate_module_amax's dict (the port's keys; lfdtpu's map
         through execution.jax_amax_to_port); None calibrates on lfdtpu's two
         noise frames, np.random.RandomState(0).randint(0, 255, (batch_size,
@@ -444,6 +451,9 @@ def compile_inference(
         if batch_size % mesh.size:
             raise ValueError(f"batch_size {batch_size} does not divide over the mesh's "
                              f"{mesh.size} data shards")
+    if precision == "int8" and detector.num_outputs != 2:
+        raise ValueError(f"int8 engines take a net of two dense outputs (LFD's); "
+                         f"{type(detector).__name__}'s net has {detector.num_outputs}")
     if int8_head_dtype not in _HEAD_DTYPES:
         raise ValueError(f"unknown int8_head_dtype {int8_head_dtype}")
     output_dtype = output_dtype_of(output_dtype)

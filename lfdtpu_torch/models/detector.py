@@ -138,6 +138,7 @@ class DenseDetector:
     _score_factors)."""
 
     gray_ranges = None  # LFD's gray bands ride the level info
+    num_outputs = 2  # the net's dense outputs: (cls, reg); FCOS adds its centerness
 
     def init(self, generator, device=None):
         """(Re)initialize every weight from `generator` (init_net_). Returns
@@ -235,6 +236,38 @@ class DenseDetector:
         return [detections_to_lists({k: v[i] for k, v in decoded.items()},
                                     resize_scale=metas[i].get("resize_scale", 1.0))
                 for i in range(B)]
+
+    def predict_for_single_image_with_engine(self, engine, image, aug_pipeline=None):
+        """Predict through a compiled deployment engine (the analogue of the
+        reference's `predict_for_single_image_with_tensorrt`): the image is
+        zero-padded into the engine's input resolution."""
+        return self.predict_for_batch_with_engine(engine, [image], aug_pipeline)[0]
+
+    def predict_for_batch_with_engine(self, engine, images, aug_pipeline=None):
+        """Batched engine predict: each image is zero-padded into the
+        engine's bucket and its own valid extent rides the (B, 2) valid_hw.
+        The batch must match the engine's batch_size.
+        Returns one [[class_label, score, x1, y1, w, h], ...] per image.
+        Under a profiler session the call records the span `predict`, with
+        `predict.pad`, the engine's spans, `predict.fetch` and
+        `predict.rows` inside it, counts the rows (`predict.rows`) and the
+        valid candidates that entered the engine's NMS
+        (`engine.nms_candidates`, from the host copy of its outputs;
+        tracing.py)."""
+        with tracing.span("predict"):
+            with tracing.span("predict.pad"):
+                batch, hws = _padded_batch(engine.input_resolution, images, aug_pipeline)
+            decoded = engine(batch, hws)
+            with tracing.span("predict.fetch"):
+                decoded = {k: v.cpu().numpy() for k, v in decoded.items()}
+            with tracing.span("predict.rows"):
+                rows = [detections_to_lists({k: v[i] for k, v in decoded.items()})
+                        for i in range(len(batch))]
+                tracing.count("predict.rows", lambda: sum(len(r) for r in rows))
+            if "candidates" in decoded:  # an engine file from before the field has none
+                tracing.count("engine.nms_candidates",
+                              lambda: int(decoded["candidates"].sum()))
+            return rows
 
     def get_results(self, images, meta_batch, classification_threshold=None,
                     nms_threshold=None):
@@ -456,32 +489,6 @@ class LFD(DenseDetector):
             max_det=self.post_nms_bbox_limit if max_det is None else max_det,
             class_agnostic=class_agnostic,
         )
-
-    def predict_for_single_image_with_engine(self, engine, image, aug_pipeline=None):
-        """Predict through a compiled deployment engine (the analogue of the
-        reference's `predict_for_single_image_with_tensorrt`): the image is
-        zero-padded into the engine's input resolution."""
-        return self.predict_for_batch_with_engine(engine, [image], aug_pipeline)[0]
-
-    def predict_for_batch_with_engine(self, engine, images, aug_pipeline=None):
-        """Batched engine predict: each image is zero-padded into the
-        engine's bucket and its own valid extent rides the (B, 2) valid_hw.
-        The batch must match the engine's batch_size.
-        Returns one [[class_label, score, x1, y1, w, h], ...] per image.
-        Under a profiler session the call records the span `predict`, with
-        `predict.pad`, the engine's spans, `predict.fetch` and
-        `predict.rows` inside it, and counts the rows (tracing.py)."""
-        with tracing.span("predict"):
-            with tracing.span("predict.pad"):
-                batch, hws = _padded_batch(engine.input_resolution, images, aug_pipeline)
-            decoded = engine(batch, hws)
-            with tracing.span("predict.fetch"):
-                decoded = {k: v.cpu().numpy() for k, v in decoded.items()}
-            with tracing.span("predict.rows"):
-                rows = [detections_to_lists({k: v[i] for k, v in decoded.items()})
-                        for i in range(len(batch))]
-                tracing.count("predict.rows", lambda: sum(len(r) for r in rows))
-            return rows
 
 
 def _padded_batch(resolution, images, aug_pipeline):

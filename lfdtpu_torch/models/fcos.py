@@ -8,10 +8,12 @@
 # binary problem: a point may be positive for several classes.
 #
 # The net is a DetectionNet whose head returns (cls, reg, centerness); the
-# point grids and the reference-API paths are DenseDetector's, so the
-# Executor's val loop and make_train_step take an FCOS as they take an LFD.
-# lfdtpu serves FCOS through predict_for_single_image / get_results only
-# (its compile_inference takes two outputs), and so does the port.
+# point grids, the reference-API paths and the engine predict are
+# DenseDetector's, so the Executor's val loop, make_train_step and
+# compile_inference take an FCOS as they take an LFD. lfdtpu serves FCOS
+# through predict_for_single_image / get_results only (its compile_inference
+# takes two outputs); the port's engine passes the centerness to the decode
+# too (deploy/compile.py), so it also serves FCOS as a captured engine.
 
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ def _global_batch(cls_pred, mesh):
 
 class FCOS(DenseDetector):
     detector_name = "FCOS"
+    num_outputs = 3  # cls, reg (pixels), centerness
 
     def __init__(self, backbone=None, neck=None, head=None, num_classes=80,
                  regression_ranges=((0, 64), (64, 128), (128, 256), (256, 512),

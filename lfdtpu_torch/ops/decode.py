@@ -88,7 +88,9 @@ def decode_predictions(cls_logits, reg, points, ranges, spec: DecodeSpec,
     needed when spec.per_level_limit > 0.
 
     Returns dict: boxes (B, max_det, 4) xyxy, scores (B, max_det),
-    labels (B, max_det) int32, count (B,) int32; rows >= count are zero.
+    labels (B, max_det) int32, count (B,) int32; rows >= count are zero;
+    candidates (B,) int32, the valid candidates that enter NMS (K1's work,
+    at most nms_budget).
     """
     B, P, Cc = cls_logits.shape
     C = spec.num_classes
@@ -189,6 +191,7 @@ def decode_predictions(cls_logits, reg, points, ranges, spec: DecodeSpec,
         labels=torch.where(out_keep, torch.gather(cand_label, 1, out_idx),
                            torch.zeros_like(out_keep, dtype=torch.int32)),
         count=count,
+        candidates=cand_valid.sum(dim=-1, dtype=torch.int32),
     )
 
 

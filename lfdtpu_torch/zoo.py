@@ -3,10 +3,12 @@
 #   - WIDERFACE_LFD_{XS,S,M,L}  (`WIDERFACE_train/WIDERFACE_LFD_*.py`)
 #   - TT100K_LFD_{S,L}          (`TT100K_train/TT100K_LFD_*.py`)
 #   - TL_LFD_{S,L}              (`TrafficLight_train/TL_LFD_*.py`)
+# and FCOS-R50-FPN (Tian et al., ICCV 2019), as mmdetection's
+# `configs/fcos/fcos_r50_caffe_fpn_gn-head_1x_coco.py` sets it out.
 
 from __future__ import annotations
 
-from .models import LFD, LFDHead, LFDResNet, SimpleNeck
+from .models import FCOS, FPN, LFD, FCOSHead, LFDHead, LFDResNet, ResNet, SimpleNeck
 from .ops.loss_wrappers import CrossEntropyLoss, FocalLoss, IoULoss, QualityFocalLoss
 
 _GN16 = dict(type="GroupNorm", num_groups=16)
@@ -101,6 +103,27 @@ def trafficlight_lfd(size="L", **kw):
                   TL_SCALES, "dist", True, None, **kw)
 
 
+def fcos_r50_fpn(**kw):
+    """FCOS-R50-FPN at full width: a caffe ResNet-50 (stride on the first
+    1x1 of a bottleneck) with stage 1 frozen and every BatchNorm in eval mode,
+    tapped at the last block of stages 2-4 (512 / 1024 / 2048 channels,
+    strides 8 / 16 / 32); an FPN of 256 channels and 5 levels, its two extra
+    stride-2 convs on its own output with a ReLU before each; the FCOSHead
+    (80 classes, two towers of 4 3x3 convs of 256 with GroupNorm(32), the
+    centerness off the classification tower, per-level Scale then exp);
+    FocalLoss(2, 0.25) + IoULoss and FCOS's defaults (ranges to 1e5, strides
+    8-128, threshold 0.05, NMS 0.5, 1000 pre-NMS points a level, 100
+    detections). `kw` goes to FCOS (thresholds, limits)."""
+    backbone = ResNet(depth=50, style="caffe", frozen_stages=1, norm_eval=True,
+                      out_indices=((2, 3), (3, 5), (4, 2)))
+    neck = FPN(backbone.num_output_channels_list, backbone.num_output_strides_list, 256, 5,
+               extra_on_input=False, relu_before_extra=True)
+    head = FCOSHead(80, 256, num_heads=5, num_head_channels=256, num_layers=4,
+                    norm_cfg=dict(type="GroupNorm", num_groups=32))
+    return FCOS(backbone, neck, head, classification_loss_func=FocalLoss(gamma=2.0, alpha=0.25),
+                regression_loss_func=IoULoss(eps=1e-6), **kw)
+
+
 ZOO = {
     "WIDERFACE-XS": lambda **kw: widerface_lfd("XS", **kw),
     "WIDERFACE-S": lambda **kw: widerface_lfd("S", **kw),
@@ -110,4 +133,5 @@ ZOO = {
     "TT100K-L": lambda **kw: tt100k_lfd("L", **kw),
     "TL-S": lambda **kw: trafficlight_lfd("S", **kw),
     "TL-L": lambda **kw: trafficlight_lfd("L", **kw),
+    "FCOS-R50-FPN": fcos_r50_fpn,
 }

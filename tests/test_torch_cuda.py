@@ -1107,7 +1107,8 @@ def test_no_span_records_inside_a_graph_capture(cuda):
 
 # K5 (csrc/group_norm.cu) against F.group_norm then relu in float32 at
 # chip_smoke.K5_SHAPES: the five WIDERFACE-L head levels at 1088x1920,
-# TT100K-L's 512x512 level, a batch of 2, FCOS's 256 channels in 32 groups, in
+# TT100K-L's 512x512 level, a batch of 2, FCOS's 256 channels in 32 groups
+# (FCOS-R50-FPN's 112x176 P3 and 7x11 P7 at 896x1408 among them), in
 # bf16 (the served engines) and float32 (the int8 engine's head). bf16: the
 # output's one rounding (at most 2^-8 of a value) bounds the gap; float32,
 # the statistics' summation order.
@@ -1268,3 +1269,55 @@ def test_k5_engine_serves_the_aten_engines_rows(cuda, monkeypatch, name):
             det.predict_for_batch_with_engine(k5, list(_frames(seed)))
     assert tracing.summary()["counters"]["engine.gn_kernel"] == 3 * want
     tracing.reset()
+
+
+def test_captured_bf16_fcos_engine_serves_the_eager_bf16_nets_rows(cuda):
+    """FCOS-R50-FPN (chip_smoke.fcos_r50_fpn, the zoo's recipe) as a captured
+    bf16 engine: K5 on the towers' 8 pairs at 5 levels (40 launches) and K1
+    in the graph, the centerness in its decode. Against the eager bf16 net
+    (ATen's GroupNorm, the eager decode): dense outputs within 2^-4 of their
+    largest (the regression's logits, before the head's exp, which turns a
+    logit's rounding into as large a share of the distance) and rows paired
+    as the K5-engine test pairs them (F23); the
+    counters give K5's launches and the candidates that entered NMS."""
+    import copy
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from lfdtpu_torch import tracing
+    from lfdtpu_torch.deploy import compile_inference
+    from lfdtpu_torch.models.detector import eval_forward
+
+    from chip_smoke import fcos_r50_fpn
+
+    det = fcos_r50_fpn(cuda, seed=3)
+    det16 = copy.copy(det)
+    det16.net = copy.deepcopy(det.net).to(torch.bfloat16)
+    hw = (256, 384)
+    engine = compile_inference(det, hw, "bf16")  # raw pixels, as the eager nets here
+    assert engine.captured and engine.captured_launches == {
+        "nms_mask_sorted": 1, "stem_conv": 0, "pair_conv3x3": 0, "int8_conv": 0,
+        "group_norm_relu": 40}
+    frames = _frames(7, 3, hw)
+    x = torch.as_tensor(frames[:1], device=cuda)
+    for k, (dk, de) in enumerate(zip(engine.dense(frames[:1]), eval_forward(det16.net, x))):
+        if k == 1:  # the head's exp of the regression: compare the logits, as for LFD
+            dk, de = dk.log(), de.log()
+        assert max_rel(dk, de) < 2.0 ** -4, k
+    tracing.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        for f in frames:
+            got = det.predict_for_single_image_with_engine(engine, f[:250, :380])
+            ref = det16.predict_for_single_image(f[:250, :380])
+            assert len(got) > 0 and len(ref) > 0
+            for a, b in ((got, ref), (ref, got)):
+                a, b = (torch.tensor(r)[:, [2, 3, 4, 5, 1, 0]] for r in (a, b))
+                a = (a[:, :4], a[:, 4], a[:, 5].long())
+                b = (b[:, :4], b[:, 4], b[:, 5].long())
+                cut = min(float(a[1].min()), float(b[1].min())) + 0.02
+                above = [float(s) for s in _unpaired(a, b) if s > cut]
+                assert len(above) <= K5_UNPAIRED * len(a[1]), (cut, above)
+    counters = tracing.summary()["counters"]
+    tracing.reset()
+    assert counters["engine.gn_kernel"] == 3 * 40
+    assert 0 < counters["engine.nms_candidates"] <= 3 * det.decode_spec().nms_budget

@@ -125,7 +125,10 @@ def test_packed_output_and_budgets():
                               pre_nms_points=300, nms_budget=300, max_det=20, **KW)
     d0 = {k: v.numpy() for k, v in base(imgs, [128, 128]).items()}
     d1 = unpack_detections(packed(imgs, [128, 128]))
-    for k in d0:
+    # the packed tensor holds the detections; the candidate count rides the
+    # dict only
+    assert set(d0) == set(d1) | {"candidates"}
+    for k in d1:
         np.testing.assert_array_equal(d1[k], d0[k])
     d2 = small(imgs, [128, 128])
     assert d2["boxes"].shape == (2, 20, 4)

@@ -85,6 +85,16 @@ def test_slabs_spread_a_map_over_the_sms(n, hw, sms, want):
     assert group_norm.slabs(n, hw, sms) == want
 
 
+@pytest.mark.parametrize("n,hw,c,want", [
+    # FCOS-R50-FPN's towers at 896x1408: P3 to P7 at 256 channels
+    (1, 112 * 176, 256, 77), (1, 56 * 88, 256, 20), (1, 28 * 44, 256, 5), (1, 14 * 22, 256, 2),
+    (1, 7 * 11, 256, 1), (1, 512 * 512, 1024, 528),
+    # up to 128 channels the floor is MIN_SLAB_PIXELS, as LFD's heads have it
+    (1, 272 * 480, 128, 255), (1, 272 * 480, 64, 255), (1, 17 * 30, 8, 1)])
+def test_slabs_of_a_wider_map_keep_a_thread_s_loads(n, hw, c, want):
+    assert group_norm.slabs(n, hw, 132, c) == want
+
+
 def _detector(name):
     det = {"widerface-L": lambda: zoo.widerface_lfd("L"),
            "tt100k-L": lambda: zoo.tt100k_lfd("L")}[name]()

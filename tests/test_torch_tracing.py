@@ -233,8 +233,11 @@ def test_predict_through_an_eager_engine_gives_the_predict_tree():
     assert len(calls) == 2 and len({c.seq for c in calls}) == 2
     for c in calls:
         assert _children(c) == ["engine.run", "predict.fetch", "predict.pad", "predict.rows"]
-    # the CPU runs K5's plain version: no launch to count
-    assert spans["counters"] == {"predict.rows": 2 * len(ref), "engine.gn_kernel": 0}
+    # the CPU runs K5's plain version: no launch to count; the valid
+    # candidates that entered NMS come from the engine's outputs
+    cand = int(engine(_frame()[None], HW)["candidates"][0])
+    assert spans["counters"] == {"predict.rows": 2 * len(ref), "engine.gn_kernel": 0,
+                                 "engine.nms_candidates": 2 * cand}
     s = spans["spans"]
     assert s["engine.run"]["stream_ms"] == pytest.approx(s["engine.run"]["host_ms"])
     assert s["predict"]["self_ms"] < 0.05 * s["predict"]["host_ms"]
