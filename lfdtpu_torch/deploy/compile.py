@@ -223,9 +223,10 @@ class Engine(GraphRunner):
     on the engine's device (or the packed tensor with pack_output), in
     output_dtype when one was given.
 
-    images: (B, H, W, 3) numpy array or tensor at input_resolution: raw
-    uint8 frames, or float frames normalized on the host (any dtype but
-    uint8 reaches the net as float32; the stem kernel takes uint8 only);
+    images: (B, H, W, 3) numpy array or tensor at input_resolution, or a
+    list of B unpadded (h, w, 3) arrays of at most that size: raw uint8
+    frames, or float frames normalized on the host (any dtype but uint8
+    reaches the net as float32; the stem kernel takes uint8 only);
     valid_hw: (2,) shared or (B, 2) per-image unpadded extents.
     `dense` and `decode` expose the two halves, always eager, for checks and
     timing.
@@ -289,10 +290,11 @@ class MeshEngine(Engine):
     """compile_inference's engine over a mesh of several ranks, eager.
     Every rank calls it, in the same order, with the same GLOBAL inputs
     (lfdtpu's caller hands its SPMD engine the global batch): (B, H, W, 3)
-    frames at input_resolution, B the batch_size, and (2,) or (B, 2) valid
-    extents. A rank uploads its batch rows (local_batch_slice over the data
-    axis) and, with a spatial axis, only its rows of the height with its
-    first conv's halo (SpatialNet.input_rows); the spatial net returns the
+    frames at input_resolution (or B unpadded frames, padded into a plain
+    buffer first), B the batch_size, and (2,) or (B, 2) valid extents. A
+    rank uploads its batch rows (local_batch_slice over the data axis) and,
+    with a spatial axis, only its rows of the height with its first conv's
+    halo (SpatialNet.input_rows); the spatial net returns the
     dense outputs of its batch rows for the whole frames, the decode (K1)
     runs on them in global coordinates, and the detections of every batch
     row come back on every rank (all_gather over the data axis). `dense`
@@ -307,8 +309,7 @@ class MeshEngine(Engine):
 
     def _local(self, images, valid_hw):
         """This rank's share of a call's global inputs, on its device."""
-        x = images if isinstance(images, torch.Tensor) else np.asarray(images)
-        self._check_images(x)
+        x = self._batch(images)
         b0, b1 = local_batch_slice(self.batch_size, self.mesh.rank, self.mesh.size)
         r0, r1 = 0, x.shape[1]
         if self.spatial is not None:

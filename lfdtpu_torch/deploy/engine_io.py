@@ -194,12 +194,11 @@ def load_engine(path, device=None):
 
 def predict_padded(engine, image):
     """Run one HWC image through an engine (built or loaded), zero-padded to
-    its input resolution: the predict-through-an-engine-file flow of the
-    workloads' predict_engine.py (`lfdtpu/deploy/engine_io.py:129`)."""
+    its input resolution as the engine stages it: the
+    predict-through-an-engine-file flow of the workloads'
+    predict_engine.py (`lfdtpu/deploy/engine_io.py:129`)."""
     h, w = image.shape[:2]
     eh, ew = engine.input_resolution
     if h > eh or w > ew:
         raise ValueError(f"image {h}x{w} exceeds engine resolution {eh}x{ew}")
-    padded = np.zeros((eh, ew) + image.shape[2:], image.dtype)
-    padded[:h, :w] = image
-    return engine(padded[None], np.asarray([h, w], np.float32))
+    return engine([image], np.asarray([h, w], np.float32))

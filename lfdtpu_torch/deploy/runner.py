@@ -71,13 +71,81 @@ def frame_dtype(dtype):
     return torch.uint8 if np.dtype(dtype) == np.uint8 else torch.float32
 
 
+def _copy(dst, src):
+    """dst[...] = src (a CPU tensor view; an array or tensor), cast to dst's
+    dtype in the same pass: torch's copy_, which spreads a copy of more than
+    32768 elements over the intra-op threads (on the H100's host it stages a
+    frame 20-30% sooner than np.copyto, PERF.md §6), or np.copyto where
+    torch cannot wrap the array (read-only, a negative stride, a dtype
+    torch lacks)."""
+    if isinstance(src, np.ndarray) and src.flags.writeable:
+        try:
+            src = torch.from_numpy(src)
+        except (TypeError, ValueError):
+            pass
+    if isinstance(src, torch.Tensor):
+        dst.copy_(src)
+    else:
+        np.copyto(dst.numpy(), src, casting="unsafe")
+
+
+def place_frames(buf, frames, extents=None):
+    """Write frame i into buf[i, :h, :w] in one pass (cast to buf's dtype in
+    that pass) and keep buf zero around it: the one writer of frames into
+    an engine's input at its resolution, a captured engine's pinned slot
+    or a plain zeroed buffer.
+
+    buf: a (B, H, W, C) CPU tensor; frames: a (B, H, W, C) array or tensor,
+    every row at the full extent, or a list of B (h, w, C) arrays of at most
+    H x W. extents: the (B, 2) integer array of the extent last written
+    into each row of buf, updated here; None for a zeroed buffer written
+    once. Only the part of a row's last extent outside its new one is
+    zeroed: a repeated extent zeros nothing. Returns the bytes written into
+    buf, the frames' and the stale pad's."""
+    pixel = buf.element_size() * buf.shape[3]
+    if not isinstance(frames, list):
+        _copy(buf, frames)
+        if extents is not None:
+            extents[:] = buf.shape[1:3]
+        return buf.numel() * buf.element_size()
+    written = 0
+    for i, frame in enumerate(frames):
+        h, w = frame.shape[:2]
+        if extents is not None:
+            lh, lw = (int(v) for v in extents[i])
+            if lh > h:  # the rows below the new extent
+                buf[i, h:lh, :lw].zero_()
+                written += (lh - h) * lw * pixel
+            if lw > w:  # right of it, above those rows
+                buf[i, :min(h, lh), w:lw].zero_()
+                written += min(h, lh) * (lw - w) * pixel
+            extents[i] = (h, w)
+        _copy(buf[i, :h, :w], frame)
+        written += h * w * pixel
+    return written
+
+
+def as_frames(images):
+    """An engine call's frames: a (B, H, W, C) array or tensor as it is, or
+    a sequence of unpadded (h, w, C) frames as a list of arrays, each in
+    the first one's dtype (as padding them into one array of it would)."""
+    if isinstance(images, (torch.Tensor, np.ndarray)):
+        return images
+    frames = [np.asarray(f) for f in images]
+    if frames:
+        dtype = frames[0].dtype
+        frames = [f if f.dtype == dtype else f.astype(dtype) for f in frames]
+    return frames
+
+
 @dataclasses.dataclass
 class _Slot:
     """One set of pinned host buffers a call's inputs are staged in (the
-    frames and the valid extents, with numpy views), and the event recorded
-    after their copies to the device were enqueued."""
+    frames, and the valid extents with a numpy view), the extent last
+    written into each of its frame rows (place_frames), and the event
+    recorded after their copies to the device were enqueued."""
     host: torch.Tensor
-    host_np: np.ndarray
+    extents: np.ndarray
     vhw: torch.Tensor
     vhw_np: np.ndarray
     copied: torch.cuda.Event
@@ -105,22 +173,24 @@ class GraphRunner:
     """An engine's call: engine(images, valid_hw) -> detections on the
     engine's device, eager or replayed from a captured CUDA graph.
 
-    images: (B, H, W, 3) numpy array or tensor at input_resolution: raw
-    uint8 frames, or float frames normalized on the host (any dtype but
-    uint8 reaches the net as float32); valid_hw: (2,) shared or (B, 2)
-    per-image unpadded extents.
+    images: (B, H, W, 3) numpy array or tensor at input_resolution, or a
+    list of B unpadded (h, w, 3) arrays of at most that size (zero-padded
+    into it as they are staged): raw uint8 frames, or float frames
+    normalized on the host (any dtype but uint8 reaches the net as
+    float32); valid_hw: (2,) shared or (B, 2) per-image unpadded extents.
 
     A captured runner holds one graph per frame dtype, uint8 and float32,
     each with its own static input and memory pool: the uint8 graph is
     captured by `_init_runner` (at build or load), the float32 one at the
     first float call (as jit traces again for a new input dtype). A CUDA
-    tensor is copied into the static input; a numpy frame goes through a
-    pinned staging slot and an asynchronous copy on the current stream. A
-    graph keeps up to STAGING_SLOTS slots and takes the oldest whose copy
-    is done, a new one while it has fewer, else waits for the oldest: a
-    synchronous loop uses one slot, a pipelined stream (deploy/serving.py)
-    as many as it runs ahead. The host does no allocation per call once a
-    dtype's graph and slots exist. A call runs on the current stream; calls
+    tensor is copied into the static input; host frames are written once
+    into a pinned staging slot (place_frames: the slot remembers each row's
+    last extent and zeros only the stale pad) and copied asynchronously on
+    the current stream. A graph keeps up to STAGING_SLOTS slots and takes
+    the oldest whose copy is done, a new one while it has fewer, else
+    waits for the oldest: a synchronous loop uses one slot, a pipelined
+    stream (deploy/serving.py) as many as it runs ahead. The host does no
+    allocation per call once a dtype's graph and slots exist. A call runs on the current stream; calls
     from different streams share the graphs' buffers, so the caller orders
     them. `captured_launches` holds how often the uint8 graph launches each
     hand-written kernel (their counters tick while a graph is captured, not
@@ -135,9 +205,10 @@ class GraphRunner:
     Under a profiler session a call records the spans `engine.stage`
     (slot, pinned copy, H2D enqueue), `engine.replay` (timed on the device's stream)
     and `engine.clone`, or `engine.run` for an eager call (tracing.py), and
-    the counter `engine.gn_kernel`: the K5 launches of the call's forward
+    the counters `engine.gn_kernel`: the K5 launches of the call's forward
     (the graph's, from its capture; an eager call's, from the wrapper's
-    count)."""
+    count), and `engine.stage_bytes`: the bytes written into the pinned
+    slot, the frames' and the stale pad zeroed (captured calls)."""
 
     # set by the subclass: device, batch_size, input_resolution, kernel_stem
 
@@ -162,16 +233,38 @@ class GraphRunner:
 
     # ---------------------------------------------------------- host side
     def _check_images(self, images):
-        shape = tuple(images.shape)
-        if len(shape) != 4 or shape[1:3] != self.input_resolution:
-            raise ValueError(f"expected (B, {self.input_resolution[0]}, "
-                             f"{self.input_resolution[1]}, C) images, got {shape}")
-        if shape[0] != self.batch_size:
-            raise ValueError(f"engine batch_size is {self.batch_size}, got {shape[0]}")
+        """Raise ValueError unless the call's frames (as_frames') are this
+        engine's batch at its resolution, or unpadded frames within it."""
+        eh, ew = self.input_resolution
+        if isinstance(images, list):
+            for f in images:
+                if f.ndim != 3 or f.shape[0] > eh or f.shape[1] > ew:
+                    raise ValueError(f"expected (h, w, C) frames of at most {eh}x{ew}, "
+                                     f"got {tuple(f.shape)}")
+            n = len(images)
+        else:
+            shape = tuple(images.shape)
+            if len(shape) != 4 or shape[1:3] != self.input_resolution:
+                raise ValueError(f"expected (B, {eh}, {ew}, C) images, got {shape}")
+            n = shape[0]
+        if n != self.batch_size:
+            raise ValueError(f"engine batch_size is {self.batch_size}, got {n}")
+
+    def _batch(self, images):
+        """The call's frames as one checked (B, H, W, C) array or tensor at
+        input_resolution: unpadded frames are written into a plain zeroed
+        buffer in the dtype they reach the net in (place_frames)."""
+        images = as_frames(images)
+        self._check_images(images)
+        if not isinstance(images, list):
+            return images
+        buf = torch.zeros((self.batch_size, *self.input_resolution, 3),
+                          dtype=frame_dtype(images[0].dtype))
+        place_frames(buf, images)
+        return buf
 
     def _images(self, images):
-        x = torch.as_tensor(images)
-        self._check_images(x)
+        x = torch.as_tensor(self._batch(images))
         return x.to(self.device, frame_dtype(x.dtype), non_blocking=True)
 
     def _valid_hw(self, valid_hw):
@@ -224,7 +317,8 @@ class GraphRunner:
     def _new_slot(self, g):
         host = torch.zeros(tuple(g.inp.shape), dtype=g.inp.dtype).pin_memory()
         vhw = torch.zeros((self.batch_size, 2)).pin_memory()
-        return _Slot(host, host.numpy(), vhw, vhw.numpy(), torch.cuda.Event())
+        return _Slot(host, np.zeros((self.batch_size, 2), np.int64), vhw, vhw.numpy(),
+                     torch.cuda.Event())
 
     def _slot(self, g):
         """The staging slot for the next call of graph g (see the class)."""
@@ -240,7 +334,7 @@ class GraphRunner:
 
     def _graph_for(self, images):
         """The graph for these frames' dtype, captured at its first use."""
-        dtype = frame_dtype(images.dtype)
+        dtype = frame_dtype((images[0] if isinstance(images, list) else images).dtype)
         if self.kernel_stem and dtype != torch.uint8:
             raise ValueError("the stem kernel consumes raw uint8 frames")
         return self._graphs.get(dtype) or self._capture(dtype)
@@ -252,10 +346,7 @@ class GraphRunner:
         host_vhw = not (isinstance(valid_hw, torch.Tensor) and valid_hw.is_cuda)
         slot = self._slot(g) if host_in or host_vhw else None
         if host_in:
-            if isinstance(images, torch.Tensor):
-                slot.host.copy_(images)
-            else:
-                np.copyto(slot.host_np, images, casting="unsafe")
+            tracing.count("engine.stage_bytes", place_frames(slot.host, images, slot.extents))
             g.inp.copy_(slot.host, non_blocking=True)
         else:
             g.inp.copy_(images)
@@ -274,8 +365,7 @@ class GraphRunner:
                 return count_group_norms(self._run, x, vhw)
         with torch.cuda.device(self.device):
             with tracing.span("engine.stage"):
-                if not isinstance(images, (torch.Tensor, np.ndarray)):
-                    images = np.asarray(images)
+                images = as_frames(images)
                 self._check_images(images)
                 g = self._graph_for(images)
                 self._load(g, images, valid_hw)

@@ -239,30 +239,32 @@ class DenseDetector:
 
     def predict_for_single_image_with_engine(self, engine, image, aug_pipeline=None):
         """Predict through a compiled deployment engine (the analogue of the
-        reference's `predict_for_single_image_with_tensorrt`): the image is
-        zero-padded into the engine's input resolution."""
+        reference's `predict_for_single_image_with_tensorrt`): the engine
+        zero-pads the image into its input resolution as it stages it."""
         return self.predict_for_batch_with_engine(engine, [image], aug_pipeline)[0]
 
     def predict_for_batch_with_engine(self, engine, images, aug_pipeline=None):
-        """Batched engine predict: each image is zero-padded into the
-        engine's bucket and its own valid extent rides the (B, 2) valid_hw.
+        """Batched engine predict: the images go to the engine unpadded,
+        with their own valid extents as the (B, 2) valid_hw, and the engine
+        zero-pads each into its resolution as it stages it (one pass into
+        a captured engine's pinned slot: deploy/runner.py place_frames).
         The batch must match the engine's batch_size.
         Returns one [[class_label, score, x1, y1, w, h], ...] per image.
         Under a profiler session the call records the span `predict`, with
-        `predict.pad`, the engine's spans, `predict.fetch` and
-        `predict.rows` inside it, counts the rows (`predict.rows`) and the
-        valid candidates that entered the engine's NMS
-        (`engine.nms_candidates`, from the host copy of its outputs;
-        tracing.py)."""
+        `predict.pad` (reading, augmenting and checking the images), the
+        engine's spans, `predict.fetch` and `predict.rows` inside it, counts
+        the rows (`predict.rows`) and the valid candidates that entered the
+        engine's NMS (`engine.nms_candidates`, from the host copy of its
+        outputs; tracing.py)."""
         with tracing.span("predict"):
             with tracing.span("predict.pad"):
-                batch, hws = _padded_batch(engine.input_resolution, images, aug_pipeline)
-            decoded = engine(batch, hws)
+                frames, hws = _read_frames(engine.input_resolution, images, aug_pipeline)
+            decoded = engine(frames, hws)
             with tracing.span("predict.fetch"):
                 decoded = {k: v.cpu().numpy() for k, v in decoded.items()}
             with tracing.span("predict.rows"):
                 rows = [detections_to_lists({k: v[i] for k, v in decoded.items()})
-                        for i in range(len(batch))]
+                        for i in range(len(frames))]
                 tracing.count("predict.rows", lambda: sum(len(r) for r in rows))
             if "candidates" in decoded:  # an engine file from before the field has none
                 tracing.count("engine.nms_candidates",
@@ -491,11 +493,12 @@ class LFD(DenseDetector):
         )
 
 
-def _padded_batch(resolution, images, aug_pipeline):
-    """The images read (and augmented), each zero-padded into the engine's
-    (h, w) `resolution`: (B, h, w, 3) batch and (B, 2) valid extents."""
+def _read_frames(resolution, images, aug_pipeline):
+    """The images read (and augmented), each checked to fit the engine's
+    (h, w) `resolution`: the list of unpadded frames and their (B, 2)
+    valid extents."""
     eh, ew = resolution
-    processed = []
+    frames = []
     for image in images:
         image = _read_image(image)
         if aug_pipeline is not None:
@@ -503,11 +506,6 @@ def _padded_batch(resolution, images, aug_pipeline):
         h, w = image.shape[:2]
         if h > eh or w > ew:
             raise ValueError(f"image {h}x{w} exceeds engine resolution {eh}x{ew}")
-        processed.append(image)
-    batch = np.zeros((len(processed), eh, ew, 3), processed[0].dtype)
-    hws = np.zeros((len(processed), 2), np.float32)
-    for i, image in enumerate(processed):
-        h, w = image.shape[:2]
-        batch[i, :h, :w] = image
-        hws[i] = (h, w)
-    return batch, hws
+        frames.append(image)
+    hws = np.asarray([f.shape[:2] for f in frames], np.float32).reshape(-1, 2)
+    return frames, hws

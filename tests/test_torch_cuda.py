@@ -492,11 +492,11 @@ def test_a_capture_that_cannot_succeed_raises(cuda, monkeypatch):
     real = compile_mod.EngineProgram.decode
     state = {"calls": 0}
 
-    def syncing(self, cls_o, reg_o, vhw):
+    def syncing(self, outputs, vhw):
         state["calls"] += 1
         if torch.cuda.is_current_stream_capturing():
-            cls_o.sum().item()  # a host sync: not permitted in a capture
-        return real(self, cls_o, reg_o, vhw)
+            outputs[0].sum().item()  # a host sync: not permitted in a capture
+        return real(self, outputs, vhw)
 
     monkeypatch.setattr(compile_mod.EngineProgram, "decode", syncing)
     with pytest.raises(RuntimeError, match="capturing the engine"):
@@ -1079,6 +1079,70 @@ def test_captured_engine_spans_time_the_replay_on_the_device(cuda):
     assert spans["engine.stage"]["stream_ms"] is None
     assert {"predict", "engine.replay"} <= {e.name for e in prof.events()}
     tracing.reset()
+
+
+def test_captured_engine_stages_unpadded_frames_in_one_pass(cuda):
+    """The predict API over a captured engine, frames of three extents in
+    turn and then the first again: its rows equal those of a captured
+    engine fed the same frames pre-padded; `engine.stage_bytes` reads the
+    frame's bytes plus the stale pad zeroed, and the frame's bytes alone
+    once an extent repeats; the synchronous loop reuses one pinned slot.
+    Then a burst of calls with no sync between them: each result equals the
+    pre-padded one, and the graph keeps at most STAGING_SLOTS slots."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lfdtpu_torch import tracing
+    from lfdtpu_torch.deploy.runner import STAGING_SLOTS
+    from lfdtpu_torch.ops.decode import detections_to_lists
+
+    det = _detector("L")
+    engine = _engine(det, "bf16_kernels", batch_size=1)
+    padded_engine = _engine(det, "bf16_kernels", batch_size=1)
+    H, W = ENGINE_HW
+    extents = [(200, 311), (H, 160), (130, W), (200, 311), (200, 311)]
+    frames = [_frames(20 + i, 1, hw)[0] for i, hw in enumerate(extents)]
+
+    def padded(frame):
+        out = np.zeros((1, H, W, 3), np.uint8)
+        out[0, :frame.shape[0], :frame.shape[1]] = frame
+        return out
+
+    def rows_of(out):
+        out = {k: v.cpu().numpy() for k, v in out.items()}
+        return detections_to_lists({k: v[0] for k, v in out.items()})
+
+    vhw = [np.asarray(f.shape[:2], np.float32) for f in frames]
+    refs = [rows_of(padded_engine(padded(f), v)) for f, v in zip(frames, vhw)]
+    g = engine._graphs[torch.uint8]
+    last, hosts, total = (0, 0), None, 0
+    tracing.reset()
+    # one CPU-only session: a captured graph is never replayed under two (F16)
+    with profile(activities=[ProfilerActivity.CPU]):
+        for (h, w), frame, ref in zip(extents, frames, refs):
+            rows = det.predict_for_single_image_with_engine(engine, frame)
+            staged = tracing._RECORDER.counters["engine.stage_bytes"] - total
+            total += staged
+            assert rows == ref, (h, w)
+            stale = last[0] * last[1] - min(last[0], h) * min(last[1], w)
+            assert staged == 3 * (h * w + stale), (h, w, staged)
+            if (h, w) == last:
+                assert staged == 3 * h * w
+            last = (h, w)
+            ptrs = [s.host.data_ptr() for s in g.slots]
+            assert hosts is None or ptrs == hosts  # no new buffer per call
+            hosts = ptrs
+    assert tracing.summary()["counters"]["engine.stage_bytes"] == total
+    assert len(g.slots) == 1
+    tracing.reset()
+
+    want = [padded_engine(padded(f), v) for f, v in zip(frames, vhw)]
+    got = []
+    for _ in range(3):
+        got += [engine([f], v) for f, v in zip(frames, vhw)]
+        assert len(g.slots) <= STAGING_SLOTS
+    torch.cuda.synchronize()
+    assert all(_same(a, b) for a, b in zip(got, want * 3))
+    assert sum(int(w["count"].sum()) for w in want) > 0
 
 
 def test_no_span_records_inside_a_graph_capture(cuda):

@@ -113,6 +113,41 @@ def test_predict_paths_match_lfdtpu():
         batched(np.zeros((1,) + HW + (3,), np.uint8), [128, 128])
 
 
+@pytest.mark.parametrize("dtype", [np.uint8, np.float64])
+def test_batched_predict_of_mixed_sizes_equals_the_prepadded_call(dtype):
+    """The predict API hands the engine unpadded frames of mixed sizes; its
+    rows equal those of engine(padded, hws) with each frame zero-padded into
+    a batch of the engine's resolution, call after call as the extents
+    change (float64 frames reach the net as float32 either way), and so do
+    predict_padded's. An image larger than the engine still raises."""
+    from lfdtpu_torch.deploy import predict_padded
+    from lfdtpu_torch.ops.decode import detections_to_lists
+
+    _, _, tdet = jax_and_port("WIDERFACE-S")
+    pre = make_device_preprocess(MEAN, STD)
+    engine = compile_inference(tdet, HW, "fp32", preprocess=pre, batch_size=2, device="cpu",
+                               **KW)
+    single = compile_inference(tdet, HW, "fp32", preprocess=pre, device="cpu", **KW)
+    rng = np.random.RandomState(5)
+    for sizes in ([(128, 128), (97, 70)], [(64, 120), (128, 50)], [(97, 70), (97, 70)]):
+        imgs = [rng.randint(0, 255, hw + (3,)).astype(dtype) for hw in sizes]
+        padded = np.zeros((2,) + HW + (3,), dtype)
+        for i, img in enumerate(imgs):
+            padded[i, :img.shape[0], :img.shape[1]] = img
+        hws = np.asarray(sizes, np.float32)
+        out = {k: v.numpy() for k, v in engine(padded, hws).items()}
+        want = [detections_to_lists({k: v[i] for k, v in out.items()}) for i in range(2)]
+        got = tdet.predict_for_batch_with_engine(engine, imgs)
+        assert got == want and sum(len(r) for r in got) > 0, sizes
+        one = {k: v.numpy() for k, v in predict_padded(single, imgs[1]).items()}
+        ref = {k: v.numpy() for k, v in single(padded[1:], hws[1]).items()}
+        assert all(np.array_equal(one[k], ref[k]) for k in ref)
+    with pytest.raises(ValueError, match="exceeds engine resolution"):
+        tdet.predict_for_batch_with_engine(engine, [imgs[0], np.zeros((129, 64, 3), dtype)])
+    with pytest.raises(ValueError, match="exceeds engine resolution"):
+        predict_padded(single, np.zeros((64, 129, 3), dtype))
+
+
 def test_packed_output_and_budgets():
     _, _, tdet = jax_and_port("WIDERFACE-L")
     pre = make_device_preprocess(MEAN, STD)
