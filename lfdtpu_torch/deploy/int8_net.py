@@ -53,12 +53,11 @@ import torch
 from torch import nn
 
 from ..models.heads import LFDHead
-from ..models.layers import BN_EPS
 from ..models.lfd_resnet import LFDResNet
 from ..models.necks import SimpleNeck
 from ..ops.int8_conv import (int8_conv, pack_int8_weight, quantize_to, quantize_weights,
                              scale_of)
-from .kernel_net import FusedGroupNormReLU
+from .kernel_net import FusedGroupNormReLU, folded_norm
 
 INPUT_KEY = "__input__#out"
 
@@ -268,24 +267,6 @@ def _block_eligible(block):
 # The static plan
 # --------------------------------------------------------------------------
 
-def folded_norm(conv, norm):
-    """Per-channel float32 (scale, bias) of an optional BatchNorm and the
-    conv's bias, on the CPU (`int8_net.py:287-306`):
-    bn(conv + b) == scale * conv + (scale * b + bn_bias)."""
-    bias = conv.bias.detach().float().cpu() if conv.bias is not None else None
-    if norm is not None:
-        scale = norm.weight.detach().float().cpu() * torch.rsqrt(
-            norm.running_var.detach().float().cpu() + BN_EPS)
-        b = norm.bias.detach().float().cpu() - norm.running_mean.detach().float().cpu() * scale
-        if bias is not None:
-            b = b + bias * scale
-    else:
-        cout = conv.out_channels
-        scale = torch.ones(cout)
-        b = bias if bias is not None else torch.zeros(cout)
-    return scale, b
-
-
 class Int8Unit(nn.Module):
     """One conv unit as a K4 launch with its constants folded:
     mult = (f32(s_in) * w_scale) * bn_scale (lfdtpu's left-to-right
@@ -326,7 +307,7 @@ class _Planner:
                 u.conv.padding != (u.conv.kernel_size[0] // 2,) * 2:
             raise ValueError(f"{u.name}: K4 runs plain convs with padding k // 2")
         wpack, w_scale = self.weights(u.conv)
-        nscale, nbias = folded_norm(u.conv, u.norm)
+        nscale, nbias = folded_norm(u.conv, u.norm, "cpu")
         mult = (torch.tensor(np.float32(s_in)) * w_scale) * nscale
         return Int8Unit(u.name, wpack, mult.to(self.device), nbias.to(self.device),
                         u.conv.kernel_size[0], u.conv.stride[0], relu, out_scale)

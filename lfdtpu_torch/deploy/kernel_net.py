@@ -41,12 +41,23 @@ def prepack_pair_weights(net):
     }
 
 
-def _folded_bn_sb(norm):
-    """Inference-mode BatchNorm as fp32 per-channel (scale, bias)."""
-    scale = norm.weight.detach().float() * torch.rsqrt(
-        norm.running_var.float() + BN_EPS)
-    bias = norm.bias.detach().float() - norm.running_mean.float() * scale
-    return scale.contiguous(), bias.contiguous()
+def folded_norm(conv, norm, device=None):
+    """`conv` then an inference-mode BatchNorm `norm` (None: no norm) as
+    float32 per-channel (scale, bias), the conv's bias folded in
+    (`lfdtpu/deploy/int8_net.py:287-306`): bn(conv + b) == scale * conv +
+    (scale * b + bn_bias). Folded on `device` (default: where the conv
+    lives): K2 and K3 fold on the engine's device, K4 on the CPU, and rsqrt
+    may round differently on the two."""
+    def f32(t):
+        return t.detach().float().to(device)
+
+    bias = f32(conv.bias) if conv.bias is not None else None
+    if norm is None:
+        ones = torch.ones(conv.out_channels, device=device or conv.weight.device)
+        return ones, bias if bias is not None else torch.zeros_like(ones)
+    scale = f32(norm.weight) * torch.rsqrt(f32(norm.running_var) + BN_EPS)
+    b = f32(norm.bias) - f32(norm.running_mean) * scale
+    return scale, b if bias is None else b + bias * scale
 
 
 def eligible_faster_block(block):
@@ -111,7 +122,7 @@ def prepack_stem(net, mean, std, bgr2rgb=False):
         # conv(x[..., ::-1], k) == conv(x, k[:, :, ::-1, :]): fold the channel
         # flip into the weights and the normalize constants
         w, mean, std = w.flip(2), mean.flip(0), std.flip(0)
-    scale, bias = _folded_bn_sb(norm)
+    scale, bias = folded_norm(conv, norm)
     return (w.contiguous(), mean.contiguous(), std.contiguous(), scale, bias)
 
 
@@ -205,7 +216,7 @@ def attach_kernels(net, block_kernels=False, stem_pack=None, group_norms=True):
             if eligible_faster_block(m):
                 m.fused = FusedFasterBlock(
                     packs[f"{name}._conv1"], packs[f"{name}._conv2"],
-                    _folded_bn_sb(m._norm1), _folded_bn_sb(m._norm2))
+                    folded_norm(m._conv1, m._norm1), folded_norm(m._conv2, m._norm2))
                 n_blocks += 1
     if stem_pack is not None:
         net._backbone.fused_stem = FusedStem(stem_pack)

@@ -37,7 +37,8 @@ def test_kernels_build_from_sources(cuda):
 
 
 @pytest.mark.parametrize("K", [1000, 1536])
-@pytest.mark.parametrize("case", ["random", "valid holes", "tied scores", "exact iou"])
+@pytest.mark.parametrize("case", ["random", "valid holes", "tied scores", "tied holes",
+                                  "exact iou"])
 def test_nms_kernel_matches_plain_exactly(cuda, K, case):
     rng = np.random.RandomState(K)
     if case == "exact iou":  # integer boxes: IoUs land exactly on the threshold
@@ -48,11 +49,11 @@ def test_nms_kernel_matches_plain_exactly(cuda, K, case):
         wh = rng.rand(4, K, 2) * 60 + 1
     boxes = torch.as_tensor(np.concatenate([xy, xy + wh], -1), dtype=torch.float32,
                             device=cuda)
-    scores = (rng.randint(0, 5, (4, K)) / 5.0 if case == "tied scores"
+    scores = (rng.randint(0, 5, (4, K)) / 5.0 if case.startswith("tied")
               else rng.rand(4, K))
     scores = torch.as_tensor(scores, dtype=torch.float32, device=cuda)
-    valid = torch.as_tensor(rng.rand(4, K) > (0.3 if case == "valid holes" else 0.0),
-                            device=cuda)
+    holes = {"valid holes": 0.3, "tied holes": 0.1}.get(case, 0.0)
+    valid = torch.as_tensor(rng.rand(4, K) > holes, device=cuda)
     thr = 0.5 if case == "exact iou" else 0.4
     before = nms_kernel.nms_mask_sorted.launches
     got = nms_mask(boxes, scores, thr, valid=valid, use_kernel=True)
@@ -192,25 +193,27 @@ def _k2_inputs(cuda, n, hw, seed):
     return frame, w, mean, std, s, b
 
 
-# the engine's three K3 shapes at 1088x1920, at batch 4 (the bf16_kernels_b4
-# engine), and shapes with a partial tile in every dimension or fewer 8x32
-# tiles than SMs, which take each of the kernel's three item shapes (8x32x64,
-# 8x32x32 at 68x120, 4x32x32 at the smallest)
+# the engine's three K3 shapes at 1088x1920, at batch 1 and 4 (the
+# bf16_kernels_b4 engine), and shapes with a partial tile in every dimension
+# or fewer 8x32 tiles than SMs, which take each of the kernel's three item
+# shapes (8x32x64, 8x32x32 at 68x120, 4x32x32 at the smallest)
 @pytest.mark.parametrize("n,hw", [(4, (272, 480)), (4, (136, 240)), (4, (68, 120)),
                                   (1, (1, 1)), (1, (5, 7)), (1, (68, 120)),
-                                  (1, (136, 240))])
-@pytest.mark.parametrize("residual", [True, False])
-def test_pair_conv_kernel_matches_plain_at_engine_and_partial_shapes(cuda, n, hw, residual):
+                                  (1, (136, 240)), (1, (272, 480))])
+@pytest.mark.parametrize("residual,relu", [(True, True), (False, True), (False, False)])
+def test_pair_conv_kernel_matches_plain_at_engine_and_partial_shapes(cuda, n, hw, residual,
+                                                                     relu):
     x, w, s, b = _k3_inputs(cuda, n, hw, hw[0] * 7 + n)
     res = x.roll(1, 0).contiguous() if residual else None
-    got = conv_kernels.pair_conv3x3(x, w, s, b, residual=res, relu=True)
-    ref = conv_kernels.pair_conv3x3_plain(x, w, s, b, residual=res, relu=True)
+    got = conv_kernels.pair_conv3x3(x, w, s, b, residual=res, relu=relu)
+    ref = conv_kernels.pair_conv3x3_plain(x, w, s, b, residual=res, relu=relu)
     torch.cuda.synchronize()
     assert got.shape == ref.shape
     assert max_rel(got, ref) < 0.02
 
 
-@pytest.mark.parametrize("n,hw", [(4, (1088, 1920)), (1, (1087, 1919)), (1, (3, 5))])
+@pytest.mark.parametrize("n,hw", [(4, (1088, 1920)), (1, (1088, 1920)), (1, (1087, 1919)),
+                                  (1, (3, 5))])
 def test_stem_kernel_matches_plain_at_batch_and_odd_shapes(cuda, n, hw):
     args = _k2_inputs(cuda, n, hw, hw[1] + n)
     got = conv_kernels.stem_conv(*args)
@@ -318,6 +321,10 @@ def test_device_augment_on_the_card_matches_the_cpu(cuda):
 # so every output tensor must be bit-equal.
 
 ENGINE_HW = (256, 320)
+FULL_HW = (1088, 1920)  # 1080p padded to the stride-64 multiple, as served
+# (frame shape, batch) of the engine tests: a small map, and 1080p at batch 1
+# and at batch 4 (the bf16_kernels_b4 engine)
+ENGINE_SHAPES = [(ENGINE_HW, 2), (FULL_HW, 1), (FULL_HW, 4)]
 ENGINE_VARIANTS = {
     "fp32": dict(precision="fp32"),
     "bf16": dict(precision="bf16"),
@@ -350,12 +357,19 @@ def _same(a, b):
     return all(torch.equal(a[k], b[k]) for k in a)
 
 
+def _extents(hw, batch):
+    """Each frame's valid (height, width): the whole frame, then smaller
+    (at ENGINE_HW batch 2: [[256, 320], [200, 311]])."""
+    return np.asarray([[hw[0] - 56 * i, hw[1] - 9 * i] for i in range(batch)], np.float32)
+
+
+@pytest.mark.parametrize("hw,batch", ENGINE_SHAPES)
 @pytest.mark.parametrize("variant", list(ENGINE_VARIANTS))
 @pytest.mark.parametrize("size", ["S", "L"])
-def test_captured_engine_rows_equal_eager(cuda, size, variant):
+def test_captured_engine_rows_equal_eager(cuda, size, variant, hw, batch):
     det = _detector(size)
-    captured = _engine(det, variant)  # the default on the card
-    eager = _engine(det, variant, captured=False)
+    captured = _engine(det, variant, hw, batch)  # the default on the card
+    eager = _engine(det, variant, hw, batch, captured=False)
     assert captured.captured and not eager.captured
     k3 = 10  # five eligible FasterBlocks in S and in L, two launches each
     assert captured.captured_launches == {
@@ -363,17 +377,20 @@ def test_captured_engine_rows_equal_eager(cuda, size, variant):
         "stem_conv": int(variant == "bf16_kernels"),
         "pair_conv3x3": k3 * int(variant == "bf16_kernels"),
         "int8_conv": 0, "group_norm_relu": group_norm_calls(det.net)}
-    vhw = np.asarray([[256, 320], [200, 311]], np.float32)
+    vhw = _extents(hw, batch)
     before = nms_kernel.nms_mask_sorted.launches
+    outs = []
     for seed in (1, 2):
-        f = _frames(seed)
+        f = _frames(seed, batch, hw)
         got = captured(f, vhw)
         ref = eager(f, vhw)
-        assert int(got["count"].sum()) > 0
-        assert _same(got, ref), (size, variant, seed)
         # a frame and extents already on the card take the other input path
         again = captured(torch.as_tensor(f, device=cuda), torch.as_tensor(vhw, device=cuda))
-        assert _same(again, ref)
+        outs.append((got, again, ref))
+    for seed, (got, again, ref) in zip((1, 2), outs):  # the first results survive
+        assert int(got["count"].sum()) > 0
+        assert _same(got, ref) and _same(again, ref), (size, variant, hw, batch, seed)
+    assert not torch.equal(outs[0][0]["scores"], outs[1][0]["scores"])
     # a replay launches kernels without the wrappers: only the eager engine counted
     assert nms_kernel.nms_mask_sorted.launches == before + 2 * int(variant != "bf16_plain")
 
@@ -444,8 +461,9 @@ def test_captured_engine_refuses_what_it_was_not_built_for(cuda):
     assert int(stem(_frames(1), ENGINE_HW)["count"].sum()) > 0
 
 
+@pytest.mark.parametrize("hw,batch", [(ENGINE_HW, 2), (FULL_HW, 1)])
 @pytest.mark.parametrize("precision", ["fp32", "bf16", "int8"])
-def test_captured_engine_serves_float_frames(cuda, precision):
+def test_captured_engine_serves_float_frames(cuda, precision, hw, batch):
     """Frames normalized on the host (float32, no device preprocess): the
     captured engine captures a float graph at the first float call and
     returns the eager engine's rows, from the host and from the card, while
@@ -455,29 +473,29 @@ def test_captured_engine_serves_float_frames(cuda, precision):
     from lfdtpu_torch.deploy import compile_inference
 
     det = _detector("S")
-    kw = dict(batch_size=2, classification_threshold=1e-4)
-    engine = compile_inference(det, ENGINE_HW, precision, **kw)
+    kw = dict(batch_size=batch, classification_threshold=1e-4)
+    engine = compile_inference(det, hw, precision, **kw)
     if precision == "int8":
         kw["act_scales"] = engine.int8_chain.amax
-    eager = compile_inference(det, ENGINE_HW, precision, captured=False, **kw)
+    eager = compile_inference(det, hw, precision, captured=False, **kw)
     assert engine.captured and set(engine._graphs) == {torch.uint8}
     norm = Compose([Normalize((0.5,) * 3, (0.5,) * 3)])
-    f = norm({"image": _frames(13)})["image"]
+    f = norm({"image": _frames(13, batch, hw)})["image"]
     assert f.dtype == np.float32
-    vhw = np.asarray([[256, 320], [200, 311]], np.float32)
+    vhw = _extents(hw, batch)
     ref = eager(f, vhw)
     assert int(ref["count"].sum()) > 0
     assert _same(engine(f, vhw), ref)
     assert set(engine._graphs) == {torch.uint8, torch.float32}
     assert _same(engine(torch.as_tensor(f, device=cuda), torch.as_tensor(vhw, device=cuda)), ref)
     assert _same(engine(f.astype(np.float64), vhw), ref)  # reaches the net as float32
-    u = _frames(14)
+    u = _frames(14, batch, hw)
     assert _same(engine(u, vhw), eager(u, vhw))
     assert _same(engine(f, vhw), ref)
-    one = compile_inference(det, ENGINE_HW, precision, **dict(kw, batch_size=1))
-    one_eager = compile_inference(det, ENGINE_HW, precision, captured=False,
+    one = compile_inference(det, hw, precision, **dict(kw, batch_size=1))
+    one_eager = compile_inference(det, hw, precision, captured=False,
                                   **dict(kw, batch_size=1))
-    img = _frames(15, 1, (200, 300))[0]
+    img = _frames(15, 1, (hw[0] - 56, hw[1] - 20))[0]
     rows = det.predict_for_single_image_with_engine(one, img, aug_pipeline=norm)
     assert rows and rows == det.predict_for_single_image_with_engine(one_eager, img,
                                                                      aug_pipeline=norm)
@@ -510,13 +528,29 @@ def test_a_capture_that_cannot_succeed_raises(cuda, monkeypatch):
     assert _same(engine(f, ENGINE_HW), _engine(det, "bf16_kernels", captured=False)(f, ENGINE_HW))
 
 
-def test_timing_inference_on_the_card(cuda):
-    from lfdtpu_torch.deploy import timing_inference
+@pytest.mark.parametrize("sweep", [None, "L bf16", "XS bf16", "L int8"])
+def test_timing_inference_on_the_card(cuda, sweep):
+    """timing_inference on one captured engine; with `sweep`, that WIDERFACE
+    size and precision through inference_latency_evaluation at its four
+    resolutions (640x480 to 4K), one captured engine per cell."""
+    from lfdtpu_torch.deploy import (inference_latency_evaluation, make_device_preprocess,
+                                     timing_inference)
 
-    engine = _engine(_detector("S"), "bf16_kernels", batch_size=1)
-    r = timing_inference(engine, _frames(12, 1), ENGINE_HW, warmup_loops=3, timing_loops=10)
-    assert r["method"] == "cuda_events_per_call" and r["loops"] == 10
-    assert 0 < r["ms_min"] <= r["ms_per_image"] <= r["ms_p95"]
+    if sweep is None:
+        engine = _engine(_detector("S"), "bf16_kernels", batch_size=1)
+        cells = [timing_inference(engine, _frames(12, 1), ENGINE_HW, warmup_loops=3,
+                                  timing_loops=10)]
+    else:
+        size, precision = sweep.split()
+        cells = inference_latency_evaluation(
+            _detector(size), precisions=(precision,),
+            preprocess=make_device_preprocess((0.5,) * 3, (0.5,) * 3), warmup_loops=3,
+            timing_loops=10, verbose=False, device=cuda).values()
+        assert len(cells) == 4
+    for r in cells:
+        assert r["method"] == "cuda_events_per_call" and r["loops"] == 10
+        assert np.isfinite([v for v in r.values() if not isinstance(v, str)]).all()
+        assert 0 < r["ms_min"] <= r["ms_per_image"] <= r["ms_p95"]
 
 
 # ------------------------------------------------------- traffic and LFDv2
@@ -524,19 +558,20 @@ def test_timing_inference_on_the_card(cuda):
 # 2048x2048 levels, K2 with TL's BGR -> RGB and imagenet constants folded in,
 # K1 behind 45 class offsets, and their captured engines against eager ones.
 
-@pytest.mark.parametrize("n,hw", [(1, (512, 512)), (4, (512, 512)), (4, (256, 256)),
-                                  (4, (128, 128))])
-@pytest.mark.parametrize("residual", [True, False])
-def test_pair_conv_kernel_matches_plain_at_tt100k_shapes(cuda, n, hw, residual):
+@pytest.mark.parametrize("n,hw", [(1, (512, 512)), (4, (512, 512)), (1, (256, 256)),
+                                  (4, (256, 256)), (1, (128, 128)), (4, (128, 128))])
+@pytest.mark.parametrize("residual,relu", [(True, True), (False, True), (False, False)])
+def test_pair_conv_kernel_matches_plain_at_tt100k_shapes(cuda, n, hw, residual, relu):
     x, w, s, b = _k3_inputs(cuda, n, hw, hw[0] + n)
     res = x.roll(1, 0).contiguous() if residual else None
-    got = conv_kernels.pair_conv3x3(x, w, s, b, residual=res, relu=True)
-    ref = conv_kernels.pair_conv3x3_plain(x, w, s, b, residual=res, relu=True)
+    got = conv_kernels.pair_conv3x3(x, w, s, b, residual=res, relu=relu)
+    ref = conv_kernels.pair_conv3x3_plain(x, w, s, b, residual=res, relu=relu)
     torch.cuda.synchronize()
     assert max_rel(got, ref) < 0.02
 
 
-@pytest.mark.parametrize("n,hw", [(1, (768, 1280)), (4, (768, 1280)), (1, (2048, 2048))])
+@pytest.mark.parametrize("n,hw", [(1, (768, 1280)), (4, (768, 1280)), (1, (2048, 2048)),
+                                  (4, (2048, 2048))])
 def test_stem_kernel_with_tl_folded_constants_matches_plain(cuda, n, hw):
     from lfdtpu_torch.deploy import compile_inference, make_device_preprocess
 
@@ -763,7 +798,7 @@ def test_int8_conv_48_channel_taps_read_zeros_past_48(cuda):
 @pytest.mark.parametrize("mode", ["a", "a relu", "b", "c int8", "c f32"])
 def test_int8_conv_mma_route_matches_plain(cuda, n, h, w, cin, cout, k, stride, mode):
     """The mma.sync route, which no zoo chain reaches, at the synthetic
-    shapes chip_smoke.py holds it to: Cout 8, 16, 24 and 96, 5x5 kernels,
+    shapes chip_smoke.py times it at: Cout 8, 16, 24 and 96, 5x5 kernels,
     the flat layout, odd sizes; EXACT in every mode."""
     from lfdtpu_torch.ops import int8_conv as k4
 
