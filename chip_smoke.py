@@ -40,19 +40,24 @@ It checks them:
               against plain, rows identical; the fp32 engine on the GPU
               against the fp32 port on the CPU at 256x256, TF32 off;
   6. train    the training path (forward, on-device target assignment,
-              loss, backward, clip, SGD) of WIDERFACE-L, which runs no
-              hand-written kernel: two fp32 steps at 128x128, batch 2, on the
-              GPU against the same steps on the CPU (loss, grad_norm, every
-              param and BN running stat, max|err|/max|ref| < 1e-3, TF32 off);
-              then full width at the workload's batch 64, crop 480x480, GT
-              padded to 200 rows, SGD momentum 0.9 / wd 1e-4, clip 10 and its
+              loss, backward, clip, SGD) of WIDERFACE-L, whose one
+              hand-written kernel is K6, the target assignment: two fp32
+              steps at 128x128, batch 2, on the GPU against the same steps on
+              the CPU (loss, grad_norm, every param and BN running stat,
+              max|err|/max|ref| < 1e-3, TF32 off); then full width at the
+              workload's batch 64, crop 480x480, GT padded to 200 rows: K6
+              against its plain version on that batch (one launch, both
+              outputs equal), then SGD momentum 0.9 / wd 1e-4, clip 10 and its
               warmup schedule, 20 steps in fp32 and 20 in bf16 autocast on one
               fixed batch (finite, loss falls, fp32 master weights, BN stats
-              move; peak memory); then the trained net is compiled into the
+              move; peak memory; one K6 launch a step by its counter, and one
+              more bf16 step profiled: K6 once by kernel name, no engine
+              kernel); then the trained net is compiled into the
               bf16 engine with all three kernels and serves a frame (every
               kernel launches, rows checked), and predict_for_single_image
               on the net left in train() leaves its running stats alone;
-  7. kernels  each kernel alone at the shapes the engine gives it: its
+  7. kernels  each kernel alone at the shapes the engine gives it (K6: the
+              train cell's batch 64 at 480x480, C 1, N 200): its
               device ms (CUDA events around replays of a CUDA graph of its
               launches, warm on repeated inputs and cold rotating over more
               than the 50 MB L2) beside its bound (kernel_bound_ms), its
@@ -64,10 +69,11 @@ It checks them:
               random boxes at B=1, K=1000, on the walk's hard cases and at
               B=4, each with its kept count; K5 at WIDERFACE-L's and
               TT100K-L's first head levels and FCOS's P3 beside ATen's
-              group_norm + relu on the channels_last map with its copies.
+              group_norm + relu on the channels_last map with its copies;
+              K6 beside its plain version (no library call assigns targets).
               Each timed launch's output is held once to its plain
               version's on the same inputs (alone_err: K1 exact, K2/K3/K5
-              within K2_TOL/K3_TOL/K5_TOL), and so, untimed, are K2 and K3
+              within K2_TOL/K3_TOL/K5_TOL; K6 equal), and so, untimed, are K2 and K3
               at the engines' batch 1 and 4 (K3 on its three levels with
               and without the residual and the ReLU) and K5 at WIDERFACE-
               L's five head levels (engine_shape_errs). Then one frame of the
@@ -316,9 +322,11 @@ It checks them:
               shapes of tools/cudnn_workspace.py. A rank that fails, dies or
               hangs past SPATIAL_CHILD_TIMEOUT fails the run.
 
-The second-to-last line is a JSON object {"kernels": [...]} (K1-K5; each
+The second-to-last line is a JSON object {"kernels": [...]} (K1-K6; each
 kernel's launches on its main path: WIDERFACE-L's bf16 engines for K1-K3
-and K5, its int8 engines for K4; and on every path in
+and K5, its int8 engines for K4, phase 6's training for K6 (K6's
+launches_by_path: phases 6, 8 and 10's training, replayed null); and, for
+K1-K5, on every path in
 launches_by_path: an engine path's launches at build and capture and by its
 replays, the FCOS path's eager launches and replayed null (it has no
 engine), the engine files' loaded path's launches at load and capture and
@@ -336,7 +344,7 @@ launches_by_route). Its max_abs_err is, for K1, K2, K3 and K5, the largest
 |kernel - plain| of phase 7's launches, each compared once with its plain
 version on the same inputs: the timed ones, and untimed K2 and K3 at batch 1
 and 4 of HW with every residual/relu pair the engines launch, K5 at
-WIDERFACE-L's five head levels (K1: 0.0, its masks equal); for K4, of
+WIDERFACE-L's five head levels (K1 and K6: 0.0, their outputs equal); for K4, of
 every K4 call this script holds to its plain version (phases 13, 15 and 17;
 exact, so 0.0). A line before it holds K4's rows
 of the WIDERFACE-XS and TL-S frames ({"k4_narrow_rows": ...});
@@ -405,11 +413,14 @@ IOU_FLOPS = 14              # per box pair: 4 min/max, 2 sub, 2 clamp, mul, 2 ad
 GRAPH_LAUNCHES = 20         # kernel timing: launches per CUDA graph
 COLD_BYTES = 100 * 2 ** 20  # cold timing rotates over more inputs than the L2 holds
 PROFILED_FRAMES = 5
-# the hand-written kernels' names in a profile, per wrapper (K1 launches two)
-KERNEL_NAMES = {"pair_conv3x3": ("pair_conv_kernel",), "stem_conv": ("stem_conv_kernel",),
-                "nms_mask_sorted": ("nms_iou_kernel", "nms_walk_kernel"),
-                "int8_conv": ("int8_conv_",),  # K4's three routes' kernels
-                "group_norm_relu": ("group_norm_stats_kernel", "group_norm_relu_kernel")}
+# the hand-written kernels' names in a profile, per wrapper (K1 launches two):
+# an engine's (K1-K5), and K6, which a train step launches and no engine
+ENGINE_KERNELS = {"pair_conv3x3": ("pair_conv_kernel",), "stem_conv": ("stem_conv_kernel",),
+                  "nms_mask_sorted": ("nms_iou_kernel", "nms_walk_kernel"),
+                  "int8_conv": ("int8_conv_",),  # K4's three routes' kernels
+                  "group_norm_relu": ("group_norm_stats_kernel", "group_norm_relu_kernel")}
+KERNEL_NAMES = {**ENGINE_KERNELS, "lfd_assign": ("lfd_assign_kernel",)}
+ASSIGN_FLOPS = 8            # per (point, real GT row): 4 deltas, 4 compares (K6's hit test)
 # engine variants: compile_inference's switches (lfdtpu's defaults: K1 on, K2
 # and K3 off); expected_launches counts what one capture of a net launches
 VARIANTS = {
@@ -692,6 +703,13 @@ def kernel_work(name, shape, residual=False):
         # the first output, so the map is read twice and written once
         n, h, w, c = shape
         return 3 * n * h * w * c * 2 + 2 * c * 4, 5 * n * h * w * c, "fp32"
+    if name == "lfd_assign":
+        # shape (B, P, C, N, R): R real GT rows of B x N. The float32 targets
+        # (B, P, C + 4) written; each point's 7 constants, the mask and the
+        # real rows' xywh and int64 label read; the hit test of every point
+        # against its image's real rows
+        b, p, c, n, r = shape
+        return b * p * (c + 4) * 4 + p * 7 * 4 + b * n + r * 24, p * r * ASSIGN_FLOPS, "fp32"
     raise ValueError(f"unknown kernel {name}")
 
 
@@ -877,18 +895,21 @@ def device_events(prof):
     return dev, what
 
 
-def kernel_launches_in(prof):
-    """({wrapper name: launches}, the window it was counted in) from a
-    profile's device events by kernel name: what a CUDA graph's replays
-    launch, which the wrappers' host counters do not see (K1's two kernels
-    count as one launch)."""
+def kernel_launches_in(prof, names=ENGINE_KERNELS):
+    """({wrapper name: launches} of `names`, the window it was counted in)
+    from a profile's device events by kernel name: what a CUDA graph's
+    replays launch, which the wrappers' host counters do not see (K1's two
+    kernels count as one launch). Any other hand-written kernel in the
+    window fails: an engine launches no K6, a train step no engine kernel."""
     counts = {name: 0 for name in KERNEL_NAMES}
     events, what = device_events(prof)
     for e in events:
         for name, keys in KERNEL_NAMES.items():
             if keys[0] in e.name:
                 counts[name] += 1
-    return counts, what
+    stray = {k: n for k, n in counts.items() if n and k not in names}
+    check(not stray, f"the profiled window launched {stray}, which its path does not run")
+    return {k: counts[k] for k in names}, what
 
 
 def serve(det, engines, hw, rng):
@@ -1130,13 +1151,45 @@ def check_train_gpu_vs_cpu(device, factory=None, label="WIDERFACE-L", num_classe
     return gnet, lrs, weights
 
 
+def assign_args(det, hw, gt, labels, mask):
+    """The arguments the detector's train step hands lfd_assign (K6) for a
+    batch's GT on its device (models/detector.py::LFD._assign)."""
+    info = det.level_arrays(hw, gt.device)
+    return (info["points"], info["strides"], info["ranges"], info["gray_ranges"], gt, labels,
+            mask, det.num_classes, det.range_assign_mode,
+            det.regression_loss_type == "independent")
+
+
+def check_assign_kernel(det, hw, gt, labels, mask, label):
+    """K6 against its plain version on the card, on the same tensors: one
+    launch, both outputs equal (torch.equal)."""
+    import torch
+
+    from lfdtpu_torch.ops import assign
+
+    args = assign_args(det, hw, gt, labels, mask)
+    before = assign.lfd_assign.launches
+    got = assign.lfd_assign(*args)
+    launched = assign.lfd_assign.launches - before
+    want = assign.lfd_assign_plain(*args)
+    torch.cuda.synchronize()
+    same = [torch.equal(g, w) for g, w in zip(got, want)]
+    print(f"K6 {label} batch {gt.shape[0]} {hw[0]}x{hw[1]}, C {det.num_classes}, N "
+          f"{gt.shape[1]} ({int(mask.sum())} real rows): {launched} launch, cls and reg equal "
+          f"to the plain version {same}, positives {int((got[0] > 0).any(-1).sum())}")
+    check(launched == 1 and all(same), f"K6 disagrees with its plain version ({label})")
+
+
 def train_full_width(device, card, model="WIDERFACE-L", hw=TRAIN_HW, nmax=TRAIN_NMAX):
     """The zoo `model` at full width on its workload's batch (GT padded to
-    `nmax` rows, labels over its classes): TRAIN_STEPS steps in fp32 and in
-    bf16 on one fixed batch. Returns the bf16-trained detector."""
+    `nmax` rows, labels over its classes): K6 against its plain version on
+    that batch, then TRAIN_STEPS steps in fp32 and in bf16 on it, each step
+    one K6 launch, and one more bf16 step profiled (K6 once by kernel name,
+    no engine kernel). Returns the bf16-trained detector."""
     import torch
 
     from lfdtpu_torch import zoo
+    from lfdtpu_torch.ops import assign
 
     weights = init_weights(11, model)
     factory = zoo.ZOO[model]
@@ -1144,13 +1197,16 @@ def train_full_width(device, card, model="WIDERFACE-L", hw=TRAIN_HW, nmax=TRAIN_
         np.random.RandomState(11), TRAIN_BATCH, hw, nmax,
         num_classes=factory().num_classes)]
     n_boxes = int(batch[3].sum())
+    check_assign_kernel(factory(), hw, *batch[1:], model)
     sched = train_schedule()
     for name, mp in (("fp32", False), ("bf16", True)):
         det, step = make_trainer(device, hw, weights, mixed_precision=mp, factory=factory)
         stats0 = {k: v.clone() for k, v in det.net.state_dict().items() if "running" in k}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        before = assign.lfd_assign.launches
         metrics = [step(*batch, sched(0, it), True) for it in range(TRAIN_STEPS)]
+        k6 = assign.lfd_assign.launches - before
         vals = {k: torch.stack([m[k] for m in metrics]).cpu().numpy() for k in metrics[0]}
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         print(f"train {name} {model} batch {TRAIN_BATCH} {hw[0]}x{hw[1]} "
@@ -1158,7 +1214,8 @@ def train_full_width(device, card, model="WIDERFACE-L", hw=TRAIN_HW, nmax=TRAIN_
         print(f"  loss {vals['loss'][0]:.4f} -> {vals['loss'][-1]:.4f} over {TRAIN_STEPS} "
               f"steps, grad_norm {vals['grad_norm'][0]:.3f} -> {vals['grad_norm'][-1]:.3f}, "
               f"num_pos {vals['num_pos'][0]:.0f}, lr {sched(0, 0):.5f} -> "
-              f"{sched(0, TRAIN_STEPS - 1):.5f}")
+              f"{sched(0, TRAIN_STEPS - 1):.5f}; K6 launches {k6}")
+        check(k6 == TRAIN_STEPS, f"{TRAIN_STEPS} {name} steps launched K6 {k6} times")
         check(all(np.isfinite(v).all() for v in vals.values()),
               f"non-finite train metrics ({name})")
         check(vals["loss"][-1] < vals["loss"][0], f"the {name} loss did not fall")
@@ -1168,6 +1225,11 @@ def train_full_width(device, card, model="WIDERFACE-L", hw=TRAIN_HW, nmax=TRAIN_
                     if k in stats0)
         check(moved == len(stats0), f"{len(stats0) - moved} BN running stats did not "
               f"move ({name})")
+    lr = sched(0, TRAIN_STEPS)
+    prof, _ = profiled(lambda: step(*batch, lr, True), lambda: step(*batch, lr, True))
+    counted, window = kernel_launches_in(prof, names=("lfd_assign",))
+    print(f"one profiled bf16 step: hand-written kernels by name {counted} ({window})")
+    check(counted == {"lfd_assign": 1}, f"a profiled train step launched {counted}")
     return det
 
 
@@ -1526,7 +1588,8 @@ def workload_phase(device, card, counters):
 
         check_aug_gpu_vs_cpu(cfg["device_augment"], aug_batch, device, card)
 
-        print("hand-written kernel launches during training (its path runs none): "
+        print("engine kernel launches during training (K1 in the val loop's decode; K6, "
+              "counted in main, assigns the targets): "
               f"{ {c.__name__: c.launches for c in counters} }")
         det = zoo.widerface_lfd("L")
         det.net.load_state_dict(torch.load(final, map_location="cpu",
@@ -1676,6 +1739,7 @@ def time_kernels(device, card):
     out["group_norm_relu"], errs["group_norm_relu"] = time_k5(device, card, g)
     for name, err in engine_shape_errs(device, g).items():
         errs[name] = max(errs[name], err)
+    out["lfd_assign"], errs["lfd_assign"] = time_k6(device, card)
     return out, errs
 
 
@@ -1841,6 +1905,30 @@ def time_k5(device, card, g):
             library_call="ATen group_norm + relu on channels_last, its NCHW round trip")))
         del maps
     return rows, err
+
+
+def time_k6(device, card):
+    """K6 at the train cell's shape: WIDERFACE-L's batch 64 at 480x480 (P
+    19,189, C 1), GT padded to 200 rows (phase 6's batch): its device ms
+    (CUDA-graph replays; its inputs are under 1 MB, so warm = cold) beside
+    its bound (the targets written) and its plain version eager, its output
+    held to the plain version's (equal). Returns (the fields of the kernels
+    line, max|kernel - plain|: 0.0)."""
+    import torch
+
+    from lfdtpu_torch import zoo
+    from lfdtpu_torch.ops import assign
+
+    det = zoo.widerface_lfd("L")
+    _, gt, labels, mask = (torch.as_tensor(a, device=device) for a in train_batch(
+        np.random.RandomState(11), TRAIN_BATCH, TRAIN_HW, TRAIN_NMAX))
+    check_assign_kernel(det, TRAIN_HW, gt, labels, mask, "timed")
+    args = assign_args(det, TRAIN_HW, gt, labels, mask)
+    warm = graph_ms([lambda: assign.lfd_assign(*args)])
+    plain = time_ms(lambda: assign.lfd_assign_plain(*args))
+    shape = (gt.shape[0], args[0].shape[0], det.num_classes, gt.shape[1], int(mask.sum()))
+    return _timing("lfd_assign", shape, card, warm, warm, plain, None,
+                   note=" (inputs under 1 MB: warm = cold; no PyTorch call assigns targets)"), 0.0
 
 
 def profile_engine(engine, x, vhw, label, counters, want, frames_=PROFILED_FRAMES):
@@ -2160,8 +2248,8 @@ def train_traffic(device, card, counters, tmp):
     zero_counts(counters)
     final = train_entry_point("TT100K_train", "TT100K_LFD_L.py", "L", tt_pack, card,
                               host_epochs=TT_HOST_EPOCHS)
-    print("hand-written kernel launches during TT100K training (its path runs none): "
-          f"{ {c.__name__: c.launches for c in counters} }")
+    print("engine kernel launches during TT100K training (its path runs none; K6, counted "
+          f"in main, assigns the targets): { {c.__name__: c.launches for c in counters} }")
     det = zoo.tt100k_lfd("L")
     det.net.load_state_dict(torch.load(final, map_location="cpu",
                                        weights_only=True)["state_dict"])
@@ -3263,9 +3351,9 @@ def check_engine_files(det, device, card, counters, tmp, rng):
             if p.poll() is None:  # no process outlives the run
                 p.kill()
                 p.wait()
-    built_replayed = dict.fromkeys(KERNEL_NAMES, 0)
-    loaded_launches = dict.fromkeys(KERNEL_NAMES, 0)
-    loaded_replayed = dict.fromkeys(KERNEL_NAMES, 0)
+    built_replayed = dict.fromkeys(ENGINE_KERNELS, 0)
+    loaded_launches = dict.fromkeys(ENGINE_KERNELS, 0)
+    loaded_replayed = dict.fromkeys(ENGINE_KERNELS, 0)
     for variant, b in built.items():
         d = os.path.dirname(b["path"])
         with open(os.path.join(d, "log.txt")) as f:
@@ -3302,7 +3390,7 @@ def check_engine_files(det, device, card, counters, tmp, rng):
               f"{got['captured_launches']} in its capture")
         check(got["replayed"] == b["replayed"],
               f"{variant}: the replays launched built {b['replayed']}, loaded {got['replayed']}")
-        for k in KERNEL_NAMES:
+        for k in ENGINE_KERNELS:
             built_replayed[k] += b["replayed"][k]
             loaded_launches[k] += got["launches"][k]
             loaded_replayed[k] += got["replayed"][k]
@@ -3521,7 +3609,7 @@ class EngineWatch:
     def __init__(self, label):
         self.label = label
         self.engines = {}
-        self.replayed = {name: 0 for name in KERNEL_NAMES}
+        self.replayed = {name: 0 for name in ENGINE_KERNELS}
         self.calls = {}  # {engine: {kernel: its calls on the first frame}}, by check_kernels
 
     def __call__(self, name, engine, score):
@@ -3656,7 +3744,7 @@ def learning_phase(device, card, counters):
     from lfdtpu_torch.tools import int8_quality_cell
     from lfdtpu_torch.tools import synthetic_e2e as syn
 
-    errs = {name: 0.0 for name in KERNEL_NAMES}
+    errs = {name: 0.0 for name in ENGINE_KERNELS}
     paths = {}
     launches, errs["nms_mask_sorted"] = check_multiclass_nms(device, counters)
     paths["multiclass_nms (CUDA tensors)"] = dict(eager=launches, replayed=None)
@@ -4614,7 +4702,8 @@ def main(argv=()):
         print("chip_smoke: no CUDA device; this smoke run needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
-    from lfdtpu_torch.ops import conv_kernels, group_norm, int8_conv, kernel_lib, nms_kernel
+    from lfdtpu_torch.ops import (assign, conv_kernels, group_norm, int8_conv, kernel_lib,
+                                  nms_kernel)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4668,12 +4757,19 @@ def main(argv=()):
 
     print("[6 train]")
     t0 = time.time()
+    # K6's launches on each training path, counted from zero before it
+    k6_paths = {}
     check_train_gpu_vs_cpu(device)
-    zero_counts(counters)
+    zero_counts(counters + (assign.lfd_assign,))
     trained = train_full_width(device, card)
     torch.cuda.synchronize()
-    print("hand-written kernel launches during training (its path runs none): "
+    k6_paths["WIDERFACE-L batch 64, 480x480: the check, 2 x 20 steps, 2 profiled"] = \
+        assign.lfd_assign.launches
+    check(assign.lfd_assign.launches == 2 * TRAIN_STEPS + 3,
+          f"phase 6 launched K6 {assign.lfd_assign.launches} times")
+    print("engine kernel launches during training (the step runs none): "
           f"{ {c.__name__: c.launches for c in counters} }")
+    check(not any(c.launches for c in counters), "the train step launched an engine kernel")
     train_to_serve(trained, device, counters)
     del trained
     torch.cuda.empty_cache()
@@ -4688,7 +4784,10 @@ def main(argv=()):
                        x, vhw, f"{form} WIDERFACE-L", counters, want)
     print(f"[8 workload] {card}")
     t0 = time.time()
+    assign.lfd_assign.launches = 0
     workload_phase(device, card, counters)
+    k6_paths["WIDERFACE_LFD_L through the Executor (phase 8's runs)"] = assign.lfd_assign.launches
+    check(assign.lfd_assign.launches > 0, "the WIDERFACE training entry point never ran K6")
     print(f"workload phase {time.time() - t0:.1f} s")
 
     # each further path is driven with the counters zeroed just before it
@@ -4707,9 +4806,13 @@ def main(argv=()):
     t0 = time.time()
     tmp = tempfile.mkdtemp(prefix="lfd_traffic_")
     cwd, hook, env = os.getcwd(), sys.excepthook, dict(os.environ)
+    assign.lfd_assign.launches = 0
     try:
         os.chdir(tmp)  # the scripts' work dirs go under the temp dir
         train_traffic(device, card, counters, tmp)
+        k6_paths["TT100K_LFD_L and TL_LFD_L entry points, TT100K-L steps (phase 10)"] = \
+            assign.lfd_assign.launches
+        check(assign.lfd_assign.launches > 0, "the traffic training paths never ran K6")
     finally:
         os.chdir(cwd)
         sys.excepthook = hook
@@ -4816,6 +4919,13 @@ def main(argv=()):
                     other_shapes=[{k: v for k, v in r.items() if k != "library_call"}
                                   for r in other[name]])
                for name, (src, tpu, err) in sources.items()]
+    # K6 trains and serves nothing: its launches on the training paths (no
+    # graph replays them), its phase 7 time at the train cell's shape
+    # (not a Pallas kernel: XLA's fusion of lfdtpu's jnp assignment)
+    kernels.append(dict(name="lfd_assign", route="cuda", source="lfdtpu_torch/csrc/assign.cu",
+                        replaces="lfdtpu/ops/assign.py:84", launches=next(iter(k6_paths.values())),
+                        replayed_launches=None, max_abs_err=errs["lfd_assign"],
+                        **timings["lfd_assign"], launches_by_path=k6_paths, other_shapes=[]))
 
     print(json.dumps({"k4_narrow_rows": [r for _, _, rows in narrow8.values() for r in rows]}))
     print(f"total {time.time() - t_start:.1f} s")

@@ -413,8 +413,12 @@ class LFD(DenseDetector):
         assert info["points"].shape[0] == P, (info["points"].shape, P)
 
         with tracing.span("train.assign", cls_pred.device):
+            launched = assign_ops.lfd_assign.launches
             cls_t, reg_t = self._assign(info, gt_bboxes.to(info["points"].dtype), gt_labels,
                                         gt_mask.bool())
+            # K6's launches: 1 for LFD on the card, 0 on the CPU or another rule
+            tracing.count("train.assign_kernel",
+                          lambda: assign_ops.lfd_assign.launches - launched)
 
         cls_pred_f = cls_pred.reshape(-1, self.cls_channels)
         reg_pred_f = reg_pred.reshape(-1, 4)

@@ -18,6 +18,13 @@
 # _PAIR_BUDGET elements, and the four (l, t, r, b) deltas stay separate
 # (P, N) planes, gathered only at the selected GT.
 #
+# lfd_assign is the custom op `lfd::lfd_assign` (torch.library): its CPU
+# kernel is the plain version above, lfd_assign_plain; its CUDA kernel is K6
+# (`lfdtpu_torch/csrc/assign.cu`), one launch, a thread per point over its
+# image's real GT rows, float32 only, bit for bit the plain version's
+# targets, with no (B, P, N) tensor. For a CUDA tensor it launches K6 or
+# raises. The other rules (LFDv2, FCOS) keep their plain paths.
+#
 # fcos_assign, fcos_v1_assign and centerness_target (`:235-311`) serve the
 # FCOS detectors: hard labels with min-area disambiguation (argmin over
 # INF-masked areas, first index on ties as jnp.argmin).
@@ -26,8 +33,12 @@ from __future__ import annotations
 
 import torch
 
+from . import kernel_lib
+
 _PAIR_BUDGET = 1 << 25  # (chunk, P, N) elements per pass
 INF = 1e8
+MODES = ("longer", "shorter", "sqrt", "dist")  # range assign modes; K6 takes their index
+MAX_CLASSES = 384  # csrc/assign.cu: a block's C x 129 class scores in shared memory
 
 
 def _point_gt_geometry(points, gt_bboxes):
@@ -116,10 +127,11 @@ def _lfd_assign_chunk(points, strides, regression_ranges, gray_ranges,
 
 
 @torch.no_grad()
-def lfd_assign(points, strides, regression_ranges, gray_ranges, gt_bboxes,
-               gt_labels, gt_mask, num_classes, range_assign_mode="dist",
-               normalize_by_range=False):
-    """LFD (v1) target assignment (`lfd/model/lfd.py:155-259`), batched.
+def lfd_assign_plain(points, strides, regression_ranges, gray_ranges, gt_bboxes,
+                     gt_labels, gt_mask, num_classes, range_assign_mode="dist",
+                     normalize_by_range=False):
+    """LFD (v1) target assignment (`lfd/model/lfd.py:155-259`), batched:
+    the plain version of K6.
 
     Args:
       points: (P, 2) float [x, y] image coordinates.
@@ -141,6 +153,77 @@ def lfd_assign(points, strides, regression_ranges, gray_ranges, gt_bboxes,
     return _in_chunks(_lfd_assign_chunk, (points, strides, regression_ranges, gray_ranges),
                       gt_bboxes, gt_labels, gt_mask, num_classes, range_assign_mode,
                       normalize_by_range)
+
+
+@torch.library.custom_op("lfd::lfd_assign", mutates_args=(), device_types="cpu")
+def _assign_op(points: torch.Tensor, strides: torch.Tensor, regression_ranges: torch.Tensor,
+               gray_ranges: torch.Tensor, gt_bboxes: torch.Tensor, gt_labels: torch.Tensor,
+               gt_mask: torch.Tensor, num_classes: int, range_assign_mode: str,
+               normalize_by_range: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """K6's CPU kernel: the plain version."""
+    return lfd_assign_plain(points, strides, regression_ranges, gray_ranges, gt_bboxes,
+                            gt_labels, gt_mask, num_classes, range_assign_mode,
+                            normalize_by_range)
+
+
+@_assign_op.register_kernel("cuda")
+def _assign_cuda(points, strides, regression_ranges, gray_ranges, gt_bboxes, gt_labels,
+                 gt_mask, num_classes, range_assign_mode, normalize_by_range):
+    """K6's CUDA kernel: one launch on the current stream."""
+    B, N = gt_bboxes.shape[:2]
+    P = points.shape[0]
+    dev = gt_bboxes.device
+    if range_assign_mode not in MODES:
+        raise ValueError(f"Unsupported range assign mode: {range_assign_mode}")
+    if not 0 < num_classes <= MAX_CLASSES:
+        raise ValueError(f"lfd_assign: K6 takes 1 to {MAX_CLASSES} classes, not {num_classes}")
+    if gt_labels.is_floating_point() or gt_labels.is_complex() or gt_labels.dtype == torch.bool:
+        raise ValueError(f"lfd_assign labels: expected an integer tensor, got {gt_labels.dtype}")
+    labels = gt_labels.long()  # exact for every integer label
+    f32 = torch.float32
+    # K6 reads gt rows as 16-byte vectors, (x, y) pairs as 8-byte ones
+    for name, t, dtype, shape, align in (
+            ("points", points, f32, (P, 2), 8), ("strides", strides, f32, (P,), 4),
+            ("regression_ranges", regression_ranges, f32, (P, 2), 8),
+            ("gray_ranges", gray_ranges, f32, (P, 2), 8),
+            ("gt_bboxes", gt_bboxes, f32, (B, N, 4), 16),
+            ("gt_labels", labels, torch.int64, (B, N), 8),
+            ("gt_mask", gt_mask, torch.bool, (B, N), 1)):
+        kernel_lib.check_cuda(f"lfd_assign {name}", t, dtype, shape, dev, align)
+    cls = torch.empty(B, P, num_classes, dtype=f32, device=dev)
+    reg = torch.empty(B, P, 4, dtype=f32, device=dev)
+    if B and P:
+        with torch.cuda.device(dev):
+            kernel_lib.launch("lfd_assign", points.data_ptr(), strides.data_ptr(),
+                              regression_ranges.data_ptr(), gray_ranges.data_ptr(),
+                              gt_bboxes.data_ptr(), labels.data_ptr(), gt_mask.data_ptr(),
+                              cls.data_ptr(), reg.data_ptr(), B, P, N, num_classes,
+                              MODES.index(range_assign_mode), int(normalize_by_range),
+                              kernel_lib.stream_of(gt_bboxes))
+        lfd_assign.launches += 1
+    return cls, reg
+
+
+@_assign_op.register_fake
+def _assign_fake(points, strides, regression_ranges, gray_ranges, gt_bboxes, gt_labels,
+                 gt_mask, num_classes, range_assign_mode, normalize_by_range):
+    B, P = gt_bboxes.shape[0], points.shape[0]
+    dtype = torch.promote_types(points.dtype, gt_bboxes.dtype)
+    return (gt_bboxes.new_empty(B, P, num_classes, dtype=dtype),
+            gt_bboxes.new_empty(B, P, 4, dtype=dtype))
+
+
+def lfd_assign(points, strides, regression_ranges, gray_ranges, gt_bboxes, gt_labels, gt_mask,
+               num_classes, range_assign_mode="dist", normalize_by_range=False):
+    """LFD (v1) target assignment, the op lfd::lfd_assign: the plain
+    version for CPU tensors, K6 for CUDA float32 ones (another CUDA dtype
+    raises). Arguments and returns as lfd_assign_plain's."""
+    return torch.ops.lfd.lfd_assign(points, strides, regression_ranges, gray_ranges, gt_bboxes,
+                                    gt_labels, gt_mask, int(num_classes),
+                                    str(range_assign_mode), bool(normalize_by_range))
+
+
+lfd_assign.launches = 0
 
 
 def _in_chunks(chunk_fn, per_point, gt_bboxes, gt_labels, gt_mask, *args):

@@ -45,6 +45,9 @@ _SIGNATURES = {
     "lfd_group_norm_stats": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
     # x, part, gamma, beta, out, N, HW, C, G, S, eps, fp32, stream
     "lfd_group_norm_relu": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P),
+    # points, strides, ranges, gray, gt, labels, mask, cls, reg, B, P, N, C,
+    # mode, normalize, stream
+    "lfd_assign": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 
@@ -146,10 +149,10 @@ def stream_of(tensor):
     return torch.cuda.current_stream(tensor.device).cuda_stream
 
 
-def check_cuda(name, t, dtype, shape, device):
+def check_cuda(name, t, dtype, shape, device, align=16):
     """Validate a tensor handed to a kernel: on `device` (a CUDA device),
-    dtype, shape, contiguity and 16-byte alignment (the kernels use 16-byte
-    vector accesses)."""
+    dtype, shape, contiguity and `align`-byte alignment (the widest vector
+    access the kernel makes to it; most kernels use 16-byte ones)."""
     if t.device != device:
         raise ValueError(f"{name}: expected a tensor on {device}, got {t.device}")
     if t.dtype != dtype:
@@ -158,5 +161,5 @@ def check_cuda(name, t, dtype, shape, device):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name}: data pointer is not 16-byte aligned")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: data pointer is not {align}-byte aligned")

@@ -176,3 +176,96 @@ def test_assign_batch_chunks_agree(monkeypatch):
     chunked = assign.lfd_assign(*args)
     for a, b in zip(whole, chunked):
         assert torch.equal(a, b)
+
+
+# ------------------------------------------------- lfd::lfd_assign and K6's walk
+
+def level_tensors():
+    info = level_arrays()
+    return tuple(torch.from_numpy(info[k]) for k in ("points", "strides", "ranges", "gray_ranges"))
+
+
+@pytest.mark.parametrize("normalize", [False, True])
+@pytest.mark.parametrize("mode", MODES)
+def test_assign_op_on_cpu_is_the_plain_version(mode, normalize):
+    gt, labels, mask = random_gt(10 + len(mode))
+    args = (*level_tensors(), *map(torch.from_numpy, (gt, labels, mask)), 3, mode, normalize)
+    got = torch.ops.lfd.lfd_assign(*args)
+    want = assign.lfd_assign_plain(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.library.opcheck(torch.ops.lfd.lfd_assign.default, args)
+
+
+def k6_walk(points, strides, rr, gr, gt, labels, mask, C, mode, normalize):
+    """csrc/assign.cu's order in numpy float32, a point at a time: the real
+    rows in index order; per class a running max of green scores from 0 that
+    a gray hit sets to -1 for good; the regression row replaced only by a
+    strictly greater green score. Its square root is torch's on the CPU,
+    as the plain version's (MKL's there, which can land one ulp off the
+    correctly rounded root that numpy, the card's ATen and K6 give)."""
+    f = np.float32
+
+    def sqrt(v):
+        return torch.sqrt(torch.tensor([v])).numpy()[0]
+
+    B, N = mask.shape
+    cls = np.zeros((B, len(points), C), f)
+    reg = np.zeros((B, len(points), 4), f)
+    for b in range(B):
+        rows = [n for n in range(N) if mask[b, n]]
+        for p, (px, py) in enumerate(points):
+            half, (lo, up), (glo, gup) = strides[p] / f(2), rr[p], gr[p]
+            best, sel = f(0), None
+            for n in rows:
+                x, y, w, h = gt[b, n]
+                d = (px - x, py - y, (x + w - f(1)) - px, (y + h - f(1)) - py)
+                if min(d) < 0:
+                    continue
+                m = {"longer": max(w, h), "shorter": min(w, h), "sqrt": sqrt(w * h),
+                     "dist": max(d)}[mode]
+                label = labels[b, n] if 0 <= labels[b, n] < C else None
+                if lo <= m <= up:
+                    ax = max(abs(px - (x + w / f(2))) / half, f(1))
+                    ay = max(abs(py - (y + h / f(2))) / half, f(1))
+                    score = sqrt(f(1) / ax) * sqrt(f(1) / ay)
+                    if label is not None and cls[b, p, label] >= 0:
+                        cls[b, p, label] = max(cls[b, p, label], score)
+                    if score > best:
+                        best, sel = score, d
+                elif glo <= m < lo or up < m <= gup:
+                    if label is not None:
+                        cls[b, p, label] = -1
+            if sel is not None:
+                reg[b, p] = sel
+            if normalize:
+                reg[b, p] /= up
+    return cls, reg
+
+
+def overlapping_gt(seed, C=3):
+    """random_gt's boxes with ties and gray overlaps: row 8 repeats row 0
+    (equal scores: the first row must win), rows 9 and 10 are row 2 widened
+    by 5% and 15% around its centre, and labels outside [0, C)."""
+    gt, labels, mask = random_gt(seed, N=11, C=C)
+    gt[:, 8] = gt[:, 0]
+    for k, s in ((9, 1.05), (10, 1.15)):
+        gt[:, k, 2:] = gt[:, 2, 2:] * s
+        gt[:, k, :2] = gt[:, 2, :2] - (gt[:, k, 2:] - gt[:, 2, 2:]) / 2
+    labels[:, 8:] = labels[:, [0, 2, 2]]
+    labels[2, 3], labels[2, 4] = C + 3, -1
+    mask[:, 8:] = mask[:, [0, 2, 2]]
+    return gt, labels, mask
+
+
+@pytest.mark.parametrize("normalize", [False, True])
+@pytest.mark.parametrize("mode", MODES)
+def test_k6_walk_equals_the_plain_version(mode, normalize):
+    gt, labels, mask = overlapping_gt(20 + len(mode))
+    info = level_arrays()
+    levels = tuple(info[k] for k in ("points", "strides", "ranges", "gray_ranges"))
+    want = assign.lfd_assign_plain(*map(torch.from_numpy, (*levels, gt, labels, mask)), 3,
+                                   range_assign_mode=mode, normalize_by_range=normalize)
+    got = k6_walk(*levels, gt, labels, mask, 3, mode, normalize)
+    np.testing.assert_array_equal(got[0], want[0].numpy())
+    np.testing.assert_array_equal(got[1], want[1].numpy())
+    assert (got[0] < 0).any() and (got[0] > 0).any()

@@ -1420,3 +1420,174 @@ def test_captured_bf16_fcos_engine_serves_the_eager_bf16_nets_rows(cuda):
     tracing.reset()
     assert counters["engine.gn_kernel"] == 3 * 40
     assert 0 < counters["engine.nms_candidates"] <= 3 * det.decode_spec().nms_budget
+
+
+# K6 (csrc/assign.cu) against the plain lfd_assign on the same card, bit for
+# bit (torch.equal): the same float32 operations in the same order, each
+# correctly rounded on both sides (the CPU's plain version takes MKL's
+# square root, which can differ in the last place: so the card's).
+def _k6_levels(cuda, hw, strides=(4, 8, 16, 32, 64), ranges=None):
+    from lfdtpu_torch import zoo
+    from lfdtpu_torch.ops import points as point_ops
+
+    ranges = ranges or zoo.WIDERFACE_SCALES
+    sizes = point_ops.feature_map_sizes_for_input(hw, strides)
+    gray = point_ops.compute_gray_ranges(ranges, (0.9, 1.1))
+    info = point_ops.concat_level_info(sizes, strides, ranges, gray)
+    return tuple(torch.as_tensor(info[k], device=cuda)
+                 for k in ("points", "strides", "ranges", "gray_ranges"))
+
+
+def _k6_cell_batch(cuda, seed, n=64, nmax=200, num_classes=1, shuffle=False):
+    """n images of wfl-train-480's seeded ground truth (benchmark/traffic/
+    train_480.json's draw at 480x480); shuffle: each image's rows in a random
+    order, so that real rows lie in every 128-row tile K6 stages."""
+    import json
+    from pathlib import Path
+
+    from benchmark.loops.train import ground_truth
+
+    spec = json.loads((Path(__file__).parents[1] / "benchmark/traffic/train_480.json")
+                      .read_text())["boxes"]
+    rng = np.random.default_rng([seed, 3])
+    gt, labels, mask = ground_truth(rng, n, (480, 480), nmax, num_classes, spec)
+    if shuffle:
+        for i in range(n):
+            order = rng.permutation(nmax)
+            gt[i], labels[i], mask[i] = gt[i, order], labels[i, order], mask[i, order]
+    return tuple(torch.as_tensor(a, device=cuda) for a in (gt, labels, mask))
+
+
+def _k6_check(levels, gt, labels, mask, num_classes, mode="dist", normalize=False):
+    """K6 once (one launch) against the plain version on the same tensors."""
+    from lfdtpu_torch.ops import assign
+
+    args = (*levels, gt, labels, mask, num_classes, mode, normalize)
+    before = assign.lfd_assign.launches
+    got = assign.lfd_assign(*args)
+    assert assign.lfd_assign.launches == before + 1
+    want = assign.lfd_assign_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == torch.float32 and g.shape == w.shape
+        assert torch.equal(g, w), int((g != w).sum())
+    return got
+
+
+@pytest.mark.parametrize("seed", [0, 2 ** 31 + 11])
+def test_assign_kernel_matches_plain_on_the_cells_batches(cuda, seed):
+    levels = _k6_levels(cuda, (480, 480))
+    assert levels[0].shape[0] == 19189
+    for k in range(2):
+        gt, labels, mask = _k6_cell_batch(cuda, seed + k)
+        cls, reg = _k6_check(levels, gt, labels, mask, 1)
+        assert (cls < 0).any() and (cls > 0).any() and (reg != 0).any()
+        assert (~mask.any(1)).any()  # images with no boxes (20% of the draw)
+
+
+@pytest.mark.parametrize("num_classes", [1, 45])
+@pytest.mark.parametrize("normalize", [False, True])
+@pytest.mark.parametrize("mode", ["longer", "shorter", "sqrt", "dist"])
+def test_assign_kernel_matches_plain_in_every_mode(cuda, mode, normalize, num_classes):
+    levels = _k6_levels(cuda, (480, 480))
+    gt, labels, mask = _k6_cell_batch(cuda, 7, n=8, nmax=300, num_classes=num_classes,
+                                      shuffle=True)
+    assert mask[:, 128:].any() and mask[:, 256:].any()
+    cls, _ = _k6_check(levels, gt, labels, mask, num_classes, mode, normalize)
+    assert (cls > 0).any() and (cls < 0).any()
+
+
+# the CPU tests' levels: 64x64 at strides 4, 8, 16
+SMALL_RANGES = ((0, 16), (16, 32), (32, 64))
+
+
+def _k6_case(case):
+    """(gt (B, N, 4), labels (B, N), mask (B, N), C, mode, {point: what K6
+    must give there}) of one hand-made case at 64x64."""
+    gt = np.zeros((3, 4, 4), np.float32)
+    labels = np.zeros((3, 4), np.int64)
+    mask = np.zeros((3, 4), bool)
+    p16 = 4 * 16 + 4  # the stride-4 point (16, 16)
+    if case == "no boxes, all masked":
+        gt[0::2, :2] = [[8, 8, 12, 12], [20, 20, 30, 30]]
+        mask[0, :2] = True  # image 1 has no boxes, image 2 only masked ones
+        return gt, labels, mask, 1, "dist", {}
+    if case in ("tied, first wins", "tied, reversed"):
+        # one centre, both in level 1's sqrt range: equal scores everywhere
+        pair = np.array([[12, 12, 17, 17], [8, 8, 25, 25]], np.float32)
+        gt[0, :2] = pair if case == "tied, first wins" else pair[::-1]
+        mask[0, :2] = True
+        x, y, w, h = gt[0, 0]
+        p = 16 * 16 + 2 * 8 + 2  # the stride-8 point (16, 16)
+        return gt, labels, mask, 1, "sqrt", {p: [16 - x, 16 - y, x + w - 1 - 16, y + h - 1 - 16]}
+    if case in ("gray before green", "green before gray"):
+        green, gray = [10, 10, 10, 10], [8, 8, 17, 17]  # 10 in (0, 16]; 17 in (16, 17.6]
+        gt[0, :2] = [gray, green] if case == "gray before green" else [green, gray]
+        mask[0, :2] = True
+        return gt, labels, mask, 1, "longer", {p16: -1.0}
+    if case == "label outside [0, C)":
+        gt[0, :3] = [[8, 8, 12, 12], [20, 20, 30, 30], [4, 30, 20, 20]]
+        labels[0, :3] = [7, -1, 1]
+        mask[0, :3] = True
+        return gt, labels, mask, 2, "dist", {}
+    if case == "on the image edge":
+        # inclusive extents: (8, 8, 9, 9) ends at 16, so the point (16, 16)
+        # is a hit; the second box spans the whole image
+        gt[0, :2] = [[8, 8, 9, 9], [0, 0, 64, 64]]
+        mask[0, :2] = True
+        return gt, labels, mask, 1, "longer", {p16: "hit"}
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", [
+    "no boxes, all masked", "tied, first wins", "tied, reversed", "gray before green",
+    "green before gray", "label outside [0, C)", "on the image edge"])
+def test_assign_kernel_hard_cases(cuda, case):
+    gt, labels, mask, C, mode, want = _k6_case(case)
+    levels = _k6_levels(cuda, (64, 64), (4, 8, 16), SMALL_RANGES)
+    cls, reg = _k6_check(levels, *(torch.as_tensor(a, device=cuda) for a in (gt, labels, mask)),
+                         C, mode)
+    cls, reg = cls.cpu(), reg.cpu()
+    if case == "no boxes, all masked":
+        assert (cls[1:] == 0).all() and (reg[1:] == 0).all() and (cls[0] > 0).any()
+    if case == "label outside [0, C)":
+        assert (cls[0, :, 0] == 0).all() and (cls[0, :, 1] > 0).any() and (reg[0] != 0).any()
+    for p, v in want.items():
+        if v == "hit":
+            assert cls[0, p, 0] > 0
+        elif isinstance(v, float):
+            assert cls[0, p, 0] == v
+        else:
+            assert reg[0, p].tolist() == v and cls[0, p, 0] > 0
+
+
+def test_assign_kernel_rejects_what_it_does_not_take(cuda):
+    from lfdtpu_torch.ops import assign
+
+    levels = _k6_levels(cuda, (64, 64), (4, 8, 16), SMALL_RANGES)
+    gt, labels, mask, *_ = _k6_case("label outside [0, C)")
+    gt, labels, mask = (torch.as_tensor(a, device=cuda) for a in (gt, labels, mask))
+    with pytest.raises(ValueError, match="float32"):  # no float64 training on the card
+        assign.lfd_assign(*(t.double() for t in levels), gt.double(), labels, mask, 2)
+    with pytest.raises(ValueError, match="float32"):
+        assign.lfd_assign(*levels, gt.double(), labels, mask, 2)
+    with pytest.raises(ValueError, match="classes"):
+        assign.lfd_assign(*levels, gt, labels, mask, assign.MAX_CLASSES + 1)
+    with pytest.raises(ValueError, match="mode"):
+        assign.lfd_assign(*levels, gt, labels, mask, 2, "area")
+    with pytest.raises(ValueError, match="integer"):
+        assign.lfd_assign(*levels, gt, labels.float(), mask, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        assign.lfd_assign(*levels, gt.transpose(0, 1).contiguous().transpose(0, 1), labels,
+                          mask, 2)
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        assign.lfd_assign(*levels, gt, labels, mask.cpu(), 2)
+    # int32 labels are taken (widened); C up to the limit; an empty batch
+    # launches nothing (the plain version takes no empty batch)
+    _k6_check(levels, gt, labels.int(), mask, assign.MAX_CLASSES)
+    before = assign.lfd_assign.launches
+    cls, reg = assign.lfd_assign(*levels, gt[:0], labels[:0], mask[:0], 2)
+    assert cls.shape == (0, 336, 2) and reg.shape == (0, 336, 4)
+    assert assign.lfd_assign.launches == before  # a count of launches, not of calls
+    torch.library.opcheck(torch.ops.lfd.lfd_assign.default,
+                          (*levels, gt, labels, mask, 2, "dist", True))

@@ -25,6 +25,12 @@ K3_CONSTS = 9 * 64 * 64 * 2 + 2 * 64 * 4  # bf16 weights, fp32 scale and bias
     # 6.3 MB of uint8 in, 66.8 MB of bf16 out
     ("stem_conv", (1, 1088, 1920), False,
      1088 * 1920 * 3 + 544 * 960 * 64 * 2 + 27 * 64 * 4 + 6 * 4 + 2 * 64 * 4, 21.8),
+    # K6 at the train cell's batch 64, 480x480 (19,189 points), C 1, 200 GT
+    # rows with 823 real: 24.6 MB of float32 targets out; 7 floats a point,
+    # the mask and the real rows' xywh and int64 label in; its 126 M fp32
+    # hit-test operations (8 a pair) take 1.89 us, under the bytes
+    ("lfd_assign", (64, 19189, 1, 200, 823), False,
+     64 * 19189 * 5 * 4 + 19189 * 7 * 4 + 64 * 200 + 823 * 24, 7.50),
 ])
 def test_kernel_bound_is_bytes_bound_at_engine_shapes(name, shape, residual, nbytes, us):
     ms, by = chip_smoke.kernel_bound_ms(name, shape, residual)

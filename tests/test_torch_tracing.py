@@ -304,6 +304,33 @@ def test_train_step_gives_the_train_tree_with_assign_under_loss():
     assert got["train.step"]["self_ms"] < 0.05 * got["train.step"]["host_ms"]
 
 
+@pytest.mark.parametrize("launches", [0, 1])
+def test_train_step_counts_the_assign_kernel_per_step(monkeypatch, launches):
+    """Counter train.assign_kernel: K6's launches inside train.assign, 0 on
+    the CPU; a launch is simulated by an _assign that bumps the wrapper's
+    count as K6's CUDA kernel does. The benchmark's reader gives it per
+    train.step."""
+    from benchmark.core import spec
+    from lfdtpu_torch.ops import assign
+
+    det = _detector()
+    if launches:
+        plain = det._assign
+
+        def counted(*args):
+            monkeypatch.setattr(assign.lfd_assign, "launches", assign.lfd_assign.launches + 1)
+            return plain(*args)
+
+        det._assign = counted
+    step = _train_step(det)
+    with _profile():
+        for _ in range(3):
+            step(*_batch(), 0.01, True)
+    assert tracing.summary()["counters"]["train.assign_kernel"] == 3 * launches
+    reader = spec.reader("train.assign_kernel_per_step.train")
+    assert reader.read({}) == launches
+
+
 def test_profiler_hook_trace_holds_the_train_step(tmp_path):
     from lfdtpu_torch.execution import ProfilerHook
 
