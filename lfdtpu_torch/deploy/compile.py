@@ -12,7 +12,10 @@
 # and NMS included. The decode receives every dense output of the net: LFD's
 # two, and FCOS's centerness as a third, which scales each point's scores
 # inside the graph as the eager decode does (lfdtpu's engine takes two
-# outputs and so serves no FCOS).
+# outputs and so serves no FCOS). A query-set net (Deformable DETR,
+# models/deformable_detr.py) takes the frames' valid extents too, for its
+# padding mask, and its decode is the top-k of its query set: no threshold,
+# no K1, no `candidates`.
 #
 # The engine holds its own copy of the weights and the point grids on its
 # device. On a CUDA device it is a captured CUDA graph (dense + decode +
@@ -65,7 +68,7 @@ from ..parallel.distributed import global_batch_from_local, local_batch_slice
 from ..parallel.spatial import SpatialNet, spatial_parallel
 from .int8_net import Int8Chain, calibrate_module_amax
 from .kernel_net import attach_kernels, prepack_stem
-from .runner import GraphRunner, count_group_norms, frame_dtype
+from .runner import GraphRunner, count_engine_work, frame_dtype
 
 # the float dtype of each precision's net (int8: its float remainder's default)
 _DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16, "int8": torch.float32}
@@ -186,7 +189,9 @@ class EngineProgram(nn.Module):
             return torch.float32
         return torch.uint8 if self.kernel_stem else self.compute_dtype
 
-    def dense(self, x):
+    def dense(self, x, vhw=None):
+        """The net's outputs on frames x; a query-set net (Deformable DETR)
+        takes their (B, 2) valid extents `vhw` too."""
         if self.int8_chain is not None:
             # preprocess in float32, quantize with __input__#out, the chain,
             # the float remainder in the chain's dequant dtype
@@ -200,11 +205,12 @@ class EngineProgram(nn.Module):
             if self.preprocess is not None:
                 x = self.preprocess(x)
             x = x.to(self.compute_dtype)
-        return self.net(x)
+        return self.net(x, vhw) if self.detector.query_set else self.net(x)
 
     def decode(self, outputs, vhw):
-        """Every dense output of the net (LFD's cls and reg; FCOS's
-        centerness too, which scales the scores) -> the detections."""
+        """Every output of the net (LFD's cls and reg; FCOS's centerness
+        too, which scales the scores; a query set's class logits and
+        boxes) -> the detections."""
         levels = {k: getattr(self, f"level_{k}") for k in self._level_keys}
         out = self.detector.decode_batch(
             tuple(o.float() for o in outputs), self.input_resolution, vhw,
@@ -215,7 +221,7 @@ class EngineProgram(nn.Module):
 
     def forward(self, images, valid_hw):
         vhw = valid_hw.reshape(-1, 2).expand(images.shape[0], 2)
-        return self.decode(self.dense(images), vhw)
+        return self.decode(self.dense(images, vhw), vhw)
 
 
 class Engine(GraphRunner):
@@ -261,10 +267,14 @@ class Engine(GraphRunner):
 
     # ------------------------------------------------------- eager halves
     @torch.inference_mode()
-    def dense(self, images):
+    def dense(self, images, valid_hw=None):
         """Raw frames -> dense (cls (B, P, Cc), reg (B, P, 4)[, ctr (B, P, 1)])
-        in the engine's dtype (eager)."""
-        return self.program.dense(self._images(images))
+        in the engine's dtype, or a query set's outputs, whose net also
+        takes the valid extents (default: the whole input) (eager)."""
+        vhw = None
+        if self.program.detector.query_set:
+            vhw = self._valid_hw(self.input_resolution if valid_hw is None else valid_hw)
+        return self.program.dense(self._images(images), vhw)
 
     @torch.inference_mode()
     def decode(self, *outputs_and_valid_hw):
@@ -322,7 +332,7 @@ class MeshEngine(Engine):
 
     def __call__(self, images, valid_hw):
         with tracing.span("engine.run", self.device):
-            out = count_group_norms(self._run, *self._local(images, valid_hw))
+            out = count_engine_work(self._run, *self._local(images, valid_hw))
             if isinstance(out, dict):
                 return dict(zip(out, global_batch_from_local(self.mesh, list(out.values()))))
             return global_batch_from_local(self.mesh, [out])
@@ -452,6 +462,9 @@ def compile_inference(
         if batch_size % mesh.size:
             raise ValueError(f"batch_size {batch_size} does not divide over the mesh's "
                              f"{mesh.size} data shards")
+    if detector.query_set and (precision == "int8" or several):
+        raise ValueError(f"{type(detector).__name__}'s net returns a query set: int8 engines "
+                         "and meshes of several ranks take dense nets only")
     if precision == "int8" and detector.num_outputs != 2:
         raise ValueError(f"int8 engines take a net of two dense outputs (LFD's); "
                          f"{type(detector).__name__}'s net has {detector.num_outputs}")

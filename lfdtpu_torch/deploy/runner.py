@@ -22,6 +22,7 @@ from .. import tracing
 from ..ops.conv_kernels import pair_conv3x3, stem_conv
 from ..ops.group_norm import group_norm_relu
 from ..ops.int8_conv import int8_conv
+from ..ops.msda import samples_taken
 from ..ops.nms_kernel import nms_mask_sorted
 
 _WARMUP_CALLS = 3  # eager calls before a capture
@@ -36,12 +37,15 @@ def launch_counts():
     return {fn.__name__: fn.launches for fn in _COUNTED}
 
 
-def count_group_norms(run, *args):
-    """run(*args), and the K5 launches it made as the counter
-    `engine.gn_kernel` (where tracing records)."""
-    before = group_norm_relu.launches
+def count_engine_work(run, *args):
+    """run(*args), and as counters (where tracing records) the K5 launches
+    it made, `engine.gn_kernel`, and the multi-scale deformable attention's
+    samples it took, `engine.msda_samples` (only where it took any)."""
+    launches, samples = group_norm_relu.launches, samples_taken()
     out = run(*args)
-    tracing.count("engine.gn_kernel", lambda: group_norm_relu.launches - before)
+    tracing.count("engine.gn_kernel", lambda: group_norm_relu.launches - launches)
+    if samples_taken() != samples:
+        tracing.count("engine.msda_samples", samples_taken() - samples)
     return out
 
 
@@ -154,13 +158,14 @@ class _Slot:
 @dataclasses.dataclass
 class _Graph:
     """One captured graph, for frames of one dtype: its static input on the
-    device, its pinned staging slots (oldest first), its outputs, and the
-    kernel launches it records."""
+    device, its pinned staging slots (oldest first), its outputs, the
+    kernel launches it records and the MSDA samples it takes."""
     graph: torch.cuda.CUDAGraph
     inp: torch.Tensor
     slots: collections.deque
     out: object
     launches: dict
+    samples: int
 
 
 def _clone(out):
@@ -207,7 +212,9 @@ class GraphRunner:
     and `engine.clone`, or `engine.run` for an eager call (tracing.py), and
     the counters `engine.gn_kernel`: the K5 launches of the call's forward
     (the graph's, from its capture; an eager call's, from the wrapper's
-    count), and `engine.stage_bytes`: the bytes written into the pinned
+    count), `engine.msda_samples`: the samples its multi-scale deformable
+    attention takes (counted the same way; a net without MSDA counts
+    none), and `engine.stage_bytes`: the bytes written into the pinned
     slot, the frames' and the stale pad zeroed (captured calls)."""
 
     # set by the subclass: device, batch_size, input_resolution, kernel_stem
@@ -295,7 +302,7 @@ class GraphRunner:
             torch.cuda.current_stream(dev).wait_stream(side)
             torch.cuda.synchronize(dev)
             graph = torch.cuda.CUDAGraph()
-            before = launch_counts()
+            before, samples = launch_counts(), samples_taken()
             try:
                 # thread_local: another thread's CUDA calls (a loader
                 # pinning memory) do not fail this capture; no span records
@@ -309,7 +316,8 @@ class GraphRunner:
                 raise RuntimeError(
                     f"capturing the engine into a CUDA graph failed: {e}") from e
             launches = {k: v - before[k] for k, v in launch_counts().items()}
-            g = _Graph(graph, inp, collections.deque(), out, launches)
+            g = _Graph(graph, inp, collections.deque(), out, launches,
+                       samples_taken() - samples)
             g.slots.append(self._new_slot(g))
             self._graphs[dtype] = g
             return g
@@ -362,7 +370,7 @@ class GraphRunner:
         if not self.captured:
             with tracing.span("engine.run", self.device):
                 x, vhw = self._images(images), self._valid_hw(valid_hw)
-                return count_group_norms(self._run, x, vhw)
+                return count_engine_work(self._run, x, vhw)
         with torch.cuda.device(self.device):
             with tracing.span("engine.stage"):
                 images = as_frames(images)
@@ -372,6 +380,8 @@ class GraphRunner:
             with tracing.span("engine.replay", self.device):
                 g.graph.replay()
                 tracing.count("engine.gn_kernel", g.launches["group_norm_relu"])
+                if g.samples:
+                    tracing.count("engine.msda_samples", g.samples)
             # Copies, so that call n's result survives call n + 1 (the
             # graph writes the same output tensors every replay): one small
             # device copy per output, max_det rows each (B x 100 x 7 floats

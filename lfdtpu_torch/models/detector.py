@@ -130,7 +130,53 @@ def init_net_(net, generator):
                 m._classification.bias.fill_(FCOS_PRIOR_BIAS)
 
 
-class DenseDetector:
+class EngineDetector:
+    """The predict API over a compiled engine (deploy/compile.py), shared by
+    every detector the engine serves: the dense ones (DenseDetector) and the
+    query-set ones (models/deformable_detr.py). `query_set` tells the
+    engine's program how to call the net: a dense net takes the frames
+    alone; a query-set net takes their valid extents too (its padding mask
+    is made on the device) and its decode takes no level arrays."""
+
+    query_set = False
+
+    def predict_for_single_image_with_engine(self, engine, image, aug_pipeline=None):
+        """Predict through a compiled deployment engine (the analogue of the
+        reference's `predict_for_single_image_with_tensorrt`): the engine
+        zero-pads the image into its input resolution as it stages it."""
+        return self.predict_for_batch_with_engine(engine, [image], aug_pipeline)[0]
+
+    def predict_for_batch_with_engine(self, engine, images, aug_pipeline=None):
+        """Batched engine predict: the images go to the engine unpadded,
+        with their own valid extents as the (B, 2) valid_hw, and the engine
+        zero-pads each into its resolution as it stages it (one pass into
+        a captured engine's pinned slot: deploy/runner.py place_frames).
+        The batch must match the engine's batch_size.
+        Returns one [[class_label, score, x1, y1, w, h], ...] per image.
+        Under a profiler session the call records the span `predict`, with
+        `predict.pad` (reading, augmenting and checking the images), the
+        engine's spans, `predict.fetch` and `predict.rows` inside it, counts
+        the rows (`predict.rows`) and the valid candidates that entered the
+        engine's NMS (`engine.nms_candidates`, from the host copy of its
+        outputs; an engine without NMS returns none; tracing.py)."""
+        with tracing.span("predict"):
+            with tracing.span("predict.pad"):
+                frames, hws = _read_frames(engine.input_resolution, images, aug_pipeline)
+            decoded = engine(frames, hws)
+            with tracing.span("predict.fetch"):
+                decoded = {k: v.cpu().numpy() for k, v in decoded.items()}
+            with tracing.span("predict.rows"):
+                rows = [detections_to_lists({k: v[i] for k, v in decoded.items()})
+                        for i in range(len(frames))]
+                tracing.count("predict.rows", lambda: sum(len(r) for r in rows))
+            # an engine file from before the field, or a query set's, has none
+            if "candidates" in decoded:
+                tracing.count("engine.nms_candidates",
+                              lambda: int(decoded["candidates"].sum()))
+            return rows
+
+
+class DenseDetector(EngineDetector):
     """What LFD and FCOS share: the net's init, the point grids and the
     reference-API paths over dense outputs. A subclass sets net,
     point_strides, regression_ranges, post_nms_bbox_limit and the level-info
@@ -236,40 +282,6 @@ class DenseDetector:
         return [detections_to_lists({k: v[i] for k, v in decoded.items()},
                                     resize_scale=metas[i].get("resize_scale", 1.0))
                 for i in range(B)]
-
-    def predict_for_single_image_with_engine(self, engine, image, aug_pipeline=None):
-        """Predict through a compiled deployment engine (the analogue of the
-        reference's `predict_for_single_image_with_tensorrt`): the engine
-        zero-pads the image into its input resolution as it stages it."""
-        return self.predict_for_batch_with_engine(engine, [image], aug_pipeline)[0]
-
-    def predict_for_batch_with_engine(self, engine, images, aug_pipeline=None):
-        """Batched engine predict: the images go to the engine unpadded,
-        with their own valid extents as the (B, 2) valid_hw, and the engine
-        zero-pads each into its resolution as it stages it (one pass into
-        a captured engine's pinned slot: deploy/runner.py place_frames).
-        The batch must match the engine's batch_size.
-        Returns one [[class_label, score, x1, y1, w, h], ...] per image.
-        Under a profiler session the call records the span `predict`, with
-        `predict.pad` (reading, augmenting and checking the images), the
-        engine's spans, `predict.fetch` and `predict.rows` inside it, counts
-        the rows (`predict.rows`) and the valid candidates that entered the
-        engine's NMS (`engine.nms_candidates`, from the host copy of its
-        outputs; tracing.py)."""
-        with tracing.span("predict"):
-            with tracing.span("predict.pad"):
-                frames, hws = _read_frames(engine.input_resolution, images, aug_pipeline)
-            decoded = engine(frames, hws)
-            with tracing.span("predict.fetch"):
-                decoded = {k: v.cpu().numpy() for k, v in decoded.items()}
-            with tracing.span("predict.rows"):
-                rows = [detections_to_lists({k: v[i] for k, v in decoded.items()})
-                        for i in range(len(frames))]
-                tracing.count("predict.rows", lambda: sum(len(r) for r in rows))
-            if "candidates" in decoded:  # an engine file from before the field has none
-                tracing.count("engine.nms_candidates",
-                              lambda: int(decoded["candidates"].sum()))
-            return rows
 
     def get_results(self, images, meta_batch, classification_threshold=None,
                     nms_threshold=None):

@@ -4,7 +4,11 @@
 #   FPN         1x1 laterals, top-down nearest-upsample adds, 3x3 outputs and
 #               extra stride-2 levels (a 3x3/s2 conv or a 3x3/s2 max pool);
 #   SimpleFPN   FPN without the 3x3 outputs on the lateral levels, with an
-#               optional bottom-up neighbouring_mode merge.
+#               optional bottom-up neighbouring_mode merge;
+#   ChannelMapper  mmdetection's (v2.28.2 `mmdet/models/necks/channel_mapper.py`,
+#               Deformable DETR's neck): per level a 1x1 conv + norm, extra
+#               levels a 3x3/s2 conv + norm, the first on the last input; no
+#               activation and no merge between levels.
 # Module names are lfdtpu's: `lateral{i}` (a Sequential [conv, norm?, relu?])
 # and `fpn_out{i}`.
 #
@@ -151,3 +155,29 @@ class SimpleFPN(FPN):
         for i in range(len(laterals) - 1):
             laterals[i] = laterals[i] + self.upsample(laterals[i + 1],
                                                       laterals[i].shape[-2:])
+
+
+class ChannelMapper(nn.Module):
+    """mmdetection's ChannelMapper: `lateral{i}` = [1x1 conv (no bias), norm]
+    on input i; `extra{j}` = [3x3/s2 conv (no bias), norm], extra 0 on the
+    last input and each later one on the output before it. No activation
+    (so K5, a GroupNorm + ReLU, takes none of its norms)."""
+
+    def __init__(self, num_input_channels_list, num_input_strides_list, num_output_channels,
+                 num_outputs, norm_cfg):
+        super().__init__()
+        self.num_inputs = len(num_input_channels_list)
+        self.num_outputs = num_outputs
+        self.num_output_strides_list = fpn_output_strides(num_input_strides_list, num_outputs)
+        c = num_output_channels
+        for i, cin in enumerate(num_input_channels_list):
+            setattr(self, f"lateral{i}", nn.Sequential(*conv_norm_act(cin, c, 1, 1, norm_cfg)))
+        for j in range(num_outputs - self.num_inputs):
+            cin = num_input_channels_list[-1] if j == 0 else c
+            setattr(self, f"extra{j}", nn.Sequential(*conv_norm_act(cin, c, 3, 2, norm_cfg)))
+
+    def forward(self, inputs):
+        outs = [getattr(self, f"lateral{i}")(x) for i, x in enumerate(inputs)]
+        for j in range(self.num_outputs - self.num_inputs):
+            outs.append(getattr(self, f"extra{j}")(inputs[-1] if j == 0 else outs[-1]))
+        return tuple(outs)

@@ -3,12 +3,17 @@
 #   - WIDERFACE_LFD_{XS,S,M,L}  (`WIDERFACE_train/WIDERFACE_LFD_*.py`)
 #   - TT100K_LFD_{S,L}          (`TT100K_train/TT100K_LFD_*.py`)
 #   - TL_LFD_{S,L}              (`TrafficLight_train/TL_LFD_*.py`)
-# and FCOS-R50-FPN (Tian et al., ICCV 2019), as mmdetection's
-# `configs/fcos/fcos_r50_caffe_fpn_gn-head_1x_coco.py` sets it out.
+# FCOS-R50-FPN (Tian et al., ICCV 2019), as mmdetection's
+# `configs/fcos/fcos_r50_caffe_fpn_gn-head_1x_coco.py` sets it out, and
+# Deformable DETR-R50, two-stage with box refinement (Zhu et al., ICLR 2021),
+# as mmdetection v2.28.2's
+# `configs/deformable_detr/deformable_detr_twostage_refine_r50_16x2_50e_coco.py`.
 
 from __future__ import annotations
 
 from .models import FCOS, FPN, LFD, FCOSHead, LFDHead, LFDResNet, ResNet, SimpleNeck
+from .models.deformable_detr import DeformableDETR, DeformableDETRNet
+from .models.necks import ChannelMapper
 from .ops.loss_wrappers import CrossEntropyLoss, FocalLoss, IoULoss, QualityFocalLoss
 
 _GN16 = dict(type="GroupNorm", num_groups=16)
@@ -124,6 +129,24 @@ def fcos_r50_fpn(**kw):
                 regression_loss_func=IoULoss(eps=1e-6), **kw)
 
 
+def deformable_detr_r50(**kw):
+    """Deformable DETR-R50, two-stage, with iterative box refinement, at
+    full width: a pytorch-style ResNet-50 (stride on the 3x3) with stage 1
+    frozen and every BatchNorm in eval mode, tapped at C3-C5 (512 / 1024 /
+    2048 channels); mmdetection's ChannelMapper to 256 on 4 levels
+    (GroupNorm(32), the 4th a 3x3/s2 conv on C5); 6 encoder and 6 decoder
+    layers of 256 with 8 heads, 4 levels and 4 points a head, FFN 1024; 300
+    queries selected from the encoder's proposals; 80 classes; the top 100
+    (query, class) pairs a frame. `kw` goes to DeformableDETR (max_per_img).
+    Modules and decode: models/deformable_detr.py."""
+    backbone = ResNet(depth=50, style="pytorch", frozen_stages=1, norm_eval=True,
+                      out_indices=((2, 3), (3, 5), (4, 2)))
+    neck = ChannelMapper(backbone.num_output_channels_list, backbone.num_output_strides_list,
+                         256, 4, dict(type="GroupNorm", num_groups=32))
+    return DeformableDETR(DeformableDETRNet(backbone, neck, num_classes=80), num_classes=80,
+                          **kw)
+
+
 ZOO = {
     "WIDERFACE-XS": lambda **kw: widerface_lfd("XS", **kw),
     "WIDERFACE-S": lambda **kw: widerface_lfd("S", **kw),
@@ -134,4 +157,5 @@ ZOO = {
     "TL-S": lambda **kw: trafficlight_lfd("S", **kw),
     "TL-L": lambda **kw: trafficlight_lfd("L", **kw),
     "FCOS-R50-FPN": fcos_r50_fpn,
+    "Deformable-DETR-R50": deformable_detr_r50,
 }

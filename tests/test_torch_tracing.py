@@ -243,6 +243,31 @@ def test_predict_through_an_eager_engine_gives_the_predict_tree():
     assert s["predict"]["self_ms"] < 0.05 * s["predict"]["host_ms"]
 
 
+
+def test_a_deformable_detr_call_records_its_spans_and_samples():
+    from lfdtpu_torch.deploy import compile_inference, make_device_preprocess
+
+    hw = (128, 160)  # levels 16x20, 8x10, 4x5, 2x3: 426 tokens, 300 of them selected
+    det = zoo.deformable_detr_r50()
+    det.net.eval()
+    engine = compile_inference(det, hw, "fp32", preprocess=make_device_preprocess(
+        (0.5,) * 3, (0.5,) * 3), device="cpu")
+    frame = np.random.RandomState(4).randint(0, 256, (*hw, 3)).astype(np.uint8)
+    with _profile():
+        rows = det.predict_for_single_image_with_engine(engine, frame)
+    summary = tracing.summary()
+    assert len(rows) == 100
+    run = _raw("engine.run")[0]
+    assert _children(run) == ["detr.decoder", "detr.encoder", "detr.select"]
+    for name in ("detr.encoder", "detr.select", "detr.decoder"):
+        span = summary["spans"][name]
+        assert span["calls"] == 1 and span["stream_ms"] == pytest.approx(span["host_ms"])
+    # queries x 8 heads x 4 levels x 4 points: every token in each of the 6
+    # encoder layers, the 300 queries in each of the 6 decoder layers; no
+    # NMS, so no candidates
+    assert summary["counters"] == {"predict.rows": 100, "engine.gn_kernel": 0,
+                                   "engine.msda_samples": 6 * (426 + 300) * 128}
+
 def test_stream_spans_carry_their_submits_numbers():
     from lfdtpu_torch.deploy import StreamingServer, run_stream
 
