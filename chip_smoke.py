@@ -70,10 +70,16 @@ It checks them:
               B=4, each with its kept count; K5 at WIDERFACE-L's and
               TT100K-L's first head levels and FCOS's P3 beside ATen's
               group_norm + relu on the channels_last map with its copies;
-              K6 beside its plain version (no library call assigns targets).
+              K6 beside its plain version (no library call assigns targets);
+              K7 at Deformable DETR-R50's 800x1333 encoder and decoder calls,
+              recorded from one eager forward of its bf16 engine (12
+              launches), warm and cold beside its plain version, and the
+              captured engine's 12 launches a frame at its capture and by
+              profiled replays.
               Each timed launch's output is held once to its plain
-              version's on the same inputs (alone_err: K1 exact, K2/K3/K5
-              within K2_TOL/K3_TOL/K5_TOL; K6 equal), and so, untimed, are K2 and K3
+              version's on the same inputs (alone_err: K1 exact, K2/K3/K5/K7
+              within K2_TOL/K3_TOL/K5_TOL/K7_TOL; K6 equal), and so, untimed,
+              are K2 and K3
               at the engines' batch 1 and 4 (K3 on its three levels with
               and without the residual and the ReLU) and K5 at WIDERFACE-
               L's five head levels (engine_shape_errs). Then one frame of the
@@ -322,10 +328,11 @@ It checks them:
               shapes of tools/cudnn_workspace.py. A rank that fails, dies or
               hangs past SPATIAL_CHILD_TIMEOUT fails the run.
 
-The second-to-last line is a JSON object {"kernels": [...]} (K1-K6; each
+The second-to-last line is a JSON object {"kernels": [...]} (K1-K7; each
 kernel's launches on its main path: WIDERFACE-L's bf16 engines for K1-K3
 and K5, its int8 engines for K4, phase 6's training for K6 (K6's
-launches_by_path: phases 6, 8 and 10's training, replayed null); and, for
+launches_by_path: phases 6, 8 and 10's training, replayed null; K7's
+phase 7's Deformable DETR engine, its decoder call in other_shapes); and, for
 K1-K5, on every path in
 launches_by_path: an engine path's launches at build and capture and by its
 replays, the FCOS path's eager launches and replayed null (it has no
@@ -419,8 +426,18 @@ ENGINE_KERNELS = {"pair_conv3x3": ("pair_conv_kernel",), "stem_conv": ("stem_con
                   "nms_mask_sorted": ("nms_iou_kernel", "nms_walk_kernel"),
                   "int8_conv": ("int8_conv_",),  # K4's three routes' kernels
                   "group_norm_relu": ("group_norm_stats_kernel", "group_norm_relu_kernel")}
-KERNEL_NAMES = {**ENGINE_KERNELS, "lfd_assign": ("lfd_assign_kernel",)}
+KERNEL_NAMES = {**ENGINE_KERNELS, "lfd_assign": ("lfd_assign_kernel",),
+                "ms_deform_attn": ("ms_deform_attn_kernel",)}  # K7: Deformable DETR only
 ASSIGN_FLOPS = 8            # per (point, real GT row): 4 deltas, 4 compares (K6's hit test)
+# K7 at the Deformable DETR cell's frame (mmdetection pads to a divisor of 1)
+# and its transformer (8 heads, 4 levels, 4 points, 256 wide)
+DETR_HW = (800, 1333)
+DETR_MSDA = dict(heads=8, levels=4, points=4, embed_dims=256)
+# K7 against its plain version in bf16, max|err| / max|ref|: both round
+# nearly the same float32 sum to bf16, so a value on either side of a
+# rounding boundary lands one bf16 step apart: one step at the largest
+# value is at most 2^-7 of it
+K7_TOL = 2.0 ** -7
 # engine variants: compile_inference's switches (lfdtpu's defaults: K1 on, K2
 # and K3 off); expected_launches counts what one capture of a net launches
 VARIANTS = {
@@ -703,6 +720,18 @@ def kernel_work(name, shape, residual=False):
         # the first output, so the map is read twice and written once
         n, h, w, c = shape
         return 3 * n * h * w * c * 2 + 2 * c * 4, 5 * n * h * w * c, "fp32"
+    if name == "ms_deform_attn":
+        # shape (tokens, queries), Deformable DETR's transformer: the bf16
+        # map read once, 12 bytes a sample, the bf16 output written once
+        # (the benchmark's msda_roofline); a multiply-add a channel for each
+        # of a sample's 4 corners, 32 channels a head
+        from benchmark.core import msda_roofline
+
+        tokens, queries = shape
+        t = DETR_MSDA
+        samples = queries * t["heads"] * t["levels"] * t["points"]
+        return (msda_roofline.call_bytes(tokens, queries, t),
+                samples * 4 * 2 * t["embed_dims"] // t["heads"], "fp32")
     if name == "lfd_assign":
         # shape (B, P, C, N, R): R real GT rows of B x N. The float32 targets
         # (B, P, C + 4) written; each point's 7 constants, the mask and the
@@ -1740,6 +1769,7 @@ def time_kernels(device, card):
     for name, err in engine_shape_errs(device, g).items():
         errs[name] = max(errs[name], err)
     out["lfd_assign"], errs["lfd_assign"] = time_k6(device, card)
+    out["ms_deform_attn"], errs["ms_deform_attn"] = time_k7(device, card)
     return out, errs
 
 
@@ -1929,6 +1959,89 @@ def time_k6(device, card):
     shape = (gt.shape[0], args[0].shape[0], det.num_classes, gt.shape[1], int(mask.sum()))
     return _timing("lfd_assign", shape, card, warm, warm, plain, None,
                    note=" (inputs under 1 MB: warm = cold; no PyTorch call assigns targets)"), 0.0
+
+
+def time_k7(device, card):
+    """K7 at the Deformable DETR cell's calls. One eager bf16 forward of the
+    zoo's net (seeded init) at DETR_HW, through the engine the cell builds,
+    records its 12 ms_deform_attn calls and launches K7 12 times (the
+    wrapper's count). The first encoder call (22,223 queries) and the last
+    decoder call (300) are held to the plain version (alone_err, K7_TOL)
+    and timed: warm CUDA-graph ms on the call's own inputs, cold over the 6
+    layers' inputs of that shape (each launch another layer's map and
+    locations: 341 MB for the encoder's), beside the bound (the map, 12
+    bytes a sample and the output at 3.35 TB/s) and the plain version eager.
+    Then the captured engine records 12 launches at its capture, and
+    PROFILED_FRAMES profiled replays launch K7 12 times each by kernel name.
+    Returns (the fields of the kernels line for the encoder call, with
+    launches, replayed_launches, launches_by_path and the decoder call's
+    timing in other_shapes; the largest max|kernel - plain|)."""
+    import torch
+
+    from lfdtpu_torch import zoo
+    from lfdtpu_torch.deploy import compile_inference, make_device_preprocess
+    from lfdtpu_torch.ops import msda
+
+    torch.manual_seed(0)
+    det = zoo.deformable_detr_r50()
+    det.net.to(device).eval()
+    pre = make_device_preprocess((123.675, 116.28, 103.53), (58.395, 57.12, 57.375),
+                                 bgr2rgb=True)
+    frame = frames(np.random.RandomState(26), 1, DETR_HW)
+    vhw = torch.tensor([DETR_HW], dtype=torch.float32, device=device)
+    eager = compile_inference(det, DETR_HW, "bf16", preprocess=pre, device=device,
+                              captured=False)
+    real, calls = msda.ms_deform_attn, []
+
+    def record(*args):
+        calls.append(args)
+        return real(*args)
+
+    msda.ms_deform_attn = record
+    before = real.launches
+    try:
+        with torch.inference_mode():
+            eager.program(torch.as_tensor(frame, device=device), vhw)
+        torch.cuda.synchronize()
+    finally:
+        msda.ms_deform_attn = real
+    launches = real.launches - before
+    check(len(calls) == 12 and launches == 12,
+          f"one Deformable DETR forward called ms_deform_attn {len(calls)} times and "
+          f"launched K7 {launches} times, not 12")
+    rows, err = [], 0.0
+    for label, group in (("encoder", calls[:6]), ("decoder", calls[6:])):
+        value, shapes, starts, loc, weights = group[0]
+        shape = (value.shape[1], loc.shape[1])
+        with torch.inference_mode():
+            err = max(err, alone_err("ms_deform_attn", real(*group[0]),
+                                     msda.ms_deform_attn_plain(*group[0]), K7_TOL))
+            warm = graph_ms([lambda: real(*group[0])])
+            cold = graph_ms([lambda a=a: real(*a) for a in group])
+            plain = time_ms(lambda: msda.ms_deform_attn_plain(*group[0]), iters=5, warmup=1)
+        rows.append(dict(shape=list(shape), **_timing(
+            "ms_deform_attn", shape, card, warm, cold, plain, None,
+            note=f" ({label} call, bf16; no PyTorch call samples deformably)")))
+    del calls, eager
+    captured = compile_inference(det, DETR_HW, "bf16", preprocess=pre, device=device)
+    at_capture = captured._graphs[torch.uint8].msda_launches
+    x = torch.as_tensor(frame)
+    prof, _ = profiled(lambda: captured(x, DETR_HW),
+                       lambda: [captured(x, DETR_HW) for _ in range(PROFILED_FRAMES)])
+    replayed, window = kernel_launches_in(prof, names=("ms_deform_attn",))
+    print(f"Deformable DETR-R50 bf16 at {DETR_HW[0]}x{DETR_HW[1]}: K7 launched {launches} "
+          f"times by one eager forward, {at_capture} in the capture, {replayed} by "
+          f"{PROFILED_FRAMES} profiled replays ({window}) [{card}]")
+    check(at_capture == 12 and replayed["ms_deform_attn"] == 12 * PROFILED_FRAMES,
+          "the captured Deformable DETR engine did not launch K7 12 times a frame")
+    del captured
+    torch.cuda.empty_cache()
+    encoder = {k: v for k, v in rows[0].items() if k != "shape"}
+    return dict(encoder, launches=launches, replayed_launches=replayed["ms_deform_attn"],
+                launches_by_path={"Deformable DETR-R50 bf16 engine, 800x1333": dict(
+                    eager=launches, capture=at_capture,
+                    replayed=replayed["ms_deform_attn"])},
+                other_shapes=rows[1:]), err
 
 
 def profile_engine(engine, x, vhw, label, counters, want, frames_=PROFILED_FRAMES):
@@ -4926,6 +5039,12 @@ def main(argv=()):
                         replaces="lfdtpu/ops/assign.py:84", launches=next(iter(k6_paths.values())),
                         replayed_launches=None, max_abs_err=errs["lfd_assign"],
                         **timings["lfd_assign"], launches_by_path=k6_paths, other_shapes=[]))
+    # K7 serves Deformable DETR, whose engine no other phase builds: its
+    # launches and times from phase 7 (not a Pallas kernel: lfdtpu has no
+    # deformable attention)
+    kernels.append(dict(name="ms_deform_attn", route="cuda", source="lfdtpu_torch/csrc/msda.cu",
+                        replaces=None, max_abs_err=errs["ms_deform_attn"],
+                        **timings["ms_deform_attn"]))
 
     print(json.dumps({"k4_narrow_rows": [r for _, _, rows in narrow8.values() for r in rows]}))
     print(f"total {time.time() - t_start:.1f} s")

@@ -22,7 +22,7 @@ from .. import tracing
 from ..ops.conv_kernels import pair_conv3x3, stem_conv
 from ..ops.group_norm import group_norm_relu
 from ..ops.int8_conv import int8_conv
-from ..ops.msda import samples_taken
+from ..ops.msda import ms_deform_attn, samples_taken
 from ..ops.nms_kernel import nms_mask_sorted
 
 _WARMUP_CALLS = 3  # eager calls before a capture
@@ -40,12 +40,15 @@ def launch_counts():
 def count_engine_work(run, *args):
     """run(*args), and as counters (where tracing records) the K5 launches
     it made, `engine.gn_kernel`, and the multi-scale deformable attention's
-    samples it took, `engine.msda_samples` (only where it took any)."""
-    launches, samples = group_norm_relu.launches, samples_taken()
+    samples it took, `engine.msda_samples`, and K7 launches it made,
+    `engine.msda_kernel` (each only where there are any)."""
+    launches, samples, msda = group_norm_relu.launches, samples_taken(), ms_deform_attn.launches
     out = run(*args)
     tracing.count("engine.gn_kernel", lambda: group_norm_relu.launches - launches)
     if samples_taken() != samples:
         tracing.count("engine.msda_samples", samples_taken() - samples)
+    if ms_deform_attn.launches != msda:
+        tracing.count("engine.msda_kernel", ms_deform_attn.launches - msda)
     return out
 
 
@@ -159,13 +162,15 @@ class _Slot:
 class _Graph:
     """One captured graph, for frames of one dtype: its static input on the
     device, its pinned staging slots (oldest first), its outputs, the
-    kernel launches it records and the MSDA samples it takes."""
+    kernel launches it records, the MSDA samples it takes and its K7
+    launches."""
     graph: torch.cuda.CUDAGraph
     inp: torch.Tensor
     slots: collections.deque
     out: object
     launches: dict
     samples: int
+    msda_launches: int
 
 
 def _clone(out):
@@ -214,7 +219,8 @@ class GraphRunner:
     (the graph's, from its capture; an eager call's, from the wrapper's
     count), `engine.msda_samples`: the samples its multi-scale deformable
     attention takes (counted the same way; a net without MSDA counts
-    none), and `engine.stage_bytes`: the bytes written into the pinned
+    none), `engine.msda_kernel`: its K7 launches (the same way; none on the
+    CPU), and `engine.stage_bytes`: the bytes written into the pinned
     slot, the frames' and the stale pad zeroed (captured calls)."""
 
     # set by the subclass: device, batch_size, input_resolution, kernel_stem
@@ -302,7 +308,7 @@ class GraphRunner:
             torch.cuda.current_stream(dev).wait_stream(side)
             torch.cuda.synchronize(dev)
             graph = torch.cuda.CUDAGraph()
-            before, samples = launch_counts(), samples_taken()
+            before, samples, msda = launch_counts(), samples_taken(), ms_deform_attn.launches
             try:
                 # thread_local: another thread's CUDA calls (a loader
                 # pinning memory) do not fail this capture; no span records
@@ -317,7 +323,7 @@ class GraphRunner:
                     f"capturing the engine into a CUDA graph failed: {e}") from e
             launches = {k: v - before[k] for k, v in launch_counts().items()}
             g = _Graph(graph, inp, collections.deque(), out, launches,
-                       samples_taken() - samples)
+                       samples_taken() - samples, ms_deform_attn.launches - msda)
             g.slots.append(self._new_slot(g))
             self._graphs[dtype] = g
             return g
@@ -382,6 +388,8 @@ class GraphRunner:
                 tracing.count("engine.gn_kernel", g.launches["group_norm_relu"])
                 if g.samples:
                     tracing.count("engine.msda_samples", g.samples)
+                if g.msda_launches:
+                    tracing.count("engine.msda_kernel", g.msda_launches)
             # Copies, so that call n's result survives call n + 1 (the
             # graph writes the same output tensors every replay): one small
             # device copy per output, max_det rows each (B x 100 x 7 floats

@@ -30,6 +30,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_IP = ctypes.POINTER(ctypes.c_int)  # a host array of ints
 _SIGNATURES = {
     # boxes, valid, keep, scratch, B, K, thr, stream
     "lfd_nms_mask_sorted": (_P, _P, _P, _P, _I, _I, ctypes.c_float, _P),
@@ -48,6 +49,9 @@ _SIGNATURES = {
     # points, strides, ranges, gray, gt, labels, mask, cls, reg, B, P, N, C,
     # mode, normalize, stream
     "lfd_assign": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # value, locations, weights, out, B, S, Q, heads, levels, points, the
+    # levels' (h, w) and first tokens (host arrays), fp32, stream
+    "lfd_ms_deform_attn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _IP, _IP, _I, _P),
 }
 
 

@@ -1591,3 +1591,218 @@ def test_assign_kernel_rejects_what_it_does_not_take(cuda):
     assert assign.lfd_assign.launches == before  # a count of launches, not of calls
     torch.library.opcheck(torch.ops.lfd.lfd_assign.default,
                           (*levels, gt, labels, mask, 2, "dist", True))
+
+
+# K7 (csrc/msda.cu) against the plain ms_deform_attn on the same card, at the
+# Deformable DETR cell's calls: the four levels of an 800x1333 frame (22,223
+# tokens), an encoder call (every token a query, 2-d references at the token
+# centres) and a decoder call (300 queries, 4-d reference boxes). Both sides
+# compute each sample's corners by grid_sample's float32 arithmetic and sum
+# in float32, in other orders. So float32 values agree within 1e-5 of the
+# output's largest magnitude (float32 rounding of a sum of 64 weighted taps
+# a channel, with room); bf16 values within one bf16 step at that magnitude
+# (2^-7 of its power of two, 2^-8 to 2^-7 of it): both round nearly the same
+# float32 sum to bf16, and a sum on either side of a rounding boundary
+# lands one step apart.
+K7_F32_TOL = 1e-5
+
+
+def _k7_tol(ref):
+    top = float(ref.float().abs().max())
+    if ref.dtype == torch.float32:
+        return K7_F32_TOL * top
+    return 2.0 ** (np.floor(np.log2(top)) - 7)
+
+
+def _k7_levels():
+    from benchmark.core import msda_roofline
+
+    shapes = msda_roofline.level_shapes((800, 1333))
+    starts = [sum(h * w for h, w in shapes[:i]) for i in range(len(shapes))]
+    return shapes, starts, sum(h * w for h, w in shapes)
+
+
+def _k7_inputs(cuda, kind, dtype, batch=1, seed=0):
+    """(value, locations, weights) of one call at the cell's levels: value
+    (B, 22223, 8, 32) in `dtype`, the second image of a batch of 2 a
+    600x1000 frame in the 800x1333 engine (its padded tokens zeroed, as the
+    layer's masked_fill does); encoder locations the token centres plus
+    offsets of about 2 cells, decoder ones random boxes' centres plus
+    offsets of about a box; softmax weights over each head's 16 samples."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    shapes, _, S = _k7_levels()
+    value = torch.randn(batch, S, 8, 32, generator=g, device=cuda)
+    if batch == 2:
+        padded = torch.cat([(((torch.arange(h, device=cuda)[:, None] + 0.5) / h > 600 / 800)
+                             | ((torch.arange(w, device=cuda)[None] + 0.5) / w > 1000 / 1333))
+                            .flatten() for h, w in shapes])
+        value[1, padded] = 0
+    value = value.to(dtype)
+    wh = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32, device=cuda)
+    Q = S if kind == "encoder" else 300
+    off = torch.randn(batch, Q, 8, 4, 4, 2, generator=g, device=cuda) * 2
+    if kind == "encoder":
+        centres = torch.cat([torch.stack(torch.meshgrid(
+            (torch.arange(h, device=cuda) + 0.5) / h, (torch.arange(w, device=cuda) + 0.5) / w,
+            indexing="ij")[::-1], -1).reshape(-1, 2) for h, w in shapes])
+        loc = centres[None, :, None, None, None] + off / wh[:, None]
+    else:
+        xy = torch.rand(batch, Q, 1, 1, 1, 2, generator=g, device=cuda) * 0.8 + 0.1
+        box = torch.rand(batch, Q, 1, 1, 1, 2, generator=g, device=cuda) * 0.4 + 0.02
+        loc = xy + off / 4 * box * 0.5
+    weights = torch.randn(batch, Q, 8, 16, generator=g, device=cuda).softmax(-1)
+    return value, loc.contiguous(), weights.view(batch, Q, 8, 4, 4)
+
+
+def _k7_check(value, loc, weights, shapes=None, starts=None):
+    """K7 once (one launch) against the plain version on the same tensors;
+    returns (K7's output, the plain one's, max|K7 - plain|, the tolerance)."""
+    from lfdtpu_torch.ops import msda
+
+    if shapes is None:
+        shapes, starts, _ = _k7_levels()
+    before = msda.ms_deform_attn.launches
+    got = msda.ms_deform_attn(value, shapes, starts, loc, weights)
+    assert msda.ms_deform_attn.launches == before + 1
+    want = msda.ms_deform_attn_plain(value, shapes, starts, loc, weights)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype == value.dtype
+    err = float((got.float() - want.float()).abs().max())
+    tol = _k7_tol(want)
+    assert err <= tol, (err, tol)
+    return got, want, err, tol
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("kind", ["encoder", "decoder"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_msda_kernel_matches_plain_at_the_cells_calls(cuda, dtype, kind, batch):
+    value, loc, weights = _k7_inputs(cuda, kind, dtype, batch, seed=batch)
+    got, _, _, _ = _k7_check(value, loc, weights)
+    assert got.shape == (batch, loc.shape[1], 256)
+    if batch == 2:  # the smaller frame's padded tokens read zeros
+        assert (value[1] == 0).any() and got[1].abs().max() > 0
+
+
+def _k7_small(cuda, where, dtype):
+    """Two levels of 5x7 and 3x4 (47 tokens), 64 queries: locations off the
+    map (a quarter of each query's samples wholly off it), on its edges
+    (0 and 1 and the outer pixel centres, where one or two corners are off)
+    or at pixel centres (each sample one pixel's value)."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    shapes, starts = [(5, 7), (3, 4)], [0, 35]
+    value = torch.randn(2, 47, 8, 32, generator=g, device=cuda).to(dtype)
+    wh = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32,
+                      device=cuda)[None, None, None, :, None]
+    weights = torch.rand(2, 64, 8, 2, 4, generator=g, device=cuda)
+    cells = torch.floor(torch.rand(2, 64, 8, 2, 4, 2, generator=g, device=cuda) * wh)
+    if where == "off":
+        loc = torch.rand(2, 64, 8, 2, 4, 2, generator=g, device=cuda) * 3 - 1
+        loc[:, :16] += 3  # these queries sample nothing on the map
+    elif where == "edges":
+        pick = torch.randint(0, 4, (2, 64, 8, 2, 4, 2), generator=g, device=cuda)
+        half = 0.5 / wh.expand_as(cells)
+        edge = torch.stack([torch.zeros_like(cells), torch.ones_like(cells), half, 1 - half], -1)
+        loc = edge.gather(-1, pick[..., None])[..., 0]
+    else:
+        loc = (cells + 0.5) / wh
+    return value, shapes, starts, loc.contiguous(), weights
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("where", ["off", "edges", "centres"])
+def test_msda_kernel_off_the_map_on_its_edges_and_at_pixel_centres(cuda, where, dtype):
+    value, shapes, starts, loc, weights = _k7_small(cuda, where, dtype)
+    got, want, _, _ = _k7_check(value, loc, weights, shapes, starts)
+    if where == "off":
+        assert torch.equal(got[:, :16], torch.zeros_like(got[:, :16]))
+        assert got[:, 16:].abs().max() > 0
+    if where == "centres" and dtype == torch.float32:
+        # each sample reads one pixel: the weighted sum of the values
+        shapes_t = torch.tensor([[w, h] for h, w in shapes], device=cuda)
+        x = (loc[..., 0] * shapes_t[:, 0][:, None]).floor().long()
+        y = (loc[..., 1] * shapes_t[:, 1][:, None]).floor().long()
+        tok = torch.tensor(starts, device=cuda)[:, None] + y * shapes_t[:, 0][:, None] + x
+        B, Q, H, L, P = tok.shape
+        b = torch.arange(B, device=cuda)[:, None, None, None, None].expand_as(tok)
+        h = torch.arange(H, device=cuda)[None, None, :, None, None].expand_as(tok)
+        taps = value[b, tok, h]  # (B, Q, H, L, P, 32)
+        direct = (taps * weights[..., None]).sum((3, 4)).reshape(B, Q, H * 32)
+        assert float((got - direct).abs().max()) <= K7_F32_TOL * float(direct.abs().max())
+
+
+def test_msda_kernel_keeps_float32_locations(cuda):
+    """F25: K7 meets its tolerance on the encoder call in bf16, and the same
+    kernel on locations rounded to bf16 (a 167-wide level's locations off by
+    up to 0.65 cells) does not: a K7 that rounded its locations fails here."""
+    from lfdtpu_torch.ops import msda
+
+    value, loc, weights = _k7_inputs(cuda, "encoder", torch.bfloat16, seed=5)
+    _, want, err, tol = _k7_check(value, loc, weights)
+    shapes, starts, _ = _k7_levels()
+    rounded = msda.ms_deform_attn(value, shapes, starts, loc.bfloat16().float(), weights)
+    rounded_err = float((rounded.float() - want.float()).abs().max())
+    assert err <= tol < rounded_err, (err, tol, rounded_err)
+
+
+def test_msda_kernel_refuses_what_it_does_not_take(cuda):
+    from lfdtpu_torch.ops import msda
+
+    value, shapes, starts, loc, weights = _k7_small(cuda, "off", torch.bfloat16)
+    with pytest.raises(ValueError, match="bf16 or float32"):
+        msda.ms_deform_attn(value.half(), shapes, starts, loc, weights)
+    with pytest.raises(ValueError, match="32 channels"):  # 16 heads of 16
+        msda.ms_deform_attn(value.view(2, 47, 16, 16), shapes, starts,
+                            loc.repeat(1, 1, 2, 1, 1, 1), weights.repeat(1, 1, 2, 1, 1))
+    with pytest.raises(ValueError, match="levels"):
+        nine = [(1, 1)] * (msda.MAX_LEVELS + 1)
+        msda.ms_deform_attn(value, nine, list(range(len(nine))),
+                            loc[:, :, :, :1].repeat(1, 1, 1, len(nine), 1, 1).contiguous(),
+                            weights[:, :, :, :1].repeat(1, 1, 1, len(nine), 1).contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        msda.ms_deform_attn(value, shapes, starts, loc.transpose(0, 1).contiguous()
+                            .transpose(0, 1), weights)
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        msda.ms_deform_attn(value, shapes, starts, loc, weights.cpu())
+    with pytest.raises(ValueError, match="backward"):
+        msda.ms_deform_attn(value.float().requires_grad_(), shapes, starts, loc, weights)
+    before = msda.ms_deform_attn.launches
+    out = msda.ms_deform_attn(value, shapes, starts, loc[:, :0], weights[:, :0])
+    assert out.shape == (2, 0, 256) and msda.ms_deform_attn.launches == before
+    flat = [v for hw in shapes for v in hw]
+    torch.library.opcheck(torch.ops.lfd.ms_deform_attn.default, (value, flat, starts, loc, weights))
+
+
+def test_a_deformable_detr_forward_launches_k7_twelve_times(cuda):
+    """One eager forward of the bf16 engine (6 encoder and 6 decoder MSDA
+    layers) launches K7 12 times, the captured engine's graph records the
+    12, and its rows equal the eager engine's (K7 sums in a fixed order)."""
+    from lfdtpu_torch import zoo
+    from lfdtpu_torch.deploy import compile_inference, make_device_preprocess
+    from lfdtpu_torch.ops import msda
+
+    hw = (160, 224)
+    torch.manual_seed(0)
+    det = zoo.deformable_detr_r50()
+    det.net.eval()
+    pre = make_device_preprocess((123.675, 116.28, 103.53), (58.395, 57.12, 57.375))
+    eager = compile_inference(det, hw, "bf16", preprocess=pre, device="cuda", captured=False)
+    frame = np.random.RandomState(2).randint(0, 256, (1, *hw, 3)).astype(np.uint8)
+    before = msda.ms_deform_attn.launches
+    want = eager(frame, hw)
+    torch.cuda.synchronize()
+    assert msda.ms_deform_attn.launches == before + 12
+    # the benchmark's engine.msda_ms records the calls through the module's
+    # attribute: K7 still counts its launches on the wrapper
+    from benchmark.core import ddetr_program
+
+    x = torch.as_tensor(frame, device=cuda)
+    vhw = torch.tensor([hw], dtype=torch.float32, device=cuda)
+    fn, calls = ddetr_program.msda_calls(eager, x, vhw)
+    assert fn is msda.ms_deform_attn and len(calls) == 12
+    assert msda.ms_deform_attn.launches == before + 24
+    captured = compile_inference(det, hw, "bf16", preprocess=pre, device="cuda")
+    assert captured._graphs[torch.uint8].msda_launches == 12
+    got = captured(frame, hw)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k

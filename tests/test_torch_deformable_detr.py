@@ -3,7 +3,10 @@
 # the two-stage selection keeps 300 of them), with the benchmark's seeded
 # weights (benchmark/core/ddetr_weights.py):
 #   - ops/msda.py::ms_deform_attn is the bilinear formula written out, zero
-#     off the map, exact on pixel centres;
+#     off the map, exact on pixel centres; on CPU tensors the op
+#     lfd::ms_deform_attn is its plain version bit for bit, its fake kernel
+#     gives the output's shape and dtype, and the wrapper refuses bad
+#     arguments before dispatch (K7 itself: tests/test_torch_cuda.py);
 #   - zoo.deformable_detr_r50 builds mmdetection's recipe, its state_dict
 #     named as the plain reference's weights;
 #   - the eager float32 net selects the plain reference's 300 tokens and
@@ -25,7 +28,8 @@ from benchmark.reference import deformable_detr as ref
 from benchmark.reference.fcos import normalize
 from lfdtpu_torch import zoo
 from lfdtpu_torch.deploy import compile_inference, make_device_preprocess
-from lfdtpu_torch.ops.msda import ms_deform_attn, samples_taken
+from lfdtpu_torch.ops import msda
+from lfdtpu_torch.ops.msda import ms_deform_attn, ms_deform_attn_plain, samples_taken
 
 torch.set_num_threads(1)
 
@@ -100,9 +104,10 @@ def test_ms_deform_attn_is_the_bilinear_formula(where):
         sizes = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32)
         cells = torch.floor(torch.rand(B, Q, nh, L, P, 2, generator=g) * sizes[:, None])
         loc = (cells + 0.5) / sizes[:, None]
-    got = ms_deform_attn(value, shapes, starts, loc, weights)
+    got = ms_deform_attn(value, shapes, starts, loc, weights)  # through lfd::ms_deform_attn
     want = _bilinear_loop(value, shapes, starts, loc, weights)
     assert got.shape == (B, Q, nh * d) and got.dtype == torch.float32
+    assert torch.equal(got, ms_deform_attn_plain(value, shapes, starts, loc, weights))
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
     if where == "anywhere":
         off = ((loc < -0.5 / 7) | (loc > 1 + 0.5 / 7)).any(-1).all(-1).all(-1)  # (B, Q, nh)
@@ -110,6 +115,90 @@ def test_ms_deform_attn_is_the_bilinear_formula(where):
         zeros = torch.zeros_like(value)
         blank = ms_deform_attn(zeros, shapes, starts, loc, weights)
         assert torch.equal(blank, torch.zeros_like(blank))
+
+
+def _msda_case(dtype=torch.float32, seed=4):
+    """A small call: two levels, a third of the samples off the map."""
+    g = torch.Generator().manual_seed(seed)
+    shapes, starts = [(5, 7), (3, 4)], [0, 35]
+    B, Q, nh, d, L, P = 2, 6, 2, 32, 2, 3
+    value = torch.randn(B, 47, nh, d, generator=g).to(dtype)
+    loc = torch.rand(B, Q, nh, L, P, 2, generator=g) * 1.6 - 0.3
+    weights = torch.rand(B, Q, nh, L, P, generator=g)
+    return value, shapes, starts, loc, weights
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_the_op_on_cpu_tensors_is_the_plain_version(dtype):
+    value, shapes, starts, loc, weights = _msda_case(dtype)
+    flat = [v for hw in shapes for v in hw]
+    got = torch.ops.lfd.ms_deform_attn(value, flat, starts, loc, weights)
+    want = ms_deform_attn_plain(value, shapes, starts, loc, weights)
+    assert got.dtype == dtype and got.is_contiguous() and torch.equal(got, want)
+    torch.library.opcheck(torch.ops.lfd.ms_deform_attn.default, (value, flat, starts, loc, weights))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_the_fake_kernel_gives_the_output_shape_and_dtype(dtype):
+    value, shapes, starts, loc, weights = (
+        t.to("meta") if isinstance(t, torch.Tensor) else t for t in _msda_case(dtype))
+    out = ms_deform_attn(value, shapes, starts, loc, weights)
+    assert out.device.type == "meta" and out.shape == (2, 6, 64) and out.dtype == dtype
+
+
+@pytest.mark.parametrize("bad", ["value not 4-d", "locations' heads", "locations' levels",
+                                 "weights' shape", "bf16 locations", "float64 weights",
+                                 "a start short", "a level past the map"])
+def test_the_wrapper_refuses_bad_arguments_before_dispatch(monkeypatch, bad):
+    value, shapes, starts, loc, weights = _msda_case()
+    if bad == "value not 4-d":
+        value = value.flatten(2)
+    elif bad == "locations' heads":
+        loc = loc[:, :, :1]
+    elif bad == "locations' levels":
+        shapes, starts = shapes[:1], starts[:1]
+    elif bad == "weights' shape":
+        weights = weights[..., :2]
+    elif bad == "bf16 locations":
+        loc = loc.bfloat16()
+    elif bad == "float64 weights":
+        weights = weights.double()
+    elif bad == "a start short":
+        starts = starts[:1]
+    else:
+        starts = [0, 36]  # the second level's 12 tokens would end past the 47
+
+    def dispatched(*args):
+        raise AssertionError("the op was called")
+
+    monkeypatch.setattr(msda, "ms_deform_attn_plain", dispatched)
+    before = samples_taken()
+    with pytest.raises(ValueError, match="ms_deform_attn"):
+        ms_deform_attn(value, shapes, starts, loc, weights)
+    assert samples_taken() == before
+
+
+def test_k7_counts_on_the_wrapper_while_the_attribute_is_replaced(monkeypatch):
+    """K7's CUDA kernel ticks ms_deform_attn.launches on the wrapper itself,
+    also while the module's attribute is a recorder of the calls (the
+    benchmark's engine.msda_ms replays them so): run here on CPU tensors
+    with the launch and the device checks stubbed out."""
+    import contextlib
+
+    value, shapes, starts, loc, weights = _msda_case()
+    launched = []
+    monkeypatch.setattr(msda.kernel_lib, "check_cuda", lambda *args: None)
+    monkeypatch.setattr(msda.kernel_lib, "stream_of", lambda t: None)
+    monkeypatch.setattr(msda.kernel_lib, "launch", lambda name, *args: launched.append(name))
+    monkeypatch.setattr(msda.torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    wrapper = msda.ms_deform_attn
+    monkeypatch.setattr(msda, "ms_deform_attn", lambda *args: wrapper(*args))
+    before = wrapper.launches
+    out = msda._msda_cuda(value, [v for hw in shapes for v in hw], starts, loc, weights)
+    assert launched == ["lfd_ms_deform_attn"] and wrapper.launches == before + 1
+    assert out.shape == (2, 6, 64) and out.dtype == value.dtype
+    msda._msda_cuda(value, [v for hw in shapes for v in hw], starts, loc[:, :0], weights[:, :0])
+    assert wrapper.launches == before + 1  # no queries: no launch
 
 
 def test_zoo_builds_the_published_recipe():

@@ -31,6 +31,12 @@ K3_CONSTS = 9 * 64 * 64 * 2 + 2 * 64 * 4  # bf16 weights, fp32 scale and bias
     # hit-test operations (8 a pair) take 1.89 us, under the bytes
     ("lfd_assign", (64, 19189, 1, 200, 823), False,
      64 * 19189 * 5 * 4 + 19189 * 7 * 4 + 64 * 200 + 823 * 24, 7.50),
+    # K7 at Deformable DETR's 800x1333 calls (22,223 tokens, 128 samples a
+    # query): the bf16 map, 12 bytes a sample and the bf16 output; an
+    # encoder call's 728 M fp32 multiply-adds (256 a sample) take 10.9 us,
+    # under the bytes
+    ("ms_deform_attn", (22223, 22223), False, 22223 * 512 * 2 + 22223 * 128 * 12, 16.98),
+    ("ms_deform_attn", (22223, 300), False, 22523 * 512 + 300 * 128 * 12, 3.58),
 ])
 def test_kernel_bound_is_bytes_bound_at_engine_shapes(name, shape, residual, nbytes, us):
     ms, by = chip_smoke.kernel_bound_ms(name, shape, residual)

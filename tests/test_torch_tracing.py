@@ -268,6 +268,61 @@ def test_a_deformable_detr_call_records_its_spans_and_samples():
     assert summary["counters"] == {"predict.rows": 100, "engine.gn_kernel": 0,
                                    "engine.msda_samples": 6 * (426 + 300) * 128}
 
+@pytest.mark.parametrize("launches", [0, 1])
+def test_a_deformable_detr_call_counts_its_k7_launches(monkeypatch, launches):
+    """Counter engine.msda_kernel: K7's launches in the call's forward, absent
+    where there are none (the CPU runs the plain version); a launch is
+    simulated by an ms_deform_attn that bumps the wrapper's count as K7's
+    CUDA kernel does. The benchmark's reader gives it per predict call, and
+    None without it (a program without K7)."""
+    from benchmark.core import spec
+    from lfdtpu_torch.deploy import compile_inference, make_device_preprocess
+    from lfdtpu_torch.ops import msda
+
+    hw = (128, 160)
+    det = zoo.deformable_detr_r50()
+    det.net.eval()
+    engine = compile_inference(det, hw, "fp32", preprocess=make_device_preprocess(
+        (0.5,) * 3, (0.5,) * 3), device="cpu")
+    if launches:
+        real = msda.ms_deform_attn
+
+        def counted(*args):
+            monkeypatch.setattr(real, "launches", real.launches + 1)
+            return real(*args)
+
+        monkeypatch.setattr(msda, "ms_deform_attn", counted)
+    frame = np.random.RandomState(4).randint(0, 256, (*hw, 3)).astype(np.uint8)
+    with _profile():
+        for _ in range(2):
+            det.predict_for_single_image_with_engine(engine, frame)
+    counters = tracing.summary()["counters"]
+    reader = spec.reader("engine.msda_kernel_per_frame.detr")
+    if launches:  # 6 encoder and 6 decoder layers, one call each
+        assert counters["engine.msda_kernel"] == 2 * 12 and reader.read({}) == 12
+    else:
+        assert "engine.msda_kernel" not in counters and reader.read({}) is None
+    assert counters["engine.msda_samples"] == 2 * 6 * (426 + 300) * 128
+
+
+@pytest.mark.parametrize("name", ["widerface-XS", "fcos-r50-fpn"])
+def test_a_net_without_msda_counts_no_samples_and_no_k7_launch(name):
+    from lfdtpu_torch.deploy import compile_inference, make_device_preprocess
+
+    if name == "fcos-r50-fpn":
+        det, hw = zoo.fcos_r50_fpn(), (128, 128)
+    else:
+        det, hw = _detector(), HW
+    engine = compile_inference(det, hw, "fp32", preprocess=make_device_preprocess(
+        (0.5,) * 3, (0.5,) * 3), device="cpu")
+    frame = np.random.RandomState(6).randint(0, 256, (*hw, 3)).astype(np.uint8)
+    with _profile():
+        det.predict_for_single_image_with_engine(engine, frame)
+    counters = tracing.summary()["counters"]
+    assert counters["engine.gn_kernel"] == 0
+    assert "engine.msda_kernel" not in counters and "engine.msda_samples" not in counters
+
+
 def test_stream_spans_carry_their_submits_numbers():
     from lfdtpu_torch.deploy import StreamingServer, run_stream
 
